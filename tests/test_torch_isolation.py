@@ -1,0 +1,55 @@
+"""The port stands alone: importing every ``repro_torch`` module loads no
+jax and nothing of ``repro``, and ``chip_smoke.py`` imports neither."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True,
+        env=env, cwd=ROOT, check=True, timeout=120,
+    ).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 20, "walked too few modules"
+    assert out[1].strip() == "[]"
+
+
+@pytest.mark.parametrize(
+    "path", ["chip_smoke.py"] + sorted(
+        str(p.relative_to(ROOT)) for p in (ROOT / "src/repro_torch").rglob("*.py")
+    ),
+)
+def test_no_source_of_the_port_imports_jax_or_repro(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
