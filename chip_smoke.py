@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100. Phases, each
 of which raises on failure:
 
 1. Device and build: the card's name and power limit, the torch
-   version, and the three CUDA kernels built from ``kernels/csrc`` (one
+   version, and the four CUDA kernels built from ``kernels/csrc`` (one
    ``nvcc`` per source, all at once) with ``-Xptxas -v``'s registers and
    shared memory.
 2. Each kernel against its plain PyTorch version on the card, at the
@@ -38,6 +38,43 @@ of which raises on failure:
    ``torch.profiler`` runs, the card's idle share in each CC cell and in
    ``list_rank`` on a 2^20-node list.
 
+6. ``flash_attention`` against its plain version (``attention_ref``)
+   on the card within rtol = 3e-2 in bf16 and 2e-3 in float32, and an
+   atol of the same fraction of the output's root mean square:
+   (a) qwen3-4b's prefill shape, B=2, Hq=32, Hkv=8, S=4096, D=128,
+   causal; (b) layer 0's q/k/v of the full-width model on the prefill
+   tokens; (c) gemma's MQA shape (Hq=8, Hkv=1, D=256, S=1000); (d)
+   phi3's MHA shape (Hq=Hkv=32, D=96, S=777), non-causal, so keys past
+   a block edge must not score; (e) S=2048 with window=512; (f) float32;
+   every other head_dim instance in both types; rows with no live key
+   (Sq > Sk + window); and, at S=32768 (the ``prefill_32k`` length, where
+   the plain version's scores would take 137 GB), the first and last
+   256 rows against ``attention_ref`` on those rows alone.
+7. Prefill at full width: qwen3-4b's ``CONFIG`` in bf16 from
+   ``init_params`` with a seeded CUDA generator, ``forward`` on (2, 4096)
+   tokens from ``np.random.default_rng(0)``: a warm-up, then three
+   timed calls (median ms, tokens/s), ``flash_attention`` launched 36
+   times in the first, peak device memory, and the device idle share
+   from one ``torch.profiler`` run.
+   The activation's op-by-op cost against one fused ``F.silu``.
+8. Prefill against decode: the logits of ``forward`` (through the
+   kernel) and of ``prefill``'s loop (token by token through
+   ``serve_step``, which shares no attention code with it) at every
+   position of B=2, S=512: every row whose decode top-2 margin exceeds
+   0.1 must have the same argmax, and no logit may differ by more than
+   ``CONSISTENCY_MAX_DIFF``.
+9. Serving at full width: ``ServeEngine(params, CONFIG, num_slots=4,
+   max_len=512)`` on 8 requests, and ``num_slots=64, max_len=4096`` (the
+   KV cache one card holds beside the weights) on 128, with prompts of
+   16-128 tokens and ``max_new_tokens=32``: 2 waves, every request
+   completed, 32 tokens each; decode tokens/s, steps, ms per step, peak
+   memory; one request of each re-scored by ``forward`` under the
+   margin rule; the idle share of a short profiled run of the wide
+   engine.
+10. ``flash_attention``'s times at shape (a) and at S=32768 beside
+   ``scaled_dot_product_attention`` (the yardstick; the port never
+   calls it) and its FLOP bound at 989 TFLOP/s.
+
 Every line but the last is a report. The line before the last is one
 JSON object with a record per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -56,6 +93,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores, the same sheet
 
 # The main path's sizes.
 CC_GIANT_N = 4_194_304
@@ -76,7 +114,27 @@ KERNELS = {
     "splitter_aggregate": (
         "splitter_aggregate",
         "src/repro/kernels/splitter_aggregate/splitter_aggregate.py:19"),
+    "flash_attention": (
+        "flash_attention",
+        "src/repro/kernels/flash_attention/flash_attention.py:24"),
 }
+
+# The LM phases' sizes.
+LM_ARCH = "qwen3-4b"
+PREFILL_B, PREFILL_S = 2, 4096
+CONSISTENCY_S = 512
+SERVE_NEW = 32  # tokens each request generates
+# (slots, max_len, requests, profiled): the small check, and the cell at
+# the width one card holds: 64 slots of 4096 rows of qwen3-4b KV cache
+# are 38.7 GB beside the 8.8 GB of weights (128 slots would need 77 GB).
+SERVE_CELLS = ((4, 512, 8, False), (64, 4096, 128, True))
+LONG_S = 32_768  # prefill_32k's sequence length
+MARGIN = 0.1  # top-2 logit gap above which two argmaxes must agree
+# Largest |forward - decode| over every logit of phase 8: about twice
+# the largest reading of passing runs on an H100 (0.129 over all 1,024
+# positions; 0.094 at the last ones).
+CONSISTENCY_MAX_DIFF = 0.25
+ATTN_TOL = {"torch.bfloat16": 3e-2, "torch.float32": 2e-3}
 
 
 def check(cond, msg: str) -> None:
@@ -173,12 +231,16 @@ def traced(fn) -> dict[str, float]:
 E2E_SAMPLES = 3  # timed calls per end-to-end cell; the first is checked
 
 
-def device_share(fn) -> tuple[float, float]:
+def device_share(fn, top: int = 0):
     """Run ``fn`` once under ``torch.profiler``; returns its wall
-    milliseconds and the milliseconds the card spent in kernels and
-    copies. The profiler slows the host, so the idle share it implies is
-    an upper bound."""
+    milliseconds, the milliseconds the card was busy (the union of the
+    intervals of its kernels, copies and sets, so nothing is counted
+    twice), the number of those device events, and the ``top`` device
+    event names by total milliseconds.
+    The profiler slows the host, so the idle share it implies is an
+    upper bound."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -187,8 +249,24 @@ def device_share(fn) -> tuple[float, float]:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return wall_ms, device_us / 1e3
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            start, end = ev.time_range.start, ev.time_range.end
+            spans.append((start, end))
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + (end - start) / 1e3
+    check(spans, "the profiler saw device events")
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy_us += cur_end - cur_start
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return wall_ms, busy_us / 1e3, len(spans), ranked
 
 
 def median(xs):
@@ -432,9 +510,9 @@ def phase_cc(dev, graphs, timer):
               f"cc.frontier.sample_ms={spans.get('cc.frontier.sample', 0.0)} "
               f"host_prep_ms={traced_s * 1e3 - spans['cc.frontier'] - spans.get('cc.frontier.sample', 0.0)} "
               f"of which dedup_edges_ms={dedup_ms}")
-        wall_ms, device_ms = device_share(
+        wall_ms, device_ms, _, _ = device_share(
             lambda: connected_components(src, dst, n, device=dev))
-        print(f"cc {name} profiled: wall_ms={wall_ms} device_ms={device_ms} "
+        print(f"cc {name} profiled: wall_ms={wall_ms} device_busy_ms={device_ms} "
               f"device_idle_share={1 - device_ms / wall_ms}")
         rows.append((name, median(secs)))
     return totals, rows
@@ -484,9 +562,9 @@ def phase_list(dev, n, timer):
     # PROFILE_LIST_N nodes runs the same loop, shorter.
     small = random_linked_list(PROFILE_LIST_N, seed=0)
     list_rank(small, device=dev)  # warm-up at this size
-    wall_ms, device_ms = device_share(lambda: list_rank(small, device=dev))
+    wall_ms, device_ms, _, _ = device_share(lambda: list_rank(small, device=dev))
     print(f"list_rank n={PROFILE_LIST_N} profiled: wall_ms={wall_ms} "
-          f"device_ms={device_ms} device_idle_share={1 - device_ms / wall_ms}")
+          f"device_busy_ms={device_ms} device_idle_share={1 - device_ms / wall_ms}")
     return counts, median(secs), walk_share
 
 
@@ -528,6 +606,354 @@ def kernel_times(hook_inputs, pj_inputs, agg_inputs, splitters, big_p,
     return out
 
 
+def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """The (query, key) pairs that ``attention_ref`` keeps: the work an
+    attention call must do, 4 * D FLOPs per pair (two products)."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1, np.int64)
+    lo = np.zeros(sq, np.int64) if window is None else np.maximum(q - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_bound_ms(b, hq, hkv, sq, sk, d, causal, window, itemsize):
+    """``(bound_ms, flops, bytes)``: the larger of the FLOPs over the bf16
+    tensor-core peak and the bytes (q, k, v read once, the output
+    written once) over the HBM rate."""
+    flops = 4 * d * b * hq * live_pairs(sq, sk, causal, window)
+    nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk)
+    return (max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+            flops, nbytes)
+
+
+def attn_err(got, want, dtype_name: str, name: str) -> float:
+    """max |got - want|, checked everywhere against
+    ``|got - want| <= tol * rms(want) + tol * |want|``: rtol is the
+    dtype's tolerance, and atol the same fraction of the output's own
+    size. An output row over N live keys is about sqrt(e / N) in size,
+    so a fixed atol of 3e-2 would pass a kernel that dropped tiles at
+    long S."""
+    import torch
+
+    tol = ATTN_TOL[dtype_name]
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{name}: finite output")
+    diff = (g - w).abs()
+    atol = tol * float(w.square().mean().sqrt())
+    over = int((diff > atol + tol * w.abs()).sum())
+    err = float(diff.max())
+    print(f"flash_attention {name}: max_abs_err={err} mean_abs_err={float(diff.mean())} "
+          f"mean_abs_want={float(w.abs().mean())} rtol={tol} atol={atol} "
+          f"over_tol={over}")
+    check(over == 0, f"{name}: kernel within rtol {tol}, atol {atol} of attention_ref")
+    return err
+
+
+def phase_attention(dev, layer0_qkv):
+    """Phase 6: the kernel against ``attention_ref`` at the LM shapes.
+    Returns the largest max_abs_err and the inputs of shape (a)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(dev).manual_seed(1)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype):
+        return tuple(torch.randn(b, h, s, d, device=dev, generator=gen).to(dtype)
+                     for h, s in ((hq, sq), (hkv, sk), (hkv, sk)))
+
+    def run(name, q, k, v, causal=True, window=None):
+        got = flash_attention(q, k, v, causal=causal, window=window, impl="cuda")
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        return attn_err(got, want, str(q.dtype), name)
+
+    shape_a = qkv(PREFILL_B, 32, 8, PREFILL_S, PREFILL_S, 128, bf)
+    errs = [run(f"(a) B={PREFILL_B} Hq=32 Hkv=8 S={PREFILL_S} D=128 bf16 causal",
+                *shape_a)]
+    q, k, v = (x.transpose(1, 2) for x in layer0_qkv)
+    errs.append(run(f"(b) layer 0 q/k/v of {LM_ARCH} on the prefill tokens "
+                    f"{tuple(q.shape)}", q, k, v))
+    errs.append(run("(c) gemma MQA Hq=8 Hkv=1 D=256 S=1000 bf16 causal",
+                    *qkv(2, 8, 1, 1000, 1000, 256, bf)))
+    errs.append(run("(d) phi3 MHA Hq=Hkv=32 D=96 S=777 bf16 causal=False",
+                    *qkv(2, 32, 32, 777, 777, 96, bf), causal=False))
+    errs.append(run("(e) Hq=32 Hkv=8 D=128 S=2048 bf16 causal window=512",
+                    *qkv(1, 32, 8, 2048, 2048, 128, bf), window=512))
+    errs.append(run("(f) Hq=32 Hkv=8 D=128 S=1000 float32 causal",
+                    *qkv(1, 32, 8, 1000, 1000, 128, f32)))
+    for d in (16, 32, 64):
+        for dtype in (bf, f32):
+            errs.append(run(f"head_dim={d} {dtype} Hq=4 Hkv=2 S=130",
+                            *qkv(2, 4, 2, 130, 130, d, dtype)))
+    for dtype in (bf, f32):
+        errs.append(run(f"rows without a live key {dtype} Sq=300 Sk=100 window=64",
+                        *qkv(1, 4, 2, 300, 100, 64, dtype), window=64))
+    # S = 32768: the kernel's first and last 256 rows against the plain
+    # version on those rows alone.
+    q, k, v = qkv(1, 32, 8, LONG_S, LONG_S, 128, bf)
+    out = flash_attention(q, k, v, impl="cuda")
+    n = 256
+    errs.append(attn_err(out[:, :, :n], attention_ref(q[:, :, :n], k[:, :, :n], v[:, :, :n]),
+                         str(bf), f"S={LONG_S} rows 0..{n - 1}"))
+    errs.append(attn_err(out[:, :, -n:],
+                         attention_ref(q[:, :, -n:], k, v, q_offset=LONG_S - n),
+                         str(bf), f"S={LONG_S} rows {LONG_S - n}..{LONG_S - 1}"))
+    del q, k, v, out
+    return max(errs), shape_a
+
+
+def margin_agreement(ref_logits, other_logits, name: str) -> None:
+    """Rows whose top-2 margin in ``ref_logits`` exceeds ``MARGIN`` must
+    have the same argmax in ``other_logits`` (both (rows, V))."""
+    top = ref_logits.float().topk(2, dim=-1).values
+    margin = top[:, 0] - top[:, 1]
+    sure = margin > MARGIN
+    agree = ref_logits.argmax(-1) == other_logits.argmax(-1)
+    bad = int((sure & ~agree).sum())
+    print(f"{name}: rows={ref_logits.shape[0]} margin>{MARGIN}: {int(sure.sum())} "
+          f"argmax agree={int(agree.sum())} disagree_with_margin={bad} "
+          f"margins={[round(float(x), 4) for x in margin[:8]]}")
+    check(bad == 0, f"{name}: argmaxes agree wherever the margin exceeds {MARGIN}")
+
+
+def phase_prefill(params, cfg, tokens, timer):
+    """Phase 7: ``forward`` at full width; launches counted from 0 in
+    the first timed call. Returns the report values."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import forward
+
+    b, s = tokens.shape
+    with torch.inference_mode():
+        forward(params, cfg, tokens)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        logits, first = timer(lambda: forward(params, cfg, tokens))
+        counts = dict(launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(counts["flash_attention"] == cfg.num_layers,
+              f"flash_attention launched {counts['flash_attention']} times in "
+              f"one forward of {cfg.num_layers} layers")
+        check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+              and logits.dtype == torch.float32, "logits (B, S, V) float32")
+        check(bool(torch.isfinite(logits).all()), "finite logits")
+        std = float(logits.std())
+        del logits
+        secs = [first] + [timer(lambda: forward(params, cfg, tokens))[1]
+                          for _ in range(E2E_SAMPLES - 1)]
+        wall_ms, device_ms, events, ranked = device_share(
+            lambda: forward(params, cfg, tokens), top=12)
+    # What the op-by-op activation (the reference's bf16 rounding, see
+    # models/common.py) costs against one fused call, at this FFN width.
+    from repro_torch.models.common import activation_fn
+
+    h = torch.randn(b, s, cfg.d_ff, device=params.embed.device).to(torch.bfloat16)
+    act_ms = graph_ms(lambda: activation_fn(cfg.activation)(h))
+    fused_ms = graph_ms(lambda: torch.nn.functional.silu(h))
+    del h
+    print(f"prefill activation {cfg.activation} on ({b}, {s}, {cfg.d_ff}) bf16: "
+          f"op_by_op_ms={act_ms} fused_silu_ms={fused_ms} "
+          f"per_forward_extra_ms={(act_ms - fused_ms) * cfg.num_layers}")
+    med = median(secs)
+    print(f"prefill {LM_ARCH} B={b} S={s}: wall_ms={med * 1e3} "
+          f"samples_ms={[x * 1e3 for x in secs]} tokens_per_s={b * s / med} "
+          f"flash_attention launches={counts['flash_attention']} "
+          f"peak_memory_gb={peak_gb} logits_std={std}")
+    print(f"prefill profiled: wall_ms={wall_ms} device_busy_ms={device_ms} "
+          f"device_events={events} device_idle_share={1 - device_ms / wall_ms}")
+    for name, ms in ranked:
+        print(f"prefill device time by kernel: {ms:.3f} ms {name[:110]}")
+    return counts, med, b * s / med, peak_gb, 1 - device_ms / wall_ms
+
+
+def phase_consistency(params, cfg, tokens):
+    """Phase 8: ``forward``'s logits at every position against those of
+    the decode path, ``prefill``'s loop (``init_kv_cache``, then one
+    ``serve_step`` per token) with each step's logits kept."""
+    import torch
+
+    from repro_torch.models.transformer import forward, init_kv_cache, serve_step
+
+    b, s = tokens.shape
+    with torch.inference_mode():
+        full = forward(params, cfg, tokens)
+        tok = torch.from_numpy(tokens).to(full.device)
+        cache = init_kv_cache(cfg, b, s, device=full.device)
+        dec = torch.empty_like(full)
+        for i in range(s):
+            logits, cache = serve_step(params, cfg, cache, tok[:, i:i + 1], i)
+            dec[:, i] = logits[:, 0]
+        del cache
+    diff = (full - dec).abs()
+    row_max = diff.amax(-1).reshape(-1)
+    max_diff = float(row_max.max())
+    print(f"prefill vs decode B={b} S={s}, every position: "
+          f"max_abs_diff={max_diff} mean_abs_diff={float(diff.mean())} "
+          f"row_max_abs_diff p50={float(row_max.median())} "
+          f"p99={float(row_max.quantile(0.99))} "
+          f"last_position_max_abs_diff={float(diff[:, -1].max())} "
+          f"logit_std={float(dec.std())} limit={CONSISTENCY_MAX_DIFF}")
+    margin_agreement(dec.reshape(b * s, -1), full.reshape(b * s, -1),
+                     "prefill vs decode")
+    check(max_diff <= CONSISTENCY_MAX_DIFF,
+          f"prefill vs decode: max |delta| {max_diff} within {CONSISTENCY_MAX_DIFF}")
+
+
+def phase_serving(params, cfg, slots: int, max_len: int, n_requests: int,
+                  profile: bool):
+    """Phase 9: the LM engine at full width with ``slots`` slots of
+    ``max_len`` rows on ``n_requests`` requests (two waves). Returns the
+    report values; the idle share only where ``profile``."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve import Request, ServeEngine
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(16, 129, n_requests)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    eng = ServeEngine(params, cfg, num_slots=slots, max_len=max_len)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=list(prompt), max_new_tokens=SERVE_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    done, secs = wall_s(eng.run)
+    counts = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    h = eng.health_records[-1]
+    snap = eng.metrics.snapshot()
+    tokens = sum(len(r.output) for r in done)
+    check(eng.waves == 2 and h.completed == n_requests and h.failed == 0,
+          f"2 waves, {n_requests} completed, 0 failed: got {eng.waves}, "
+          f"{h.completed}, {h.failed}")
+    check(all(len(r.output) == SERVE_NEW and r.done for r in done),
+          f"{SERVE_NEW} tokens for every request")
+    steps = snap["serve.lm.steps"]
+    cell = f"serve {LM_ARCH} slots={slots} max_len={max_len} requests={n_requests}"
+    print(f"{cell} prompt_lengths={lengths.tolist()} "
+          f"new_tokens={SERVE_NEW}: wall_s={secs} waves={eng.waves} "
+          f"steps={steps} decode_tokens={tokens} decode_tokens_per_s={tokens / secs} "
+          f"ms_per_step={secs * 1e3 / steps} peak_memory_gb={peak_gb} "
+          f"launches={counts}")
+    # Re-score the first request with forward (teacher-forced).
+    r = min(done, key=lambda x: x.uid)
+    seq = r.prompt + r.output
+    with torch.inference_mode():
+        logits = forward(params, cfg, np.asarray([seq]))[0]
+    p = len(r.prompt)
+    rows = logits[p - 1:p - 1 + len(r.output)]
+    margin_agreement(rows, torch.nn.functional.one_hot(
+        torch.tensor(r.output, device=rows.device), rows.shape[-1]).float(),
+        f"{cell}: request {r.uid} re-scored by forward")
+    idle = None
+    if profile:
+        # The idle share of a short run of the same engine, one wave.
+        small = ServeEngine(params, cfg, num_slots=slots, max_len=max_len)
+        for uid in range(slots):
+            small.submit(Request(uid=uid, prompt=prompts[uid][:16], max_new_tokens=8))
+        wall_ms, device_ms, events, ranked = device_share(small.run, top=6)
+        small_steps = small.metrics.snapshot()["serve.lm.steps"]
+        idle = 1 - device_ms / wall_ms
+        print(f"{cell} profiled ({slots} requests, 16-token prompts, 8 new tokens, "
+              f"{small_steps} steps): wall_ms={wall_ms} device_busy_ms={device_ms} "
+              f"device_events={events} device_events_per_step={events / small_steps} "
+              f"ms_per_step={wall_ms / small_steps} device_idle_share={idle}")
+        for name, ms in ranked:
+            print(f"serve device time by kernel: {ms:.3f} ms {name[:110]}")
+    return tokens / secs, steps, secs * 1e3 / steps, peak_gb, idle
+
+
+def attention_times(shape_a, dev):
+    """Phase 10: the kernel's device time at shape (a) and at S=32768,
+    the time per Python call, the plain version's and SDPA's. Returns
+    the record fields of shape (a)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = shape_a
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    bound_ms, flops, nbytes = attention_bound_ms(b, hq, hkv, s, s, d, True, None, 2)
+    ms = graph_ms(lambda: flash_attention(q, k, v, impl="cuda"))
+    eager_ms = cuda_ms(lambda: flash_attention(q, k, v, impl="cuda"), iters=20)
+    # The plain version allocates ~13 GB a call: timed from Python, where
+    # at 20+ ms a call the host's share is small.
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v), iters=3, warmup=1)
+    sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    print(f"time flash_attention B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 causal: "
+          f"ms={ms} eager_ms={eager_ms} plain_ms={plain_ms} sdpa_ms={sdpa_ms} "
+          f"bound_ms={bound_ms} flops={flops} bytes={nbytes} "
+          f"share_of_bound={bound_ms / ms} tflops={flops / ms / 1e9}")
+    gen = torch.Generator(dev).manual_seed(2)
+    ql, kl, vl = (torch.randn(1, h, LONG_S, 128, device=dev, generator=gen).to(torch.bfloat16)
+                  for h in (32, 8, 8))
+    long_bound, long_flops, _ = attention_bound_ms(1, 32, 8, LONG_S, LONG_S, 128,
+                                                   True, None, 2)
+    long_ms = graph_ms(lambda: flash_attention(ql, kl, vl, impl="cuda"), calls=2, replays=2)
+    long_sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True, enable_gqa=True), calls=2, replays=2)
+    print(f"time flash_attention B=1 Hq=32 Hkv=8 S={LONG_S} D=128 bf16 causal: "
+          f"ms={long_ms} sdpa_ms={long_sdpa} bound_ms={long_bound} "
+          f"share_of_bound={long_bound / long_ms} tflops={long_flops / long_ms / 1e9} "
+          f"plain: not run (its scores would take "
+          f"{32 * LONG_S * LONG_S * 4 / 1e9:.0f} GB)")
+    return ms, plain_ms, eager_ms, sdpa_ms, bound_ms
+
+
+
+def phase_lm(dev) -> dict:
+    """Phases 6-10 on qwen3-4b at full width."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer.attention import qkv_projections
+    from repro_torch.models.transformer.model import as_tokens, embed_lookup
+
+    cfg = get_arch(LM_ARCH).config
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=dev,
+                         generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"model {LM_ARCH}: params={n_params} dtype={cfg.dtype} "
+          f"init_s={time.perf_counter() - t0} "
+          f"memory_gb={torch.cuda.memory_allocated() / 1e9}")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))
+    with torch.inference_mode():
+        tok = as_tokens(params, tokens)
+        layer = params.dense_layers[0]
+        positions = torch.arange(PREFILL_S, dtype=torch.int32, device=dev)
+        layer0_qkv = qkv_projections(
+            layer.attn, cfg, rms_norm(embed_lookup(params, cfg, tok), layer.ln1),
+            positions[None].expand(PREFILL_B, PREFILL_S))
+    max_err, shape_a = phase_attention(dev, layer0_qkv)
+    del layer0_qkv
+    counts, prefill_s, tps, peak_gb, idle = phase_prefill(
+        params, cfg, tokens, wall_s)
+    phase_consistency(params, cfg, tokens[:, :CONSISTENCY_S])
+    serving = [phase_serving(params, cfg, *cell) for cell in SERVE_CELLS]
+    del params
+    torch.cuda.empty_cache()
+    return {
+        "counts": counts, "max_abs_err": max_err,
+        "prefill_s": prefill_s, "prefill_tps": tps, "prefill_peak_gb": peak_gb,
+        "prefill_idle": idle, "serving": serving,
+        "times": attention_times(shape_a, dev),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -541,11 +967,16 @@ def main() -> int:
     from repro_torch.ops.kiss import giant_dust_graph, random_graph
 
     dev = torch.device("cuda")
+    # Float32 products in full float32 (no TF32), for the plain versions.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}")
+          f"count {torch.cuda.device_count()} "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # Phase 1: build every kernel, one nvcc per source, all at once.
     t0 = time.perf_counter()
@@ -587,6 +1018,13 @@ def main() -> int:
     times = kernel_times(hook_inputs, pj_inputs, agg_inputs, SPLITTERS,
                          POINTER_JUMP_BIG_P, "cuda")
     launches = {k: cc_counts[k] + list_counts[k] for k in cc_counts}
+    del giant, rand, dense, hook_inputs, pj_inputs, agg_inputs
+    torch.cuda.empty_cache()
+
+    # Phases 6-10: the LM.
+    lm = phase_lm(dev)
+    launches["flash_attention"] = lm["counts"]["flash_attention"]
+    errs["flash_attention"] = lm["max_abs_err"]
     records = []
     for name, (ms, plain_ms, eager_ms, nbytes) in times.items():
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -605,13 +1043,36 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None,
         })
-    print("library_ms: n/a for every kernel -- no single PyTorch call "
-          "computes an SV hook phase, a pointer-jumping run or the RS5 "
-          "aggregation")
+    print("library_ms: n/a for the three graph kernels -- no single "
+          "PyTorch call computes an SV hook phase, a pointer-jumping run or "
+          "the RS5 aggregation")
+    fa_ms, fa_plain, fa_eager, fa_sdpa, fa_bound = lm["times"]
+    records.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": KERNELS["flash_attention"][1],
+        "launches": launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"], "ms": fa_ms,
+        "plain_ms": fa_plain, "bound_ms": fa_bound, "bound_by": "operations",
+        "library_ms": fa_sdpa,
+    })
+    print(f"time flash_attention (record): ms={fa_ms} eager_ms={fa_eager} "
+          f"plain_ms={fa_plain} library_ms(sdpa)={fa_sdpa} bound_ms={fa_bound} "
+          f"[{card}]")
     for name, secs in cc_rows:
         print(f"e2e connected_components {name}: wall_s={secs} [{card}]")
     print(f"e2e list_rank n={LIST_N}: wall_s={list_secs} "
           f"rs3_walk_share={walk_share} [{card}]")
+    print(f"e2e prefill {LM_ARCH} B={PREFILL_B} S={PREFILL_S}: "
+          f"wall_ms={lm['prefill_s'] * 1e3} tokens_per_s={lm['prefill_tps']} "
+          f"peak_memory_gb={lm['prefill_peak_gb']} "
+          f"device_idle_share={lm['prefill_idle']} [{card}]")
+    for (slots, max_len, n, _), (tps, steps, ms_step, peak, idle) in zip(
+            SERVE_CELLS, lm["serving"]):
+        print(f"e2e serve {LM_ARCH} slots={slots} max_len={max_len} {n} requests "
+              f"x {SERVE_NEW} tokens: decode_tokens_per_s={tps} steps={steps} "
+              f"ms_per_step={ms_step} peak_memory_gb={peak} "
+              f"device_idle_share={'not profiled' if idle is None else idle} [{card}]")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

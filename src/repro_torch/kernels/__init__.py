@@ -1,5 +1,6 @@
 """CUDA C++ kernels for Hopper (``sm_90a``), the port's counterparts of
-the Pallas TPU kernels in ``repro.kernels``.
+the Pallas TPU kernels in ``repro.kernels``: ``edge_hook``,
+``pointer_jump``, ``splitter_aggregate`` and ``flash_attention``.
 
 Each kernel directory holds:
   ops.py  -- the wrapper: checks its inputs, launches the kernel on a
@@ -33,6 +34,7 @@ launch_counts = {
     "edge_hook.sv3": 0,
     "pointer_jump": 0,
     "splitter_aggregate": 0,
+    "flash_attention": 0,
 }
 
 

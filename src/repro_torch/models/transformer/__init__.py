@@ -1,0 +1,22 @@
+from repro_torch.models.transformer.config import MoEConfig, TransformerConfig
+from repro_torch.models.transformer.model import (
+    TransformerLM,
+    cache_length,
+    forward,
+    init_kv_cache,
+    init_params,
+    prefill,
+    serve_step,
+)
+
+__all__ = [
+    "TransformerConfig",
+    "MoEConfig",
+    "TransformerLM",
+    "init_params",
+    "forward",
+    "init_kv_cache",
+    "cache_length",
+    "serve_step",
+    "prefill",
+]

@@ -82,8 +82,10 @@ def reset() -> None:
     _GLOBAL.reset()
 
 
-def publish_stats(stats, prefix: str, registry: Registry | None = None) -> None:
-    """Publish a stats dataclass into a registry under ``prefix``.
+def publish_stats(stats, prefix: str, registry: Registry | None = None,
+                  exclude: tuple = ()) -> None:
+    """Publish a stats dataclass into a registry under ``prefix``,
+    skipping the fields named in ``exclude`` (ids, not quantities).
 
     The one shared path behind every stats object's ``publish()``
     method; see the module docstring for the field-type mapping."""
@@ -91,6 +93,8 @@ def publish_stats(stats, prefix: str, registry: Registry | None = None) -> None:
 
     reg = registry if registry is not None else _GLOBAL
     for f in dataclasses.fields(stats):
+        if f.name in exclude:
+            continue
         v = getattr(stats, f.name)
         name = f"{prefix}.{f.name}"
         if v is None or isinstance(v, str):

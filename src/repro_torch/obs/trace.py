@@ -24,9 +24,11 @@ Usage::
   already done), so the span's duration covers the device work it
   launched.
 
-The reference's profiler and timer modes, instant events and file
-export wait for the slices that first call them (serving, the benchmark
-runner).
+* **Instant events.** ``event(name, **attrs)`` records a Chrome-trace
+  marker (``ph="i"``), as the serving scheduler does at a quarantine.
+
+The reference's profiler and timer modes and file export wait for the
+slices that first call them (the benchmark runner).
 """
 from __future__ import annotations
 
@@ -146,6 +148,19 @@ class Tracer:
             return _NULL_SPAN
         return Span(self, name, attrs, device)
 
+    def event(self, name: str, **attrs) -> None:
+        """An instant marker (Chrome-trace ``ph="i"``); nothing when
+        tracing is off."""
+        if not self.enabled:
+            return
+        now = time.perf_counter_ns()
+        self.events.append({
+            "name": name, "ph": "i", "s": "t",
+            "ts": (now - self._origin) / 1e3,
+            "pid": self._pid, "tid": threading.get_ident(),
+            "args": attrs,
+        })
+
     def _record(self, name, t0_ns, end_ns, attrs) -> None:
         self.events.append({
             "name": name, "ph": "X",
@@ -180,9 +195,10 @@ def reset() -> None:
     _GLOBAL.reset()
 
 
-# A bound-method alias, not a wrapper def: the disabled path stays
+# Bound-method aliases, not wrapper defs: the disabled path stays
 # near-free in the engines' loops. _GLOBAL is never reassigned.
 span = _GLOBAL.span
+event = _GLOBAL.event
 
 
 def chrome_trace() -> dict:
