@@ -7,11 +7,20 @@ Run from the root of a checkout on a machine with an H100. Phases, each
 of which raises on failure:
 
 1. Device and build: the card's name and power limit, the torch
-   version, and the four CUDA kernels built from ``kernels/csrc`` (one
+   version, and the five CUDA kernels built from ``kernels/csrc`` (one
    ``nvcc`` per source, all at once) with ``-Xptxas -v``'s registers and
-   shared memory.
-2. Each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path, bit for bit.
+   shared memory. Then the ogb_products graph of the GNN phase,
+   ``full_graph(2_449_029, 61_859_140, 100, 47, seed=0)``, built on the
+   host (its seconds printed): its destinations are phase 2's ids.
+2. Each graph kernel against its plain PyTorch version on the card, at
+   the shapes of the main path, bit for bit. ``segment_sum`` against
+   its plain version at the GNN path's shapes: the ogb_products ids with
+   (m, 100) and (m, 64) float32 rows (gin-tu's layers), GAT's (m, 8, 8),
+   (m, 8), (m, 1, 47) and (m, 1), (m, 64) in bf16, a hub segment owning
+   a tenth of 2^22 rows, and empty segments with negative and sentinel
+   ids. float32 within rtol 2e-5, bf16 within 2e-2, each with an atol
+   of 2e-5 times the output's rms times sqrt(max degree): the two sum
+   in different orders (the plain version with atomics).
 3. Connected components through ``connected_components(src, dst, n)``
    on a 2^22-node giant+dust graph, a 2^20-node random graph with about
    2^22 edges, and a 2^20-node random graph with about 9 * 2^20 edges,
@@ -36,7 +45,11 @@ of which raises on failure:
    a warm-up); from separate traced runs, the engine's share of each CC
    call and the RS3 walk's share of ``list_rank``; from
    ``torch.profiler`` runs, the card's idle share in each CC cell and in
-   ``list_rank`` on a 2^20-node list.
+   ``list_rank`` on a 2^20-node list. ``segment_sum`` at gin-tu's
+   layer-1 and layer-2 shapes and at the hub case: device ms, ms per
+   Python call, plain ms, and ``torch.segment_reduce(data, "sum",
+   lengths=...)`` (``library_ms``; ``index_add_`` beside it), both
+   yardsticks the port never calls, with the byte bound.
 
 6. ``flash_attention`` against its plain version (``attention_ref``)
    on the card within rtol = 3e-2 in bf16 and 2e-3 in float32, and an
@@ -74,6 +87,21 @@ of which raises on failure:
 10. ``flash_attention``'s times at shape (a) and at S=32768 beside
    ``scaled_dot_product_attention`` (the yardstick; the port never
    calls it) and its FLOP bound at 989 TFLOP/s.
+11. GNN inference, after the LM has freed its memory: gin-tu and
+   gat-cora at ``config_for("ogb_products")`` (full width, float32,
+   random from a seeded CUDA generator) on the ogb_products graph: a
+   warm-up, then three timed ``forward`` calls (median ms, edges/s =
+   layers * m / t, peak memory), exactly 5 and 4 ``segment_sum``
+   launches in the first, and the logits against an independent
+   forward (``gnn_by_index_add``) within rtol = 2e-3 and an atol of
+   2e-3 times the smaller of 1 and the logits' rms, with equal argmaxes
+   wherever the top-2 margin exceeds 1e-2; the idle share and top
+   device kernels of each from one ``torch.profiler`` run. Then gin-tu
+   with graph readout on ``molecule_batch(128)``: 6 launches, the same
+   check.
+
+Every profile prints the host's launch calls beside the device records
+it kept, and is used only if it kept one for each (``device_share``).
 
 Every line but the last is a report. The line before the last is one
 JSON object with a record per kernel; the last line is
@@ -117,7 +145,20 @@ KERNELS = {
     "flash_attention": (
         "flash_attention",
         "src/repro/kernels/flash_attention/flash_attention.py:24"),
+    "segment_sum": (
+        "segment_sum", "src/repro/kernels/segment_sum/segment_sum.py:24"),
 }
+
+# The GNN phases' sizes: GNN_SHAPES["ogb_products"] at full width.
+GNN_SHAPE = "ogb_products"
+GNN_N, GNN_M, GNN_D, GNN_CLASSES = 2_449_029, 61_859_140, 100, 47
+GNN_ARCHS = (("gin-tu", 5), ("gat-cora", 4))  # segment_sum launches a forward
+MOLECULE_BATCH, MOLECULE_LAUNCHES = 128, 6  # gin-tu with graph readout
+HUB_M, HUB_N = 1 << 22, 1 << 18  # one segment owns HUB_M // 10 rows
+SEGSUM_RTOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+SEGSUM_ATOL = 2e-5  # times the output's rms times sqrt(max degree)
+GNN_TOL = 2e-3  # rtol of the logits against gnn_by_index_add; atol x min(1, rms)
+GNN_MARGIN = 1e-2  # top-2 gap above which two argmaxes must agree
 
 # The LM phases' sizes.
 LM_ARCH = "qwen3-4b"
@@ -231,31 +272,76 @@ def traced(fn) -> dict[str, float]:
 E2E_SAMPLES = 3  # timed calls per end-to-end cell; the first is checked
 
 
-def device_share(fn, top: int = 0):
+# Host calls that each put one record on the card's timeline.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+# On the H100 a profile loses device records of the first launches after
+# it starts (from one to a few hundred; never later ones), more often the
+# longer the process has run. Each profile first launches this many
+# throwaway kernels, outside the profiled call, to take those losses.
+PROFILE_WARMUP_LAUNCHES = 1024
+PROFILE_ATTEMPTS = 3
+
+
+def device_share(fn=None, top: int = 0, prepare=None):
     """Run ``fn`` once under ``torch.profiler``; returns its wall
     milliseconds, the milliseconds the card was busy (the union of the
     intervals of its kernels, copies and sets, so nothing is counted
-    twice), the number of those device events, and the ``top`` device
-    event names by total milliseconds.
-    The profiler slows the host, so the idle share it implies is an
-    upper bound."""
+    twice), the number of those device events, the ``top`` device event
+    names by total milliseconds, and the device idle share. The profiler
+    slows the host, so the idle share is an upper bound.
+
+    Only the launch calls made inside ``fn`` (a ``record_function``
+    span) and their device records count. A profile is used only if it
+    holds a record for each of those calls; one that lost records would
+    count their time as idle. It is taken again, up to PROFILE_ATTEMPTS
+    times, and the check fails if none is whole. ``prepare``, where
+    given, is called before each attempt, outside the profile, and
+    returns the call to profile (for a call that cannot run twice)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    scratch = torch.zeros(1, device="cuda")
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        if prepare is not None:
+            fn = None
+            fn = prepare()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_WARMUP_LAUNCHES):
+                scratch.add_(1)
+            torch.cuda.synchronize()
+            with record_function("chip_smoke.profiled"):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        events = list(prof.events())
+        window = next(ev.time_range for ev in events
+                      if ev.name == "chip_smoke.profiled"
+                      and ev.device_type == DeviceType.CPU)
+        launches = {ev.id for ev in events
+                    if ev.device_type != DeviceType.CUDA and ev.name in LAUNCH_CALLS
+                    and window.start <= ev.time_range.start <= window.end}
+        device = [ev for ev in events
+                  if ev.device_type == DeviceType.CUDA and ev.id in launches
+                  and ev.name != "chip_smoke.profiled"]
+        warm = sum(1 for ev in events if ev.device_type == DeviceType.CUDA
+                   and ev.time_range.start < window.start)
+        print(f"profiler attempt {attempt}: launch_calls={len(launches)} "
+              f"device_events={len(device)} warmup_records={warm} of "
+              f"{PROFILE_WARMUP_LAUNCHES}")
+        if launches and len({ev.id for ev in device}) == len(launches):
+            break
+    check(launches and len({ev.id for ev in device}) == len(launches),
+          f"a profile holds a device record for each of its "
+          f"{len(launches)} launch calls ({len(device)} held)")
     spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            start, end = ev.time_range.start, ev.time_range.end
-            spans.append((start, end))
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + (end - start) / 1e3
-    check(spans, "the profiler saw device events")
+    for ev in device:
+        spans.append((ev.time_range.start, ev.time_range.end))
+        by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                            + (ev.time_range.end - ev.time_range.start) / 1e3)
     busy_us, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -266,7 +352,7 @@ def device_share(fn, top: int = 0):
             cur_end = max(cur_end, end)
     busy_us += cur_end - cur_start
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return wall_ms, busy_us / 1e3, len(spans), ranked
+    return wall_ms, busy_us / 1e3, len(spans), ranked, 1 - busy_us / 1e3 / wall_ms
 
 
 def median(xs):
@@ -510,10 +596,10 @@ def phase_cc(dev, graphs, timer):
               f"cc.frontier.sample_ms={spans.get('cc.frontier.sample', 0.0)} "
               f"host_prep_ms={traced_s * 1e3 - spans['cc.frontier'] - spans.get('cc.frontier.sample', 0.0)} "
               f"of which dedup_edges_ms={dedup_ms}")
-        wall_ms, device_ms, _, _ = device_share(
+        wall_ms, device_ms, _, _, idle = device_share(
             lambda: connected_components(src, dst, n, device=dev))
         print(f"cc {name} profiled: wall_ms={wall_ms} device_busy_ms={device_ms} "
-              f"device_idle_share={1 - device_ms / wall_ms}")
+              f"device_idle_share={idle}")
         rows.append((name, median(secs)))
     return totals, rows
 
@@ -562,9 +648,10 @@ def phase_list(dev, n, timer):
     # PROFILE_LIST_N nodes runs the same loop, shorter.
     small = random_linked_list(PROFILE_LIST_N, seed=0)
     list_rank(small, device=dev)  # warm-up at this size
-    wall_ms, device_ms, _, _ = device_share(lambda: list_rank(small, device=dev))
+    wall_ms, device_ms, _, _, idle = device_share(
+        lambda: list_rank(small, device=dev))
     print(f"list_rank n={PROFILE_LIST_N} profiled: wall_ms={wall_ms} "
-          f"device_busy_ms={device_ms} device_idle_share={1 - device_ms / wall_ms}")
+          f"device_busy_ms={device_ms} device_idle_share={idle}")
     return counts, median(secs), walk_share
 
 
@@ -745,7 +832,7 @@ def phase_prefill(params, cfg, tokens, timer):
         del logits
         secs = [first] + [timer(lambda: forward(params, cfg, tokens))[1]
                           for _ in range(E2E_SAMPLES - 1)]
-        wall_ms, device_ms, events, ranked = device_share(
+        wall_ms, device_ms, events, ranked, idle = device_share(
             lambda: forward(params, cfg, tokens), top=12)
     # What the op-by-op activation (the reference's bf16 rounding, see
     # models/common.py) costs against one fused call, at this FFN width.
@@ -764,10 +851,10 @@ def phase_prefill(params, cfg, tokens, timer):
           f"flash_attention launches={counts['flash_attention']} "
           f"peak_memory_gb={peak_gb} logits_std={std}")
     print(f"prefill profiled: wall_ms={wall_ms} device_busy_ms={device_ms} "
-          f"device_events={events} device_idle_share={1 - device_ms / wall_ms}")
+          f"device_events={events} device_idle_share={idle}")
     for name, ms in ranked:
         print(f"prefill device time by kernel: {ms:.3f} ms {name[:110]}")
-    return counts, med, b * s / med, peak_gb, 1 - device_ms / wall_ms
+    return counts, med, b * s / med, peak_gb, idle
 
 
 def phase_consistency(params, cfg, tokens):
@@ -853,12 +940,20 @@ def phase_serving(params, cfg, slots: int, max_len: int, n_requests: int,
     idle = None
     if profile:
         # The idle share of a short run of the same engine, one wave.
-        small = ServeEngine(params, cfg, num_slots=slots, max_len=max_len)
-        for uid in range(slots):
-            small.submit(Request(uid=uid, prompt=prompts[uid][:16], max_new_tokens=8))
-        wall_ms, device_ms, events, ranked = device_share(small.run, top=6)
-        small_steps = small.metrics.snapshot()["serve.lm.steps"]
-        idle = 1 - device_ms / wall_ms
+        engines = []
+
+        def wave():
+            engines.clear()  # one engine's KV cache at a time
+            engines.append(ServeEngine(params, cfg, num_slots=slots,
+                                       max_len=max_len))
+            for uid in range(slots):
+                engines[0].submit(Request(uid=uid, prompt=prompts[uid][:16],
+                                          max_new_tokens=8))
+            return engines[0].run
+
+        wall_ms, device_ms, events, ranked, idle = device_share(
+            top=6, prepare=wave)
+        small_steps = engines[0].metrics.snapshot()["serve.lm.steps"]
         print(f"{cell} profiled ({slots} requests, 16-token prompts, 8 new tokens, "
               f"{small_steps} steps): wall_ms={wall_ms} device_busy_ms={device_ms} "
               f"device_events={events} device_events_per_step={events / small_steps} "
@@ -908,6 +1003,317 @@ def attention_times(shape_a, dev):
           f"{32 * LONG_S * LONG_S * 4 / 1e9:.0f} GB)")
     return ms, plain_ms, eager_ms, sdpa_ms, bound_ms
 
+
+
+def max_degree(ids, n: int) -> int:
+    """The largest number of rows of one segment in ``[0, n)``."""
+    import torch
+
+    valid = ids[(ids >= 0) & (ids < n)].long()
+    return int(torch.bincount(valid, minlength=n).max()) if valid.numel() else 0
+
+
+def segsum_check(name, data, ids, n) -> float:
+    """The kernel against its plain version on one input; returns the
+    largest |err|. Checked everywhere against ``|got - want| <= atol +
+    rtol * |want|``: rtol is the dtype's, atol ``SEGSUM_ATOL`` times the
+    output's rms times sqrt(max degree), since a sum of k rows in
+    another order differs by about sqrt(k) roundings of its size."""
+    import torch
+
+    from repro_torch.kernels.segment_sum import segment_sum_sorted
+
+    got = segment_sum_sorted(data, ids, n, impl="cuda")
+    want = segment_sum_sorted(data, ids, n, impl="torch")
+    check(got.shape == want.shape and got.dtype == want.dtype == data.dtype,
+          f"segment_sum {name}: {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"segment_sum {name}: finite output")
+    rtol = SEGSUM_RTOL[str(data.dtype)]
+    deg = max_degree(ids, n)
+    atol = SEGSUM_ATOL * float(w.square().mean().sqrt()) * max(deg, 1) ** 0.5
+    diff = (g - w).abs()
+    over = int((diff > atol + rtol * w.abs()).sum())
+    err = float(diff.max()) if diff.numel() else 0.0
+    print(f"segment_sum {name}: m={ids.shape[0]} n={n} feat={tuple(data.shape[1:])} "
+          f"{data.dtype} max_degree={deg} max_abs_err={err} rtol={rtol} "
+          f"atol={atol} over_tol={over}")
+    check(over == 0, f"segment_sum {name}: kernel within tolerance of its "
+          "plain version")
+    return err
+
+
+def phase_segment_sum(dev, dst: np.ndarray) -> float:
+    """Phase 2, ``segment_sum``: the kernel against its plain version at
+    the GNN path's shapes and at the edge cases. Returns the largest
+    max_abs_err at the main path's (ogb_products, float32) shapes."""
+    import torch
+
+    from repro_torch.kernels.segment_sum import segment_sum_sorted
+
+    gen = torch.Generator(dev).manual_seed(3)
+    ids = torch.from_numpy(dst).to(dev)
+    errs = []
+    for feat, dtype, what in (
+            ((GNN_D,), torch.float32, "gin-tu layer 1"),
+            ((64,), torch.float32, "gin-tu layers 2-5"),
+            ((8, 8), torch.float32, "gat-cora layer 1 messages"),
+            ((8,), torch.float32, "gat-cora layer 1 denominators"),
+            ((1, GNN_CLASSES), torch.float32, "gat-cora layer 2 messages"),
+            ((1,), torch.float32, "gat-cora layer 2 denominators"),
+            ((64,), torch.bfloat16, "bf16")):
+        data = torch.randn((GNN_M, *feat), device=dev, generator=gen).to(dtype)
+        err = segsum_check(f"{GNN_SHAPE} {what}", data, ids, GNN_N)
+        if dtype == torch.float32:
+            errs.append(err)
+        del data
+    del ids
+    hub_ids, hub_data = hub_case(dev, gen)
+    segsum_check("hub", hub_data, hub_ids, HUB_N)
+    # Empty segments (every other one), negative ids and sentinels: the
+    # reference's padding id n, and ns_pad + block_s.
+    n = 1 << 20
+    body = torch.randint(0, n // 2, (1 << 22,), device=dev, generator=gen) * 2
+    ids = torch.cat([torch.tensor([-9, -1, -1], device=dev), body,
+                     torch.tensor([n, n, n + 256 + 1000], device=dev)])
+    ids = ids.sort().values.to(torch.int32)
+    data = torch.randn(ids.shape[0], 24, device=dev, generator=gen)
+    segsum_check("empty, negative and sentinel ids", data, ids, n)
+    got = segment_sum_sorted(data, ids, n, impl="cuda")
+    check(not bool(got[1::2].any()), "empty segments sum to 0")
+    del got, data, ids, body, hub_ids, hub_data
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def hub_case(dev, gen):
+    """HUB_M sorted ids over HUB_N segments, one of which owns a tenth
+    of the rows, with (HUB_M, 64) float32 rows."""
+    import torch
+
+    hub = HUB_M // 10
+    rest = torch.randint(0, HUB_N, (HUB_M - hub,), device=dev, generator=gen)
+    ids = torch.cat([rest, torch.full((hub,), HUB_N // 2, device=dev)])
+    ids = ids.sort().values.to(torch.int32)
+    return ids, torch.randn(HUB_M, 64, device=dev, generator=gen)
+
+
+def segment_sum_times(dev, dst: np.ndarray):
+    """Phase 5, ``segment_sum``: device ms (CUDA-graph replays), ms per
+    Python call, plain ms, ``torch.segment_reduce`` and ``index_add_``
+    ms, and the byte bound, at gin-tu's layer-1 and layer-2 shapes and
+    the hub case. Returns the layer-1 record fields."""
+    import torch
+
+    from repro_torch.kernels.segment_sum import segment_sum_sorted
+    from repro_torch.kernels.segment_sum.ref import segment_sum_sorted_ref
+
+    gen = torch.Generator(dev).manual_seed(4)
+    ogb_ids = torch.from_numpy(dst).to(dev)
+    hub_ids, hub_data = hub_case(dev, gen)
+    cases = (
+        (f"{GNN_SHAPE} gin-tu layer 1 (m, {GNN_D})", ogb_ids, GNN_N, GNN_D),
+        (f"{GNN_SHAPE} gin-tu layers 2-5 (m, 64)", ogb_ids, GNN_N, 64),
+        ("hub (2^22, 64), one segment of 2^22 / 10 rows", hub_ids, HUB_N, 64),
+    )
+    first = None
+    for name, ids, n, d in cases:
+        data = (hub_data if ids is hub_ids
+                else torch.randn(GNN_M, d, device=dev, generator=gen))
+        m = ids.shape[0]
+        lengths = torch.bincount(ids.long(), minlength=n)
+        long_ids = ids.long()
+
+        def kernel():
+            return segment_sum_sorted(data, ids, n, impl="cuda")
+
+        def plain():
+            return segment_sum_sorted_ref(data, ids, n)
+
+        ms = graph_ms(kernel, calls=10, replays=3)
+        eager_ms = cuda_ms(kernel, iters=10, warmup=2)
+        plain_ms = graph_ms(plain, calls=3, replays=3)
+        lib_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths),
+                         iters=5, warmup=1)
+        add_ms = cuda_ms(lambda: torch.zeros(n, d, device=dev).index_add_(
+            0, long_ids, data), iters=5, warmup=1)
+        lib_err = float((torch.segment_reduce(data, "sum", lengths=lengths)
+                         - kernel()).abs().max())
+        nbytes = m * d * 4 + 4 * m + n * d * 4 + 4 * (n + 1)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"time segment_sum {name}: ms={ms} eager_ms={eager_ms} "
+              f"plain_ms={plain_ms} segment_reduce_ms={lib_ms} "
+              f"index_add_ms={add_ms} bound_ms={bound_ms} bytes={nbytes} "
+              f"share_of_bound={bound_ms / ms} "
+              f"gb_per_s={nbytes / ms / 1e6} "
+              f"segment_reduce_max_abs_diff={lib_err}")
+        if first is None:
+            first = (ms, plain_ms, eager_ms, lib_ms, bound_ms)
+        del data, lengths, long_ids
+    del ogb_ids, hub_ids, hub_data
+    torch.cuda.empty_cache()
+    return first
+
+
+def gnn_by_index_add(name, params, cfg, graph):
+    """The logits of gin-tu or gat-cora computed independently of the
+    port's aggregation path: plain ``index_add_`` sums over unsorted-safe
+    int64 ids, ``scatter_reduce`` maxima, ``F.layer_norm``, and the same
+    layers on the same parameters."""
+    import torch
+    import torch.nn.functional as F
+
+    h = graph["node_feats"]
+    n = h.shape[0]
+    src, dst = graph["src"].long(), graph["dst"].long()
+
+    def agg(msgs, index, rows):
+        out = torch.zeros((rows, *msgs.shape[1:]), dtype=msgs.dtype,
+                          device=msgs.device)
+        return out.index_add_(0, index, msgs)
+
+    if name == "gin-tu":
+        reps = []
+        for layer in params.layers:
+            z = (1.0 + layer.eps) * h + agg(h[src], dst, n)
+            z = F.linear(F.relu(F.linear(z, layer.w1.weight, layer.w1.bias)),
+                         layer.w2.weight, layer.w2.bias)
+            h = F.layer_norm(z, (z.shape[-1],), layer.ln_g, layer.ln_b, eps=1e-5)
+            reps.append(h)
+        hcat = torch.cat(reps, dim=-1)
+        if cfg.readout == "graph":
+            hcat = agg(hcat, graph["graph_ids"].long(), int(graph["num_graphs"]))
+        return F.linear(hcat, params.head.weight, params.head.bias)
+    for i, layer in enumerate(params.layers):
+        last = i == len(params.layers) - 1
+        heads = 1 if last else cfg.num_heads
+        d_out = cfg.num_classes if last else cfg.d_hidden
+        wh = (h @ layer.w.weight.T).reshape(n, heads, d_out)
+        s_src = (wh * layer.a_src).sum(-1)
+        s_dst = (wh * layer.a_dst).sum(-1)
+        e = F.leaky_relu(s_src[src] + s_dst[dst], cfg.negative_slope)
+        top = torch.full((n, heads), float("-inf"), device=h.device)
+        top.scatter_reduce_(0, dst[:, None].expand_as(e), e, "amax")
+        top = torch.where(torch.isfinite(top), top, 0.0)
+        p = torch.exp(e - top[dst])
+        del e
+        den = agg(p, dst, n).clamp_min(torch.finfo(p.dtype).tiny)
+        out = agg(wh[src] * p[..., None], dst, n) / den[..., None]
+        del p
+        h = out.mean(dim=1) if last else F.elu(out.reshape(n, -1) + layer.b)
+    return h
+
+
+def check_logits(name, got, want):
+    """``got`` within rtol = GNN_TOL of ``want`` and an atol of GNN_TOL
+    times the smaller of 1 and ``want``'s rms (so a cell of small logits,
+    gat-cora's rms is about 0.05, is held to its own scale), and the same
+    argmax wherever ``want``'s top-2 margin exceeds GNN_MARGIN."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype == torch.float32,
+          f"{name}: logits {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name}: finite logits")
+    diff = (got - want).abs()
+    atol = GNN_TOL * min(1.0, float(want.square().mean().sqrt()))
+    over = int((diff > atol + GNN_TOL * want.abs()).sum())
+    top = want.topk(2, dim=-1).values
+    sure = (top[:, 0] - top[:, 1]) > GNN_MARGIN
+    agree = got.argmax(-1) == want.argmax(-1)
+    bad = int((sure & ~agree).sum())
+    print(f"{name} vs gnn_by_index_add: max_abs_diff={float(diff.max())} "
+          f"mean_abs_diff={float(diff.mean())} logit_std={float(want.std())} "
+          f"atol={atol} over_tol={over} rows={want.shape[0]} margin>{GNN_MARGIN}: "
+          f"{int(sure.sum())} argmax_agree={int(agree.sum())} "
+          f"disagree_with_margin={bad}")
+    check(over == 0, f"{name}: logits within tolerance of the independent forward")
+    check(bad == 0, f"{name}: argmaxes agree wherever the margin exceeds {GNN_MARGIN}")
+
+
+def gnn_cell(dev, name, shape, graph, want_launches, profile: bool):
+    """One GNN cell: ``forward`` of ``name`` at ``config_for(shape)`` on
+    ``graph`` (tensors on the card), launches counted from 0 in the
+    first timed call, checked against ``gnn_by_index_add``; where
+    ``profile``, the idle share and top device kernels of one profiled
+    call. Returns the report values."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    arch = get_arch(name)
+    cfg = arch.config_for(shape)
+    fwd = arch.module.forward
+    params = arch.module.init_params(
+        cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    m = graph["src"].shape[0]
+    with torch.inference_mode():
+        fwd(params, cfg, graph)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        logits, first = wall_s(lambda: fwd(params, cfg, graph))
+        counts = dict(launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(counts["segment_sum"] == want_launches,
+              f"{name} {shape}: segment_sum launched {counts['segment_sum']} "
+              f"times in one forward, want {want_launches}")
+        secs = [first] + [wall_s(lambda: fwd(params, cfg, graph))[1]
+                          for _ in range(E2E_SAMPLES - 1)]
+        check_logits(f"{name} {shape}", logits,
+                     gnn_by_index_add(name, params, cfg, graph))
+        del logits
+        idle = None
+        if profile:
+            wall_ms, device_ms, events, ranked, idle = device_share(
+                lambda: fwd(params, cfg, graph), top=8)
+            print(f"gnn {name} {shape} profiled: wall_ms={wall_ms} "
+                  f"device_busy_ms={device_ms} device_events={events} "
+                  f"device_idle_share={idle}")
+            for kname, ms in ranked:
+                print(f"gnn {name} device time by kernel: {ms:.3f} ms {kname[:110]}")
+    med = median(secs)
+    print(f"gnn {name} {shape}: n={graph['node_feats'].shape[0]} m={m} "
+          f"layers={cfg.num_layers} readout={getattr(cfg, 'readout', 'node')} "
+          f"wall_ms={med * 1e3} samples_ms={[x * 1e3 for x in secs]} "
+          f"edges_per_s={cfg.num_layers * m / med} "
+          f"segment_sum launches={counts['segment_sum']} peak_memory_gb={peak_gb}")
+    del params
+    return med, cfg.num_layers * m / med, peak_gb, idle, counts["segment_sum"]
+
+
+def gnn_on_card(g: dict, dev) -> dict:
+    import torch
+
+    out = {k: torch.from_numpy(np.ascontiguousarray(g[k])).to(dev)
+           for k in ("node_feats", "src", "dst", "graph_ids")}
+    out["num_graphs"] = int(g["num_graphs"])
+    return out
+
+
+def phase_gnn(dev, ogb: dict) -> dict:
+    """Phase 11: GNN inference on the ogb_products graph, each cell
+    profiled, and on a molecule batch. Returns ``{cell: (seconds,
+    edges/s, peak GB, idle share, launches)}``."""
+    import torch
+
+    from repro_torch.data.graphs import molecule_batch
+
+    graph = gnn_on_card(ogb, dev)
+    print(f"gnn graph {GNN_SHAPE} on the card: "
+          f"{sum(v.numel() * v.element_size() for k, v in graph.items() if k != 'num_graphs') / 1e9} GB")
+    cells = {}
+    for name, launches in GNN_ARCHS:
+        cells[(name, GNN_SHAPE)] = gnn_cell(dev, name, GNN_SHAPE, graph,
+                                            launches, profile=True)
+        torch.cuda.empty_cache()
+    del graph
+    mol = gnn_on_card(molecule_batch(MOLECULE_BATCH), dev)
+    cells[("gin-tu", "molecule")] = gnn_cell(
+        dev, "gin-tu", "molecule", mol, MOLECULE_LAUNCHES, profile=False)
+    torch.cuda.empty_cache()
+    return cells
 
 
 def phase_lm(dev) -> dict:
@@ -963,6 +1369,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import AUTO_SAMPLE_ROUNDS
+    from repro_torch.data.graphs import full_graph
     from repro_torch.kernels import build
     from repro_torch.ops.kiss import giant_dust_graph, random_graph
 
@@ -984,6 +1391,10 @@ def main() -> int:
     print(f"build_s={time.perf_counter() - t0} nvcc {' '.join(build.NVCC_FLAGS)}")
     for name in build.SOURCES:
         print(f"ptxas {name}:\n{build.ptxas_report(name)}")
+    t0 = time.perf_counter()
+    ogb = full_graph(GNN_N, GNN_M, GNN_D, GNN_CLASSES, seed=0)
+    print(f"gnn graph full_graph({GNN_N}, {GNN_M}, {GNN_D}, {GNN_CLASSES}, "
+          f"seed=0): host_s={time.perf_counter() - t0}")
 
     giant = giant_dust_graph(CC_GIANT_N, seed=0)
     g = max(2, int(CC_GIANT_N * 0.9))
@@ -1001,6 +1412,7 @@ def main() -> int:
     errs, hook_inputs, pj_inputs, agg_inputs = phase_kernels(
         dev, (giant[:, 0], giant[:, 1], CC_GIANT_N), LIST_N, SPLITTERS,
         POINTER_JUMP_BIG_P, "cuda")
+    errs["segment_sum"] = phase_segment_sum(dev, ogb["dst"])
 
     # Phases 3 and 4: the main path, launches counted from 0 in each run.
     check_sample_table(dev, dense[:, 0], dense[:, 1], CC_DENSE_N,
@@ -1020,10 +1432,16 @@ def main() -> int:
     launches = {k: cc_counts[k] + list_counts[k] for k in cc_counts}
     del giant, rand, dense, hook_inputs, pj_inputs, agg_inputs
     torch.cuda.empty_cache()
+    ss_times = segment_sum_times(dev, ogb["dst"])
 
     # Phases 6-10: the LM.
     lm = phase_lm(dev)
     launches["flash_attention"] = lm["counts"]["flash_attention"]
+
+    # Phase 11: GNN inference, launches counted from 0 in each cell.
+    gnn = phase_gnn(dev, ogb)
+    del ogb
+    launches["segment_sum"] = sum(cell[-1] for cell in gnn.values())
     errs["flash_attention"] = lm["max_abs_err"]
     records = []
     for name, (ms, plain_ms, eager_ms, nbytes) in times.items():
@@ -1059,6 +1477,19 @@ def main() -> int:
     print(f"time flash_attention (record): ms={fa_ms} eager_ms={fa_eager} "
           f"plain_ms={fa_plain} library_ms(sdpa)={fa_sdpa} bound_ms={fa_bound} "
           f"[{card}]")
+    ss_ms, ss_plain, ss_eager, ss_lib, ss_bound = ss_times
+    records.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+        "replaces": KERNELS["segment_sum"][1],
+        "launches": launches["segment_sum"],
+        "max_abs_err": errs["segment_sum"], "ms": ss_ms,
+        "plain_ms": ss_plain, "bound_ms": ss_bound, "bound_by": "bytes",
+        "library_ms": ss_lib,
+    })
+    print(f"time segment_sum (record, {GNN_SHAPE} (m, {GNN_D}) float32): "
+          f"ms={ss_ms} eager_ms={ss_eager} plain_ms={ss_plain} "
+          f"library_ms(segment_reduce)={ss_lib} bound_ms={ss_bound} [{card}]")
     for name, secs in cc_rows:
         print(f"e2e connected_components {name}: wall_s={secs} [{card}]")
     print(f"e2e list_rank n={LIST_N}: wall_s={list_secs} "
@@ -1073,6 +1504,11 @@ def main() -> int:
               f"x {SERVE_NEW} tokens: decode_tokens_per_s={tps} steps={steps} "
               f"ms_per_step={ms_step} peak_memory_gb={peak} "
               f"device_idle_share={'not profiled' if idle is None else idle} [{card}]")
+    for (name, shape), (secs, eps, peak, idle, n_launch) in gnn.items():
+        print(f"e2e gnn {name} {shape}: wall_ms={secs * 1e3} edges_per_s={eps} "
+              f"peak_memory_gb={peak} segment_sum_launches={n_launch} "
+              f"device_idle_share={'not profiled' if idle is None else idle} "
+              f"[{card}]")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

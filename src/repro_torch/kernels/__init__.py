@@ -1,6 +1,7 @@
 """CUDA C++ kernels for Hopper (``sm_90a``), the port's counterparts of
 the Pallas TPU kernels in ``repro.kernels``: ``edge_hook``,
-``pointer_jump``, ``splitter_aggregate`` and ``flash_attention``.
+``pointer_jump``, ``splitter_aggregate``, ``flash_attention`` and
+``segment_sum``.
 
 Each kernel directory holds:
   ops.py  -- the wrapper: checks its inputs, launches the kernel on a
@@ -35,6 +36,7 @@ launch_counts = {
     "pointer_jump": 0,
     "splitter_aggregate": 0,
     "flash_attention": 0,
+    "segment_sum": 0,
 }
 
 

@@ -21,7 +21,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCES = ("edge_hook", "pointer_jump", "splitter_aggregate", "flash_attention")
+SOURCES = (
+    "edge_hook", "pointer_jump", "splitter_aggregate", "flash_attention",
+    "segment_sum",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,13 +1,46 @@
-"""Shared model building blocks of the port: RMS norm, rotary embedding,
-activations. The port's copy of the parts of ``repro.models.common``
-that the decoder LM uses; the GNN inits and ``softmax_cross_entropy``
-come with the slices that call them."""
+"""Shared model building blocks of the port: initialisers, RMS and layer
+norm, rotary embedding, activations. The port's copy of the parts of
+``repro.models.common`` that the decoder LM and the GNNs use;
+``softmax_cross_entropy`` comes with the training slice."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn.functional as F
+
+
+def trunc_normal(generator: torch.Generator, shape, scale: float,
+                 dtype=torch.float32) -> torch.Tensor:
+    """A normal draw truncated to [-2, 2], times ``scale``, made in
+    float32 on ``generator``'s device and cast to ``dtype``, as the
+    reference's ``(truncated_normal(key, -2, 2, shape) * scale).astype``.
+    Same distribution, other numbers: the two generators differ."""
+    draw = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (draw * scale).to(dtype)
+
+
+def he_init(generator: torch.Generator, shape, fan_in: int,
+            dtype=torch.float32) -> torch.Tensor:
+    return trunc_normal(generator, shape, (2.0 / max(fan_in, 1)) ** 0.5, dtype)
+
+
+def lecun_init(generator: torch.Generator, shape, fan_in: int,
+               dtype=torch.float32) -> torch.Tensor:
+    return trunc_normal(generator, shape, (1.0 / max(fan_in, 1)) ** 0.5, dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last axis in float32, with the population
+    variance (``correction=0``, as ``jnp.var``; ``torch.var``'s default
+    is the unbiased one)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma + beta).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -23,9 +23,11 @@ from repro_torch.models.transformer.model import TransformerLM, empty_params
 def to_tensor(a) -> torch.Tensor:
     """A numpy array (float32, or bfloat16 from ``ml_dtypes``) as a CPU
     tensor of the same dtype and bits."""
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:  # jax hands out read-only buffers
-        a = a.copy()
+    a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        # jax hands out read-only buffers; np.ascontiguousarray would
+        # also turn a 0-d leaf (GIN's eps) into a 1-d one.
+        a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
@@ -50,7 +52,7 @@ _QK_NORM_LEAVES = (
 )
 
 
-def _copy(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
+def copy_leaf(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
     if tuple(dst.shape) != tuple(src.shape) or dst.dtype != src.dtype:
         raise ValueError(
             f"{name}: reference leaf {tuple(src.shape)} {src.dtype} does not "
@@ -71,10 +73,10 @@ def params_from_jax(tree: dict, cfg: TransformerConfig, *,
             "counterpart in repro_torch yet (ROADMAP queue 1, item 15)"
         )
     model = empty_params(cfg, resolve_device(device))
-    _copy(model.embed, to_tensor(tree["embed"]), "embed")
-    _copy(model.final_norm, to_tensor(tree["final_norm"]), "final_norm")
+    copy_leaf(model.embed, to_tensor(tree["embed"]), "embed")
+    copy_leaf(model.final_norm, to_tensor(tree["final_norm"]), "final_norm")
     if model.unembed is not None:
-        _copy(model.unembed.weight, to_tensor(tree["unembed"]).T, "unembed")
+        copy_leaf(model.unembed.weight, to_tensor(tree["unembed"]).T, "unembed")
     layers = tree["dense_layers"]
     leaves = _LAYER_LEAVES + (_QK_NORM_LEAVES if cfg.qk_norm else ())
     for path, attr, transpose in leaves:
@@ -90,5 +92,5 @@ def params_from_jax(tree: dict, cfg: TransformerConfig, *,
         for i, layer in enumerate(model.dense_layers):
             dst = layer.get_parameter(attr)
             src = stacked[i].T if transpose else stacked[i]
-            _copy(dst, src, f"dense_layers/{'/'.join(path)}[{i}]")
+            copy_leaf(dst, src, f"dense_layers/{'/'.join(path)}[{i}]")
     return model

@@ -68,8 +68,8 @@ def test_configs_equal_the_reference(name):
 
 
 def test_unported_archs_raise_naming_the_roadmap_item():
-    for name in ("mixtral-8x7b", "deepseek-v3-671b", "egnn", "gat-cora",
-                 "mace", "gin-tu", "xdeepfm"):
+    for name in ("mixtral-8x7b", "deepseek-v3-671b", "egnn", "mace",
+                 "xdeepfm"):
         assert name in ARCH_NAMES
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1[345]"):
             get_arch(name)
