@@ -8,8 +8,10 @@ of which raises on failure:
 
 1. Device and build: the card's name and power limit, the torch
    version, and the five CUDA kernels built from ``kernels/csrc`` (one
-   ``nvcc`` per source, all at once) with ``-Xptxas -v``'s registers and
-   shared memory. Then the ogb_products graph of the GNN phase,
+   ``nvcc`` per source, all at once; the build's seconds printed) with
+   ``-Xptxas -v``'s registers, shared memory and spills; the bf16
+   attention kernel's D = 128 instance must not spill. Then the
+   ogb_products graph of the GNN phase,
    ``full_graph(2_449_029, 61_859_140, 100, 47, seed=0)``, built on the
    host (its seconds printed): its destinations are phase 2's ids.
 2. Each graph kernel against its plain PyTorch version on the card, at
@@ -59,6 +61,12 @@ of which raises on failure:
    tokens; (c) gemma's MQA shape (Hq=8, Hkv=1, D=256, S=1000); (d)
    phi3's MHA shape (Hq=Hkv=32, D=96, S=777), non-causal, so keys past
    a block edge must not score; (e) S=2048 with window=512; (f) float32;
+   (g) S=4097 and (h) Sq=129, Sk=4096, causal; (i) Sq=1, Sk=4096,
+   non-causal; (j) D=128 with window=1 and window=100; (k) MHA (Hq=Hkv=32)
+   and (l) MQA (Hkv=1) at D=128; (n) a window of 2**40, past a C int;
+   (m) the transposed (B, S, H, D) views that attention.py passes, whose
+   output must keep q's strides and equal the call on contiguous copies
+   bit for bit; two calls at shape (a) bit-equal;
    every other head_dim instance in both types; rows with no live key
    (Sq > Sk + window); and, at S=32768 (the ``prefill_32k`` length, where
    the plain version's scores would take 137 GB), the first and last
@@ -86,7 +94,8 @@ of which raises on failure:
    engine.
 10. ``flash_attention``'s times at shape (a) and at S=32768 beside
    ``scaled_dot_product_attention`` (the yardstick; the port never
-   calls it) and its FLOP bound at 989 TFLOP/s.
+   calls it) and its FLOP bound at 989 TFLOP/s: share of the bound and
+   TFLOP/s; then both at the lengths of ``ATTN_SWEEP``.
 11. GNN inference, after the LM has freed its memory: gin-tu and
    gat-cora at ``config_for("ogb_products")`` (full width, float32,
    random from a seeded CUDA generator) on the ogb_products graph: a
@@ -176,6 +185,11 @@ MARGIN = 0.1  # top-2 logit gap above which two argmaxes must agree
 # positions; 0.094 at the last ones).
 CONSISTENCY_MAX_DIFF = 0.25
 ATTN_TOL = {"torch.bfloat16": 3e-2, "torch.float32": 2e-3}
+ATTN_ENTRY = "attn_tc_kernelILi128E"  # the bf16 kernel's D = 128 instance
+# (B, S, causal) of phase 10's sweep at Hq=32, Hkv=8, D=128: B * S tokens
+# near shape (a)'s, from short rows to long.
+ATTN_SWEEP = ((8, 1024, True), (4, 2048, True), (2, 4096, False), (1, 8192, True),
+              (1, 16384, True))
 
 
 def check(cond, msg: str) -> None:
@@ -693,6 +707,20 @@ def kernel_times(hook_inputs, pj_inputs, agg_inputs, splitters, big_p,
     return out
 
 
+def check_attention_build() -> None:
+    """The ptxas report of the bf16 attention kernel at D = 128 (the
+    prefill's instance): printed, and no spill allowed."""
+    from repro_torch.kernels import build
+
+    entries = {e: v for e, v in build.ptxas_kernels("flash_attention").items()
+               if ATTN_ENTRY in e}
+    check(len(entries) == 1, f"one {ATTN_ENTRY} entry in the ptxas report")
+    (entry, info), = entries.items()
+    print(f"ptxas flash_attention bf16 D=128 ({entry}): {info}")
+    check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+          f"no spill in the bf16 D=128 attention kernel: {info}")
+
+
 def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
     """The (query, key) pairs that ``attention_ref`` keeps: the work an
     attention call must do, 4 * D FLOPs per pair (two products)."""
@@ -771,6 +799,37 @@ def phase_attention(dev, layer0_qkv):
                     *qkv(1, 32, 8, 2048, 2048, 128, bf), window=512))
     errs.append(run("(f) Hq=32 Hkv=8 D=128 S=1000 float32 causal",
                     *qkv(1, 32, 8, 1000, 1000, 128, f32)))
+    # The edges of the bf16 kernel's 128 x 128 tiles, its masks and GQA.
+    errs.append(run("(g) S=4097 Hq=32 Hkv=8 D=128 bf16 causal",
+                    *qkv(1, 32, 8, 4097, 4097, 128, bf)))
+    errs.append(run("(h) Sq=129 Sk=4096 Hq=32 Hkv=8 D=128 bf16 causal",
+                    *qkv(1, 32, 8, 129, 4096, 128, bf)))
+    errs.append(run("(i) Sq=1 Sk=4096 Hq=32 Hkv=8 D=128 bf16 causal=False",
+                    *qkv(1, 32, 8, 1, 4096, 128, bf), causal=False))
+    for w in (1, 100):
+        errs.append(run(f"(j) S=1000 Hq=32 Hkv=8 D=128 bf16 causal window={w}",
+                        *qkv(1, 32, 8, 1000, 1000, 128, bf), window=w))
+    errs.append(run("(k) MHA Hq=Hkv=32 D=128 S=1000 bf16 causal",
+                    *qkv(1, 32, 32, 1000, 1000, 128, bf)))
+    errs.append(run("(l) MQA Hq=32 Hkv=1 D=128 S=1000 bf16 causal",
+                    *qkv(1, 32, 1, 1000, 1000, 128, bf)))
+    errs.append(run("(n) window=2**40, wider than every distance, S=300 D=128 bf16",
+                    *qkv(1, 4, 2, 300, 300, 128, bf), window=2 ** 40))
+    # (m) The views attention.py passes: (B, S, H, D) transposed. The
+    # kernel reads them in place; the output keeps q's strides, so its
+    # transpose back is a view, and it equals the call on copies bit for bit.
+    qs, ks, vs = (torch.randn(PREFILL_B, 1000, h, 128, device=dev, generator=gen).to(bf)
+                  for h in (32, 8, 8))
+    views = [x.transpose(1, 2) for x in (qs, ks, vs)]
+    errs.append(run("(m) transposed (B, S, H, D) views, S=1000 D=128 bf16 causal", *views))
+    got = flash_attention(*views, impl="cuda")
+    dense = flash_attention(*(x.contiguous() for x in views), impl="cuda")
+    check(got.stride() == views[0].stride() and got.transpose(1, 2).is_contiguous(),
+          f"(m) output strides {got.stride()} are q's {views[0].stride()}")
+    check(torch.equal(got, dense), "(m) views and contiguous copies give the same bits")
+    print(f"flash_attention (m): output strides {got.stride()}, bit-equal to the "
+          "call on contiguous copies")
+    del qs, ks, vs, views, got, dense
     for d in (16, 32, 64):
         for dtype in (bf, f32):
             errs.append(run(f"head_dim={d} {dtype} Hq=4 Hkv=2 S=130",
@@ -778,6 +837,12 @@ def phase_attention(dev, layer0_qkv):
     for dtype in (bf, f32):
         errs.append(run(f"rows without a live key {dtype} Sq=300 Sk=100 window=64",
                         *qkv(1, 4, 2, 300, 100, 64, dtype), window=64))
+    # Determinism: no atomics, so two calls give the same bits.
+    first = flash_attention(*shape_a, impl="cuda")
+    check(torch.equal(first, flash_attention(*shape_a, impl="cuda")),
+          "(a) two calls give bit-equal outputs")
+    print("flash_attention (a): two calls bit-equal")
+    del first
     # S = 32768: the kernel's first and last 256 rows against the plain
     # version on those rows alone.
     q, k, v = qkv(1, 32, 8, LONG_S, LONG_S, 128, bf)
@@ -1001,6 +1066,18 @@ def attention_times(shape_a, dev):
           f"share_of_bound={long_bound / long_ms} tflops={long_flops / long_ms / 1e9} "
           f"plain: not run (its scores would take "
           f"{32 * LONG_S * LONG_S * 4 / 1e9:.0f} GB)")
+    del ql, kl, vl
+    # How the share of the bound moves with the rows' length, beside SDPA.
+    for b, s_len, causal in ATTN_SWEEP:
+        qs, ks, vs = (torch.randn(b, h, s_len, 128, device=dev, generator=gen).to(torch.bfloat16)
+                      for h in (32, 8, 8))
+        bound, _, _ = attention_bound_ms(b, 32, 8, s_len, s_len, 128, causal, None, 2)
+        k_ms = graph_ms(lambda: flash_attention(qs, ks, vs, causal=causal, impl="cuda"))
+        s_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal, enable_gqa=True))
+        print(f"time flash_attention B={b} Hq=32 Hkv=8 S={s_len} D=128 bf16 causal={causal}: "
+              f"ms={k_ms} sdpa_ms={s_ms} bound_ms={bound} share_of_bound={bound / k_ms} "
+              f"sdpa_share_of_bound={bound / s_ms}")
     return ms, plain_ms, eager_ms, sdpa_ms, bound_ms
 
 
@@ -1388,9 +1465,11 @@ def main() -> int:
     # Phase 1: build every kernel, one nvcc per source, all at once.
     t0 = time.perf_counter()
     build.build()
-    print(f"build_s={time.perf_counter() - t0} nvcc {' '.join(build.NVCC_FLAGS)}")
+    print(f"build_s={time.perf_counter() - t0} ({len(build.SOURCES)} sources, one nvcc "
+          f"each, in parallel) nvcc {' '.join(build.NVCC_FLAGS)}")
     for name in build.SOURCES:
         print(f"ptxas {name}:\n{build.ptxas_report(name)}")
+    check_attention_build()
     t0 = time.perf_counter()
     ogb = full_graph(GNN_N, GNN_M, GNN_D, GNN_CLASSES, seed=0)
     print(f"gnn graph full_graph({GNN_N}, {GNN_M}, {GNN_D}, {GNN_CLASSES}, "

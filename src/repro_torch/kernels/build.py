@@ -7,7 +7,8 @@ compiler flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. The build directory ``kernels/_build/`` is listed in
 ``.gitignore``. ``build()`` starts one ``nvcc`` per source, all at once,
 and waits for all of them; ``ptxas_report(name)`` returns what
-``-Xptxas -v`` said about each kernel's registers and shared memory.
+``-Xptxas -v`` said about each kernel's registers, shared memory and
+spills, and ``ptxas_kernels(name)`` the same per kernel, parsed.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, and the machines they run on have no ``nvcc``.
@@ -90,13 +91,40 @@ def build(names=SOURCES) -> dict[str, Path]:
 
 
 def ptxas_report(name: str) -> str:
-    """The ``-Xptxas -v`` lines of the build of ``csrc/<name>.cu``."""
+    """The ``-Xptxas -v`` lines of the build of ``csrc/<name>.cu``: each
+    kernel's registers, shared memory, stack frame and spills."""
     log = library_path(name).with_suffix(".log")
     if not log.exists():
         build((name,))
     return "\n".join(
-        line for line in log.read_text().splitlines() if "ptxas" in line
+        line for line in log.read_text().splitlines()
+        if "ptxas" in line or "spill" in line
     )
+
+
+def ptxas_kernels(name: str) -> dict[str, dict[str, int]]:
+    """Per kernel entry (mangled name) of ``csrc/<name>.cu``: the
+    ``registers``, ``spill_stores`` and ``spill_loads`` (bytes) that
+    ``ptxas -v`` reported for ``sm_90a``."""
+    entries: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in ptxas_report(name).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            entries[entry] = {}
+        elif entry is None:
+            continue
+        elif "spill stores" in line:
+            parts = [p.split() for p in line.split(",")]
+            for words in parts:
+                if words[-2:] == ["spill", "stores"]:
+                    entries[entry]["spill_stores"] = int(words[0])
+                elif words[-2:] == ["spill", "loads"]:
+                    entries[entry]["spill_loads"] = int(words[0])
+        elif "Used" in line and "registers" in line:
+            words = line.split("Used", 1)[1].split()
+            entries[entry]["registers"] = int(words[0])
+    return entries
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,6 +14,12 @@ Unlike the Pallas wrapper, this one pads nothing: ragged ``Sq`` and
 ``Sk`` are bounds checks inside the kernel, and keys past ``Sk`` never
 score, so non-causal ragged calls equal ``attention_ref`` (the Pallas
 path's padded keys do score there; ROADMAP queue 3).
+
+bfloat16 inputs go to the kernel as they come, any ``(B, H, S, D)``
+strides whose last is 1: the kernel reads them through TMA tensor maps,
+so the model's transposed ``(B, S, H, D)`` views need no copy, and the
+output is allocated with ``q``'s strides, so its transpose back is a
+view. ``kv_tile_plan`` states the kernel's tile schedule.
 """
 from __future__ import annotations
 
@@ -24,22 +30,128 @@ import torch
 from repro_torch.kernels import check_status, launch_counts, resolve_impl
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# q, k, v, out; dtype, batch, hq, hkv, sq, sk, d, causal, window; the
+# (batch, head, row) strides of q, k, v and out; the stream.
+_ARGTYPES = (_P, _P, _P, _P, *(_I,) * 9, *(_L,) * 12, _P)
 
 # Head dims with a template instance in csrc/flash_attention.cu: every
 # head_dim of the dense LM configs and their smoke configs.
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 # dtype -> the kernel's dtype code: bf16 runs on the tensor cores
-# (mma.sync, float32 accumulators), float32 in float32 FMA (never TF32).
+# (wgmma, float32 accumulators), float32 in float32 FMA (never TF32).
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Query rows a block of the bf16 kernel, and its grid's limit on query
+# tiles (grid.y); the float32 kernel's grid.y is B * Hq, with the same
+# limit.
+BLOCK_Q = 128
+MAX_GRID_Y = 65_535
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous, at a 16-byte-aligned address (the kernel loads
-    rows in 16-byte vectors)."""
+def block_k(head_dim: int) -> int:
+    """Keys a K/V tile of the bf16 kernel: 128, or 64 for D = 256 (its
+    float32 output accumulator alone takes 128 registers a thread)."""
+    return 128 if head_dim <= 128 else 64
+
+
+def kv_tile_plan(
+    sq: int, sk: int, causal: bool, window: int | None,
+    block_q: int, block_k: int,
+) -> list[list[tuple[int, bool]]]:
+    """The kernel's schedule, as ``csrc/flash_attention.cu`` runs it: for
+    each query tile ``t`` (rows ``[t * block_q, min((t + 1) * block_q,
+    sq))``), the K/V tiles it visits, in its order (last first), each
+    with whether it takes the mask.
+
+    A tile is skipped where it is wholly masked for every row of the
+    query tile; a query tile that holds a row with no live key (only
+    with a window and ``Sq >= Sk + window``) visits every tile, since
+    the reference gives such a row equal weights on every key. A tile
+    runs without a mask only where every score in it is live: below the
+    causal diagonal for the first row, inside the window for the last,
+    and below ``Sk``."""
+    n_k = -(-sk // block_k)
+    plan = []
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq) - 1
+        lo, hi = 0, n_k - 1
+        if window is None or q1 < sk + window - 1:
+            if causal:
+                hi = min(hi, q1 // block_k)
+            if window is not None and q0 - window + 1 > 0:
+                lo = (q0 - window + 1) // block_k
+        tiles = []
+        for j in range(hi, lo - 1, -1):
+            k0 = j * block_k
+            tiles.append((j, (causal and k0 + block_k - 1 > q0)
+                          or (window is not None and q1 - k0 >= window)
+                          or k0 + block_k > sk))
+        plan.append(tiles)
+    return plan
+
+
+def tma_strides(x: torch.Tensor) -> tuple[int, int, int] | None:
+    """The element strides (batch, head, row) under which the kernel's
+    TMA maps read the ``(B, H, S, D)`` tensor ``x`` in place, or None
+    where they cannot: a last stride other than 1, or an address or a
+    stride that is not a multiple of 16 bytes (or is 0). A dimension of
+    size 1 is never stepped; its stride is given as 16 bytes."""
+    size = x.element_size()
+    if x.stride(3) != 1 and x.shape[3] > 1 or x.data_ptr() % 16:
+        return None
+    out = []
+    for dim in range(3):
+        st = x.stride(dim)
+        if x.shape[dim] == 1:
+            st = 16 // size
+        elif st <= 0 or st * size % 16:
+            return None
+        out.append(st)
+    return tuple(out)
+
+
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ``ValueError`` on what the kernel does not take: a head_dim
+    without an instance, a dtype other than one of bfloat16 and float32
+    for all three, tensors on different devices, or sizes past its
+    grid's limits."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention kernel has no instance for head_dim {d}; "
+            f"it takes {HEAD_DIMS}"
+        )
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            "flash_attention kernel takes bfloat16 or float32 q, k, v of one "
+            f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v must be on one device")
+    if q.dtype == torch.bfloat16:
+        tiles, grid_limit = -(-sq // BLOCK_Q), "Sq <= 65535 * 128"
+    else:
+        tiles, grid_limit = b * hq, "B*Hq <= 65535"
+    if tiles > MAX_GRID_Y or b * hq >= 1 << 31 or max(sq, sk) >= 1 << 31:
+        raise ValueError(
+            f"flash_attention kernel takes {grid_limit} for {q.dtype}, B*Hq "
+            f"and lengths below 2**31; got B*Hq={b * hq}, Sq={sq}, Sk={sk}"
+        )
+
+
+def _kernel_operand(x: torch.Tensor, dtype: torch.dtype):
+    """``(tensor, strides)`` as the kernel reads them. bf16 goes in as it
+    is where TMA can read it; a copy is made only where it cannot (see
+    ``tma_strides``). The float32 kernel reads contiguous rows."""
+    if dtype == torch.bfloat16:
+        st = tma_strides(x)
+        if st is not None:
+            return x, st
     x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x, tma_strides(x)
 
 
 def flash_attention(
@@ -52,8 +164,9 @@ def flash_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     """Attention of ``q`` over ``k``/``v``; returns ``(B, Hq, Sq, D)`` in
-    ``q``'s dtype. ``window=w`` keeps a score iff ``0 <= qpos - kpos < w``
-    with ``causal``, iff ``qpos - kpos < w`` without."""
+    ``q``'s dtype (for bf16 with ``q``'s strides where ``q`` is dense).
+    ``window=w`` keeps a score iff ``0 <= qpos - kpos < w`` with
+    ``causal``, iff ``qpos - kpos < w`` without."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             "flash_attention takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D); "
@@ -72,34 +185,22 @@ def flash_attention(
         return attention_ref(q, k, v, causal=causal, window=window)
     from repro_torch.kernels.build import function
 
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention kernel has no instance for head_dim {d}; "
-            f"it takes {HEAD_DIMS}"
-        )
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(
-            "flash_attention kernel takes bfloat16 or float32 q, k, v of one "
-            f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    dev = q.device
-    if k.device != dev or v.device != dev:
-        raise ValueError("flash_attention: q, k and v must be on one device")
-    if b * hq > 65_535 or max(sq, sk) >= 1 << 31:
-        raise ValueError(
-            f"flash_attention kernel takes B*Hq <= 65535 and lengths below "
-            f"2**31; got B*Hq={b * hq}, Sq={sq}, Sk={sk}"
-        )
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    check_kernel_inputs(q, k, v)
+    if window is not None and window >= sq + sk:
+        window = None  # masks nothing; a C int would wrap past 2**31
+    dtype = q.dtype
+    (q, q_st), (k, k_st), (v, v_st) = (_kernel_operand(x, dtype) for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0 or sk == 0:  # no key: zeros, as attention_ref
         return out.zero_()
+    o_st = tuple(out.stride()[:3])
     fn = function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     check_status("flash_attention", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, int(causal),
+        _DTYPES[dtype], b, hq, hkv, sq, sk, d, int(causal),
         0 if window is None else int(window),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *q_st, *k_st, *v_st, *o_st,
+        torch.cuda.current_stream(q.device).cuda_stream,
     ))
     launch_counts["flash_attention"] += 1
     return out

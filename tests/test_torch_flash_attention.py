@@ -101,3 +101,123 @@ def test_impl_contract_on_cpu_tensors():
         flash_attention(q, k, v, impl="torch").numpy(),
         attention_ref(q, k, v).numpy(),
     )
+
+
+# --- the kernel's tile schedule, transposed views, validation -------------
+
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    BLOCK_Q,
+    block_k,
+    check_kernel_inputs,
+    kv_tile_plan,
+    tma_strides,
+)
+
+_LENGTHS = (1, 127, 128, 129, 300)
+
+
+def _live(sq, sk, causal, window):
+    """attention_ref's mask: True where (q, k) scores."""
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= q >= k
+    if window is not None:
+        keep &= (q - k) < window
+    return keep
+
+
+@pytest.mark.parametrize("bq,bk", [(BLOCK_Q, block_k(128)), (BLOCK_Q, block_k(256)), (64, 32)])
+@pytest.mark.parametrize("window", [None, 1, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kv_tile_plan_covers_the_mask(causal, window, bq, bk):
+    for sq in _LENGTHS:
+        for sk in _LENGTHS:
+            live = _live(sq, sk, causal, window)
+            plan = kv_tile_plan(sq, sk, causal, window, bq, bk)
+            n_k = -(-sk // bk)
+            assert len(plan) == -(-sq // bq)
+            for t, tiles in enumerate(plan):
+                rows = live[t * bq:(t + 1) * bq]
+                visited = [j for j, _ in tiles]
+                # The kernel's order: from the last tile down, each once.
+                assert visited == sorted(visited, reverse=True)
+                assert len(set(visited)) == len(visited)
+                assert all(0 <= j < n_k for j in visited)
+                for j in range(n_k):
+                    block = rows[:, j * bk:(j + 1) * bk]
+                    if j not in visited:
+                        # Skipped: wholly masked, and no row lacks a live key.
+                        assert not block.any(), (sq, sk, t, j)
+                        assert rows.any(axis=1).all(), (sq, sk, t, j)
+                for j, needs_mask in tiles:
+                    if not needs_mask:
+                        # Run without a mask: every score live, below Sk.
+                        assert (j + 1) * bk <= sk, (sq, sk, t, j)
+                        assert rows[:, j * bk:(j + 1) * bk].all(), (sq, sk, t, j)
+                if not rows.any(axis=1).all():
+                    # A row with no live key weighs every key: all visited.
+                    assert sorted(visited) == list(range(n_k)), (sq, sk, t)
+
+
+def test_kv_tile_plan_prefill_shape():
+    # Causal S=4096 in 128 x 128 tiles: query tile t visits tiles t..0,
+    # and only the diagonal one takes the mask.
+    plan = kv_tile_plan(4096, 4096, True, None, BLOCK_Q, block_k(128))
+    assert len(plan) == 32
+    for t, tiles in enumerate(plan):
+        assert tiles == [(t, True)] + [(j, False) for j in range(t - 1, -1, -1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transposed_views_match_contiguous_inputs(dtype):
+    # The model passes (B, S, H, D) tensors transposed to (B, H, S, D).
+    r = np.random.default_rng(3)
+    tt = getattr(torch, dtype)
+    qs, ks, vs = (torch.from_numpy(r.normal(size=(2, 40, h, 32)).astype(np.float32)).to(tt)
+                  for h in (4, 2, 2))
+    views = [x.transpose(1, 2) for x in (qs, ks, vs)]
+    assert not views[0].is_contiguous()
+    dense = [x.contiguous() for x in views]
+    for causal, window in ((True, None), (False, None), (True, 8)):
+        got = flash_attention(*views, causal=causal, window=window)
+        want = flash_attention(*dense, causal=causal, window=window)
+        np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+
+
+def test_tma_strides_take_the_model_views_without_a_copy():
+    x = torch.zeros(2, 64, 8, 128, dtype=torch.bfloat16)  # (B, S, H, D)
+    assert tma_strides(x.transpose(1, 2)) == (64 * 8 * 128, 128, 8 * 128)
+    assert tma_strides(x[:1].transpose(1, 2)) == (8, 128, 8 * 128)  # B = 1
+    # A last stride other than 1, a stride off 16 bytes, an address off 16
+    # bytes: the wrapper copies these.
+    assert tma_strides(x.transpose(1, 3)) is None
+    assert tma_strides(torch.zeros(1, 2, 5, 12, dtype=torch.bfloat16)[..., :8]) is None
+    n = 2 * 8 * 64 * 128
+    flat = torch.zeros(n + 64, dtype=torch.bfloat16)
+    assert tma_strides(flat[4:4 + n].reshape(2, 8, 64, 128)) is None  # 8 bytes in
+    assert tma_strides(flat[8:8 + n].reshape(2, 8, 64, 128)) == (8 * 64 * 128, 64 * 128, 128)
+
+
+def test_kernel_validation_raises_where_it_did():
+    def t(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype)
+
+    q, k = t((1, 4, 8, 64)), t((1, 2, 8, 64))
+    check_kernel_inputs(q, k, k)  # accepted
+    check_kernel_inputs(q.float(), k.float(), k.float())
+    with pytest.raises(ValueError, match="no instance for head_dim 48"):
+        check_kernel_inputs(t((1, 4, 8, 48)), t((1, 2, 8, 48)), t((1, 2, 8, 48)))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        check_kernel_inputs(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        check_kernel_inputs(q, k.float(), k)
+    big = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(1, 1, 65_535 * 128 + 1, 64)
+    with pytest.raises(ValueError, match="Sq <= 65535 \\* 128"):
+        check_kernel_inputs(big, k, k)
+    wide = torch.zeros(1, 1, 1, 64).expand(1, 65_536, 8, 64)
+    with pytest.raises(ValueError, match="B\\*Hq <= 65535"):
+        check_kernel_inputs(wide, k.float()[:, :1], k.float()[:, :1])
+    with pytest.raises(ValueError, match="same batch and head_dim"):
+        flash_attention(q, k[..., :32], k[..., :32])
