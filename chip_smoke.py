@@ -18,11 +18,21 @@ of which raises on failure:
    the shapes of the main path, bit for bit. ``segment_sum`` against
    its plain version at the GNN path's shapes: the ogb_products ids with
    (m, 100) and (m, 64) float32 rows (gin-tu's layers), GAT's (m, 8, 8),
-   (m, 8), (m, 1, 47) and (m, 1), (m, 64) in bf16, a hub segment owning
-   a tenth of 2^22 rows, and empty segments with negative and sentinel
-   ids. float32 within rtol 2e-5, bf16 within 2e-2, each with an atol
-   of 2e-5 times the output's rms times sqrt(max degree): the two sum
-   in different orders (the plain version with atomics).
+   (m, 8), (m, 1, 47) and (m, 1), (m, 64) in bf16; power-law ids at
+   ogb_products' size (destinations drawn with weight (rank + 1) ** -0.8,
+   largest segment about 685k rows) with (m, 64) rows; a hub segment
+   owning a tenth of 2^22 rows, in float32 and bf16; one segment owning
+   every row; empty segments with negative and sentinel ids; and rows
+   wider than the kernel's 128-column block, which it copies row by row:
+   the molecule cell's graph readout, (nodes, 320) over its graph ids,
+   and 129 and 1,433 (Cora's features) columns on a 2^18-row hub, each
+   in float32 and bf16 and each also two calls bit-equal. float32
+   within rtol 2e-5, bf16 within 2e-2, each with an atol of 2e-5 times
+   the output's rms times sqrt(max degree): the two sum in different
+   orders (the plain version with atomics). Two calls bit-equal at the
+   (m, 100) shape and the hub; the row pointers the kernel writes equal
+   ``torch.searchsorted`` on the ogb_products, hub and empty, negative
+   and sentinel ids.
 3. Connected components through ``connected_components(src, dst, n)``
    on a 2^22-node giant+dust graph, a 2^20-node random graph with about
    2^22 edges, and a 2^20-node random graph with about 9 * 2^20 edges,
@@ -48,10 +58,12 @@ of which raises on failure:
    call and the RS3 walk's share of ``list_rank``; from
    ``torch.profiler`` runs, the card's idle share in each CC cell and in
    ``list_rank`` on a 2^20-node list. ``segment_sum`` at gin-tu's
-   layer-1 and layer-2 shapes and at the hub case: device ms, ms per
-   Python call, plain ms, and ``torch.segment_reduce(data, "sum",
-   lengths=...)`` (``library_ms``; ``index_add_`` beside it), both
-   yardsticks the port never calls, with the byte bound.
+   and gat-cora's shapes, the power-law case and the hub case: device
+   ms, ms per Python call, plain ms, and ``torch.segment_reduce(data,
+   "sum", lengths=...)`` (``library_ms``; ``index_add_`` beside it),
+   both yardsticks the port never calls, with the byte bound; at
+   gin-tu's layer-1 shape also its passes by device time and
+   ``torch.searchsorted``'s time for the row pointers.
 
 6. ``flash_attention`` against its plain version (``attention_ref``)
    on the card within rtol = 3e-2 in bf16 and 2e-3 in float32, and an
@@ -121,6 +133,7 @@ result. It imports nothing of JAX or of the ``repro`` package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -164,6 +177,9 @@ GNN_N, GNN_M, GNN_D, GNN_CLASSES = 2_449_029, 61_859_140, 100, 47
 GNN_ARCHS = (("gin-tu", 5), ("gat-cora", 4))  # segment_sum launches a forward
 MOLECULE_BATCH, MOLECULE_LAUNCHES = 128, 6  # gin-tu with graph readout
 HUB_M, HUB_N = 1 << 22, 1 << 18  # one segment owns HUB_M // 10 rows
+WIDE_HUB_M, WIDE_HUB_N = 1 << 18, 1 << 14  # the hub of phase 2's wide rows
+WIDE_COLS = (129, 1433)  # one column past a column block; Cora's features
+POWER_LAW = 0.8  # destinations drawn with weight (rank + 1) ** -POWER_LAW
 SEGSUM_RTOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 SEGSUM_ATOL = 2e-5  # times the output's rms times sqrt(max degree)
 GNN_TOL = 2e-3  # rtol of the logits against gnn_by_index_add; atol x min(1, rms)
@@ -1121,12 +1137,45 @@ def segsum_check(name, data, ids, n) -> float:
     return err
 
 
+def segsum_bit_equal(name, data, ids, n) -> None:
+    """Two calls of the kernel on the same input give bit-equal outputs
+    (no atomics: a fixed order of sums)."""
+    import torch
+
+    from repro_torch.kernels.segment_sum import segment_sum_sorted
+
+    a = segment_sum_sorted(data, ids, n, impl="cuda")
+    b = segment_sum_sorted(data, ids, n, impl="cuda")
+    same = torch.equal(a, b)
+    print(f"segment_sum {name}: two calls bit-equal={same}")
+    check(same, f"segment_sum {name}: two calls bit-equal")
+
+
+def segsum_pointers(name, ids, n) -> None:
+    """The row pointers the kernel's tile pass writes equal
+    ``torch.searchsorted(ids, arange(n + 1))`` bit for bit."""
+    import torch
+
+    from repro_torch.kernels.segment_sum.ops import segment_sum_and_pointers
+
+    ones = torch.ones(ids.shape[0], 1, device=ids.device)
+    ptr = segment_sum_and_pointers(ones, ids, n)[1]
+    want = torch.searchsorted(
+        ids, torch.arange(n + 1, dtype=torch.int32, device=ids.device), out_int32=True)
+    same = torch.equal(ptr, want)
+    print(f"segment_sum {name}: row pointers equal torch.searchsorted={same}")
+    check(same, f"segment_sum {name}: row pointers equal torch.searchsorted")
+
+
 def phase_segment_sum(dev, dst: np.ndarray) -> float:
     """Phase 2, ``segment_sum``: the kernel against its plain version at
-    the GNN path's shapes and at the edge cases. Returns the largest
+    the GNN path's shapes and at the edge cases, two calls bit-equal, and
+    its row pointers against ``torch.searchsorted``. Returns the largest
     max_abs_err at the main path's (ogb_products, float32) shapes."""
     import torch
 
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import molecule_batch
     from repro_torch.kernels.segment_sum import segment_sum_sorted
 
     gen = torch.Generator(dev).manual_seed(3)
@@ -1144,10 +1193,22 @@ def phase_segment_sum(dev, dst: np.ndarray) -> float:
         err = segsum_check(f"{GNN_SHAPE} {what}", data, ids, GNN_N)
         if dtype == torch.float32:
             errs.append(err)
+        if feat == (GNN_D,):
+            segsum_bit_equal(f"{GNN_SHAPE} {what}", data, ids, GNN_N)
         del data
+    segsum_pointers(GNN_SHAPE, ids, GNN_N)
     del ids
+    pl_ids = power_law_ids(dev, gen)
+    data = torch.randn(GNN_M, 64, device=dev, generator=gen)
+    segsum_check("power-law (m, 64)", data, pl_ids, GNN_N)
+    del data, pl_ids
     hub_ids, hub_data = hub_case(dev, gen)
     segsum_check("hub", hub_data, hub_ids, HUB_N)
+    segsum_check("hub bf16", hub_data.to(torch.bfloat16), hub_ids, HUB_N)
+    segsum_bit_equal("hub", hub_data, hub_ids, HUB_N)
+    segsum_pointers("hub", hub_ids, HUB_N)
+    one = torch.zeros(HUB_M, dtype=torch.int32, device=dev)
+    segsum_check("one segment owning every row", hub_data, one, 1)
     # Empty segments (every other one), negative ids and sentinels: the
     # reference's padding id n, and ns_pad + block_s.
     n = 1 << 20
@@ -1159,28 +1220,70 @@ def phase_segment_sum(dev, dst: np.ndarray) -> float:
     segsum_check("empty, negative and sentinel ids", data, ids, n)
     got = segment_sum_sorted(data, ids, n, impl="cuda")
     check(not bool(got[1::2].any()), "empty segments sum to 0")
-    del got, data, ids, body, hub_ids, hub_data
+    segsum_pointers("empty, negative and sentinel ids", ids, n)
+    del got, data, ids, body, hub_ids, hub_data, one
+    # Rows wider than a column block (MAX_COLS), copied row by row: the
+    # molecule cell's graph readout (hcat, layers x hidden columns, over
+    # graph_ids), one column past a block, and Cora's 1,433 features, the
+    # last two on a hub that crosses fold groups.
+    mol = molecule_batch(MOLECULE_BATCH)
+    mol_cfg = get_arch("gin-tu").config_for("molecule")
+    gids = torch.from_numpy(mol["graph_ids"]).to(dev)
+    width = mol_cfg.num_layers * mol_cfg.d_hidden
+    wide = [(f"molecule readout (nodes, {width})", gids, int(mol["num_graphs"]),
+             torch.randn(gids.shape[0], width, device=dev, generator=gen))]
+    for d in WIDE_COLS:
+        ids, data = hub_case(dev, gen, WIDE_HUB_M, WIDE_HUB_N, d)
+        wide.append((f"hub (2^18, {d})", ids, WIDE_HUB_N, data))
+    for name, ids, n, data in wide:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = data.to(dtype)
+            segsum_check(f"{name} {dtype}", x, ids, n)
+            segsum_bit_equal(f"{name} {dtype}", x, ids, n)
+            del x
+    del wide, data, ids
     torch.cuda.empty_cache()
     return max(errs)
 
 
-def hub_case(dev, gen):
-    """HUB_M sorted ids over HUB_N segments, one of which owns a tenth
-    of the rows, with (HUB_M, 64) float32 rows."""
+def hub_case(dev, gen, m: int = HUB_M, n: int = HUB_N, d: int = 64):
+    """m sorted ids over n segments, one of which owns a tenth of the
+    rows, with (m, d) float32 rows."""
     import torch
 
-    hub = HUB_M // 10
-    rest = torch.randint(0, HUB_N, (HUB_M - hub,), device=dev, generator=gen)
-    ids = torch.cat([rest, torch.full((hub,), HUB_N // 2, device=dev)])
+    hub = m // 10
+    rest = torch.randint(0, n, (m - hub,), device=dev, generator=gen)
+    ids = torch.cat([rest, torch.full((hub,), n // 2, device=dev)])
     ids = ids.sort().values.to(torch.int32)
-    return ids, torch.randn(HUB_M, 64, device=dev, generator=gen)
+    return ids, torch.randn(m, d, device=dev, generator=gen)
+
+
+def power_law_ids(dev, gen):
+    """GNN_M sorted destinations over the GNN_N nodes, node r drawn with
+    weight (r + 1) ** -POWER_LAW: a products graph's in-degrees, whose
+    largest segment holds about 1.1% of the rows. Prints the degrees."""
+    import torch
+
+    weights = (torch.arange(GNN_N, device=dev, dtype=torch.float64) + 1) ** -POWER_LAW
+    ids = torch.cat([
+        torch.multinomial(weights, min(1 << 24, GNN_M - i), replacement=True, generator=gen)
+        for i in range(0, GNN_M, 1 << 24)])
+    ids = ids.sort().values.to(torch.int32)
+    deg = torch.bincount(ids.long(), minlength=GNN_N)
+    print(f"power-law ids: m={GNN_M} n={GNN_N} weight (r+1)^-{POWER_LAW}: "
+          f"max_degree={int(deg.max())} segments_over_10k_rows={int((deg > 10_000).sum())} "
+          f"median_degree={float(deg.float().median())} empty={int((deg == 0).sum())}")
+    return ids
 
 
 def segment_sum_times(dev, dst: np.ndarray):
     """Phase 5, ``segment_sum``: device ms (CUDA-graph replays), ms per
     Python call, plain ms, ``torch.segment_reduce`` and ``index_add_``
-    ms, and the byte bound, at gin-tu's layer-1 and layer-2 shapes and
-    the hub case. Returns the layer-1 record fields."""
+    ms, and the byte bound, at gin-tu's and gat-cora's shapes on the
+    ogb_products ids, the power-law case and the hub case; at gin-tu's
+    layer-1 shape also the kernel's passes by device time and
+    ``torch.searchsorted``'s time for the row pointers, which the tile
+    pass writes. Returns the layer-1 record fields."""
     import torch
 
     from repro_torch.kernels.segment_sum import segment_sum_sorted
@@ -1188,17 +1291,25 @@ def segment_sum_times(dev, dst: np.ndarray):
 
     gen = torch.Generator(dev).manual_seed(4)
     ogb_ids = torch.from_numpy(dst).to(dev)
+    pl_ids = power_law_ids(dev, gen)
     hub_ids, hub_data = hub_case(dev, gen)
     cases = (
-        (f"{GNN_SHAPE} gin-tu layer 1 (m, {GNN_D})", ogb_ids, GNN_N, GNN_D),
-        (f"{GNN_SHAPE} gin-tu layers 2-5 (m, 64)", ogb_ids, GNN_N, 64),
-        ("hub (2^22, 64), one segment of 2^22 / 10 rows", hub_ids, HUB_N, 64),
+        (f"{GNN_SHAPE} gin-tu layer 1 (m, {GNN_D})", ogb_ids, GNN_N, (GNN_D,)),
+        (f"{GNN_SHAPE} gin-tu layers 2-5 (m, 64)", ogb_ids, GNN_N, (64,)),
+        (f"{GNN_SHAPE} gat-cora layer 1 messages (m, 8, 8)", ogb_ids, GNN_N, (8, 8)),
+        (f"{GNN_SHAPE} gat-cora layer 1 denominators (m, 8)", ogb_ids, GNN_N, (8,)),
+        (f"{GNN_SHAPE} gat-cora layer 2 messages (m, 1, {GNN_CLASSES})", ogb_ids, GNN_N,
+         (1, GNN_CLASSES)),
+        (f"{GNN_SHAPE} gat-cora layer 2 denominators (m, 1)", ogb_ids, GNN_N, (1,)),
+        (f"power-law (m, 64), max degree {max_degree(pl_ids, GNN_N)}", pl_ids, GNN_N, (64,)),
+        ("hub (2^22, 64), one segment of 2^22 / 10 rows", hub_ids, HUB_N, (64,)),
     )
     first = None
-    for name, ids, n, d in cases:
+    for name, ids, n, feat in cases:
         data = (hub_data if ids is hub_ids
-                else torch.randn(GNN_M, d, device=dev, generator=gen))
-        m = ids.shape[0]
+                else torch.randn((ids.shape[0], *feat), device=dev, generator=gen))
+        m, d = ids.shape[0], math.prod(feat)
+        flat = data.view(m, d)
         lengths = torch.bincount(ids.long(), minlength=n)
         long_ids = ids.long()
 
@@ -1211,24 +1322,33 @@ def segment_sum_times(dev, dst: np.ndarray):
         ms = graph_ms(kernel, calls=10, replays=3)
         eager_ms = cuda_ms(kernel, iters=10, warmup=2)
         plain_ms = graph_ms(plain, calls=3, replays=3)
-        lib_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths),
+        lib_ms = cuda_ms(lambda: torch.segment_reduce(flat, "sum", lengths=lengths),
                          iters=5, warmup=1)
         add_ms = cuda_ms(lambda: torch.zeros(n, d, device=dev).index_add_(
-            0, long_ids, data), iters=5, warmup=1)
-        lib_err = float((torch.segment_reduce(data, "sum", lengths=lengths)
-                         - kernel()).abs().max())
-        nbytes = m * d * 4 + 4 * m + n * d * 4 + 4 * (n + 1)
+            0, long_ids, flat), iters=5, warmup=1)
+        lib_err = float((torch.segment_reduce(flat, "sum", lengths=lengths)
+                         - kernel().view(n, d)).abs().max())
+        s = data.element_size()
+        nbytes = m * d * s + 4 * m + n * d * s + 4 * (n + 1)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"time segment_sum {name}: ms={ms} eager_ms={eager_ms} "
               f"plain_ms={plain_ms} segment_reduce_ms={lib_ms} "
               f"index_add_ms={add_ms} bound_ms={bound_ms} bytes={nbytes} "
               f"share_of_bound={bound_ms / ms} "
               f"gb_per_s={nbytes / ms / 1e6} "
-              f"segment_reduce_max_abs_diff={lib_err}")
+              f"segment_reduce_max_abs_diff={lib_err} [{card_line()}]")
         if first is None:
             first = (ms, plain_ms, eager_ms, lib_ms, bound_ms)
-        del data, lengths, long_ids
-    del ogb_ids, hub_ids, hub_data
+            search_ms = graph_ms(lambda: torch.searchsorted(
+                ids, torch.arange(n + 1, dtype=torch.int32, device=dev), out_int32=True),
+                calls=10, replays=3)
+            _, busy_ms, _, passes, _ = device_share(kernel, top=4)
+            print(f"split segment_sum {name}: passes by device ms "
+                  f"{[(k, round(v, 4)) for k, v in passes]} busy_ms={busy_ms}; "
+                  f"torch.searchsorted for the row pointers (which the tile pass "
+                  f"writes) ms={search_ms} share_of_call={search_ms / ms}")
+        del data, flat, lengths, long_ids
+    del ogb_ids, pl_ids, hub_ids, hub_data
     torch.cuda.empty_cache()
     return first
 

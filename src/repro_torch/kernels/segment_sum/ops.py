@@ -3,16 +3,21 @@
 Replaces ``repro/kernels/segment_sum/segment_sum.py::_segsum_kernel``
 (wrapper ``repro/kernels/segment_sum/ops.py::segment_sum_sorted``).
 What bounds it on the H100 is memory: ``m*d*itemsize + 4*m +
-n*d*itemsize + 4*(n + 1)`` bytes per call. The wrapper finds the row
-pointers of the sorted ids with ``torch.searchsorted`` (the Pallas
-wrapper's block tables are the same search at block granularity), and
-the kernel sums each segment's contiguous rows with one warp, in
-float32, without atomics.
+n*d*itemsize + 4*(n + 1)`` bytes per call. The work is split by rows:
+``row_pointers_ref`` states the row pointers the kernel's first pass
+writes, ``row_tiles`` the split into tiles, and
+``segment_sum_tiled_ref`` sums by that split in the kernel's order of
+passes (tile partials first, then the carries of segments that cross
+tiles, in tile order). It does not follow the kernel's order of sums
+inside a tile, so it equals the kernel only where every order gives the
+same sum. The kernel sums in float32, without atomics, so two calls
+give bit-equal outputs.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +26,115 @@ from repro_torch.kernels.segment_sum.ref import segment_sum_sorted_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The plan's limits and choices. csrc/segment_sum.cu refuses a plan that
+# does not fit its own: a stage's rows and ids fit a STAGE_BYTES slot, a
+# warp sums at most MAX_COLS columns, and FOLD_TILES (one a lane) and the
+# carry's rows are checked against its fold pass. A tile's least stages
+# and rows are this plan's choice.
+STAGE_BYTES = 4096
+MAX_COLS = 128
+FOLD_TILES = 32
+TILE_STAGES = 8
+TILE_ROWS = 512
+
+
+class RowTiles(NamedTuple):
+    """How the kernel splits ``m`` rows of ``d`` columns: tiles of
+    ``tile_rows`` rows (``tiles`` of them), each summed by one warp per
+    block of ``col_block`` columns in stages of ``stage_rows`` rows;
+    ``lanes`` lanes spread over the columns and ``32 // lanes`` walkers
+    over the rows of a stage, ``walker_rows`` each. ``carry_rows`` rows
+    of two ``d``-float partials (head and tail) hold the carries: one
+    row a tile, then one a group of ``FOLD_TILES`` tiles."""
+
+    tile_rows: int
+    tiles: int
+    stage_rows: int
+    walker_rows: int
+    lanes: int
+    col_block: int
+    carry_rows: int
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def row_tiles(m: int, d: int, itemsize: int) -> RowTiles:
+    """The kernel's split of ``m`` sorted rows of ``d`` columns of
+    ``itemsize`` bytes. A stage is as many rows (a multiple of the
+    walkers, an odd number a walker when there are several, so walkers
+    read distinct shared-memory banks) as fit a ``STAGE_BYTES`` slot
+    with their ids and 16 bytes of alignment slack for each; a tile is
+    at least ``TILE_STAGES`` stages and ``TILE_ROWS`` rows."""
+    col_block = min(d, MAX_COLS)
+    lanes = 32 if col_block > 16 else 1 << (col_block - 1).bit_length()
+    walkers = 32 // lanes
+    slot = _round16(col_block * itemsize) + 16 if col_block < d else 0
+
+    def fits(rows: int) -> bool:
+        data = rows * slot if slot else _round16(rows * d * itemsize) + 16
+        return data + _round16(rows * 4) + 16 <= STAGE_BYTES
+
+    q = 1
+    while fits(walkers * (q + 1)):
+        q += 1
+    if walkers > 1 and q % 2 == 0:
+        q -= 1
+    stage = walkers * q
+    tile = stage * max(TILE_STAGES, -(-TILE_ROWS // stage))
+    tiles = -(-m // tile)
+    return RowTiles(tile, tiles, stage, q, lanes, col_block, tiles + -(-tiles // FOLD_TILES))
+
+
+def row_pointers_ref(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The kernel's first pass, plainly: for each row boundary ``i`` in
+    ``[0, m]``, ``ptr[s] = i`` for every ``s`` in ``(ids[i-1], ids[i]]``
+    clamped to ``[0, n]``, with ``ids[-1] = -1`` and ``ids[m] = n``. For
+    sorted ids this is ``torch.searchsorted(ids, arange(n + 1))``: the
+    first row with id >= s. ``(n + 1,)`` int32."""
+    n = num_segments
+    ids = seg_ids.long()
+    lo = torch.cat([ids.new_tensor([-1]), ids]) + 1
+    hi = torch.cat([ids, ids.new_tensor([n])])
+    count = (hi.clamp(-1, n) - lo.clamp(0, n + 1) + 1).clamp(min=0)
+    rows = torch.arange(ids.numel() + 1, device=ids.device)
+    return torch.repeat_interleave(rows, count).to(torch.int32)
+
+
+def segment_sum_tiled_ref(
+    data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int, tile_rows: int
+) -> torch.Tensor:
+    """Segment sum by the kernel's split, plainly: its passes, not its
+    order of sums inside a tile. Each run of one segment inside a tile of
+    ``tile_rows`` rows is summed on its own (the tile pass); a segment
+    inside one tile is its run. The runs of a segment that crosses tiles
+    are added in tile order, ``FOLD_TILES`` tiles at a time (the fold
+    pass), and those group sums in group order (the finish pass). An
+    empty segment is 0. Sums in float32, rounded once to ``data``'s
+    dtype."""
+    n = num_segments
+    ids = seg_ids.long()
+    feat = data.shape[1:]
+    x = data.reshape(data.shape[0], -1).float()
+    ptr = row_pointers_ref(seg_ids, n).long()
+    out = torch.zeros((n, x.shape[1]), dtype=torch.float32)
+    lo, hi = int(ptr[0]), int(ptr[n])
+    rows = torch.arange(lo, hi)
+    key = torch.stack([rows // tile_rows, ids[lo:hi]])
+    runs, run_of = torch.unique_consecutive(key, dim=1, return_inverse=True)
+    partial = torch.zeros((runs.shape[1], x.shape[1])).index_add_(0, run_of, x[lo:hi])
+    groups: dict[tuple[int, int], torch.Tensor] = {}
+    for (tile, s), part in zip(runs.T.tolist(), partial):
+        key = (s, tile // FOLD_TILES)
+        groups[key] = groups[key] + part if key in groups else part
+    for (s, group), part in groups.items():  # in order of s, then group
+        if group == int(ptr[s]) // (tile_rows * FOLD_TILES):
+            out[s] = part
+        else:
+            out[s] += part
+    return out.to(data.dtype).reshape(n, *feat)
 
 
 def segment_sum_sorted(
@@ -44,6 +158,11 @@ def segment_sum_sorted(
     TPU kernel's tiling parameters: accepted, so a call reads as the
     reference's, and ignored.
 
+    On the card the work is split by rows (``row_tiles``), whatever the
+    largest segment; the call reads nothing back to the host, so it can
+    be captured in a CUDA graph. ``data`` whose address is not a
+    multiple of 16 bytes is copied first.
+
     This slice is inference: a ``data`` that requires grad, with grad
     mode on, raises (the kernel's launch would cut the autograd graph).
     """
@@ -63,8 +182,19 @@ def segment_sum_sorted(
         raise ValueError(f"num_segments must be >= 0, got {num_segments}")
     if resolve_impl(impl, data) == "torch":
         return segment_sum_sorted_ref(data, seg_ids, num_segments)
+    return segment_sum_and_pointers(data, seg_ids, num_segments)[0]
+
+
+def segment_sum_and_pointers(
+    data: torch.Tensor, seg_ids: torch.Tensor, num_segments: int
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The kernel's launch on CUDA tensors: ``segment_sum_sorted``'s
+    output and the ``(n + 1,)`` int32 row pointers its tile pass wrote
+    (as ``row_pointers_ref``; ``None`` when no rows, columns or segments
+    left nothing to launch). Counts the launch."""
     from repro_torch.kernels.build import function
 
+    resolve_impl("cuda", data)  # raises for tensors off the card
     dev = data.device
     check_int32("seg_ids", seg_ids, dev)
     if data.dtype not in _DTYPES or not data.is_contiguous():
@@ -81,18 +211,21 @@ def segment_sum_sorted(
         )
     out = torch.empty((num_segments, *feat), dtype=data.dtype, device=dev)
     if num_segments == 0 or d == 0:
-        return out
+        return out, None
     if m == 0:
-        return out.zero_()
-    ptr = torch.searchsorted(
-        seg_ids,
-        torch.arange(num_segments + 1, dtype=torch.int32, device=dev),
-        out_int32=True,
-    )
-    fn = function("segment_sum", "segment_sum_run", (_P, _P, _P, _L, _I, _I, _P))
+        return out.zero_(), None
+    if data.data_ptr() % 16:
+        data = data.clone()
+    plan = row_tiles(m, d, data.element_size())
+    ptr = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
+    carry = torch.empty((plan.carry_rows, 2, d), dtype=torch.float32, device=dev)
+    fn = function("segment_sum", "segment_sum_run",
+                  (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _L, _I, _I, _L, _P))
     check_status("segment_sum", fn(
-        data.data_ptr(), ptr.data_ptr(), out.data_ptr(), num_segments, d,
-        _DTYPES[data.dtype], torch.cuda.current_stream(dev).cuda_stream,
+        data.data_ptr(), seg_ids.data_ptr(), ptr.data_ptr(), carry.data_ptr(),
+        out.data_ptr(), m, num_segments, d, _DTYPES[data.dtype], plan.lanes,
+        plan.walker_rows, plan.tile_rows, plan.col_block, FOLD_TILES, plan.carry_rows,
+        torch.cuda.current_stream(dev).cuda_stream,
     ))
     launch_counts["segment_sum"] += 1
-    return out
+    return out, ptr
