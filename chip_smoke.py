@@ -15,7 +15,11 @@ of which raises on failure:
    ``full_graph(2_449_029, 61_859_140, 100, 47, seed=0)``, built on the
    host (its seconds printed): its destinations are phase 2's ids.
 2. Each graph kernel against its plain PyTorch version on the card, at
-   the shapes of the main path, bit for bit. ``segment_sum`` against
+   the shapes of the main path, bit for bit: ``edge_hook``'s sv2 and sv3
+   at the giant+dust graph's round-1 and round-4 states, the random
+   graph's round-1 state, the dense graph's first Afforest sampling
+   round (``a = arange(n)``) and a 2^22-edge star whose every hook
+   targets one root. ``segment_sum`` against
    its plain version at the GNN path's shapes: the ogb_products ids with
    (m, 100) and (m, 64) float32 rows (gin-tu's layers), GAT's (m, 8, 8),
    (m, 8), (m, 1, 47) and (m, 1), (m, 64) in bf16; power-law ids at
@@ -32,7 +36,10 @@ of which raises on failure:
    orders (the plain version with atomics). Two calls bit-equal at the
    (m, 100) shape and the hub; the row pointers the kernel writes equal
    ``torch.searchsorted`` on the ogb_products, hub and empty, negative
-   and sentinel ids.
+   and sentinel ids. ``ops/segment.py``'s ``segment_sum``,
+   ``segment_mean`` and ``segment_softmax`` on sorted int64 ids with a
+   negative id and ids past int32: ``[2, 0, 0, 7, 0]``, its mean, and
+   the plain path's softmax, through three kernel launches.
 3. Connected components through ``connected_components(src, dst, n)``
    on a 2^22-node giant+dust graph, a 2^20-node random graph with about
    2^22 edges, and a 2^20-node random graph with about 9 * 2^20 edges,
@@ -52,7 +59,10 @@ of which raises on failure:
    of a CUDA graph of many calls, beside its byte bound at the H100's
    3.35 TB/s, its plain version's time taken the same way, and the time
    per call when the wrapper is called from Python (the difference is
-   the host's cost of a call); the
+   the host's cost of a call); ``pointer_jump``'s latency floor (its
+   launch and barrier steps without gathers, at p = 4096); ``edge_hook``
+   summed over every call of each CC cell (recorded in one more run of
+   each and replayed), beside the summed byte bound; the
    end-to-end wall time of phases 3 and 4 (median of three calls after
    a warm-up); from separate traced runs, the engine's share of each CC
    call and the RS3 walk's share of ``list_rank``; from
@@ -155,6 +165,7 @@ LIST_N = 8_388_608
 SPLITTERS = 4096
 POINTER_JUMP_BIG_P = 65_536  # above the one-launch limit: the step path
 PROFILE_LIST_N = 1_048_576  # list size of the profiled list_rank call
+STAR_M = 1 << 22  # edges of phase 2's star, every hook into one root
 
 KERNELS = {
     "edge_hook.sv2": ("edge_hook", "src/repro/kernels/edge_hook/edge_hook.py:27"),
@@ -473,7 +484,79 @@ def hook_states(a, b, n, dev):
     return states
 
 
-def phase_kernels(dev, cc_edges, list_n, splitters, big_p, kernel_impl):
+def star_state(dev, m: int = STAR_M):
+    """A star of ``m`` edges from node ``m`` to the leaves, leaves in
+    descending order, with identity labels and zero stamps at round 1:
+    every hook of both phases targets node ``m``."""
+    import torch
+
+    b = torch.arange(m - 1, -1, -1, dtype=torch.int32, device=dev)
+    a = torch.full_like(b, m)
+    D = torch.arange(m + 1, dtype=torch.int32, device=dev)
+    return a, b, (D, D, torch.zeros_like(D), 1)
+
+
+def random_hook_state(dev, n: int, m2: int, seed: int):
+    """Random edges, labels (a third of the nodes roots), previous
+    labels (equal at about half the nodes) and stamps in [0, 6) at round
+    s = 3, so some stamps lie above s: a state SV never reaches, which
+    the kernel must still compute as its plain version does."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    labels = np.where(r.random(n) < 0.3, np.arange(n), r.integers(0, n, n))  # roots
+    prev = np.where(r.random(n) < 0.5, labels, r.integers(0, n, n))
+    a, b, labels, prev, stamps = (
+        torch.from_numpy(x.astype(np.int32)).to(dev)
+        for x in (r.integers(0, n, m2), r.integers(0, n, m2), labels, prev,
+                  r.integers(0, 6, n)))
+    return a, b, (labels, prev, stamps, 3)
+
+
+def sampling_state(dev, src, dst, n):
+    """The first Afforest sampling round's edges ``(arange(n),
+    neighbour)`` of a graph, as ``core/frontier.py`` builds them, and
+    its round-1 state."""
+    import torch
+
+    from repro_torch.core import AUTO_SAMPLE_ROUNDS
+    from repro_torch.core.components import dedup_edges, oriented_edges
+    from repro_torch.core.frontier import _build_samples
+
+    a, b = oriented_edges(*dedup_edges(src, dst), n, device=dev)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(a.shape[0])).to(dev)
+    neigh = _build_samples(a, b, perm, n=n, k=AUTO_SAMPLE_ROUNDS)[:, 0]
+    sa = torch.arange(n, dtype=torch.int32, device=dev)
+    sb = torch.where(neigh >= 0, neigh, sa).to(torch.int32)
+    return sa, sb, hook_states(sa, sb, n, dev)[0]
+
+
+def check_hook_state(name, a, b, state, kernel_impl, errs, sv3_from=None) -> tuple:
+    """sv2 and then sv3 of one round state, the kernel against its plain
+    version bit for bit; sv3 runs on sv2's output, or on ``sv3_from``
+    (labels, stamps) where given. Returns ``(D2, Q2, D3)``: sv3's input
+    labels and stamps and its output labels."""
+    from repro_torch.kernels.edge_hook.ops import edge_hook
+
+    D1, D, Q, s = state
+    got = edge_hook(a, b, D1, Q, s, labels_prev=D, mode="sv2", impl=kernel_impl)
+    want = edge_hook(a, b, D1, Q, s, labels_prev=D, mode="sv2", impl="torch")
+    err2 = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    D2, Q2 = want if sv3_from is None else sv3_from
+    got = edge_hook(a, b, D2, Q2, s, mode="sv3", impl=kernel_impl)
+    want = edge_hook(a, b, D2, Q2, s, mode="sv3", impl="torch")
+    err3 = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    check(bool((want[1] == (D2[a] != D2[b])).all()), "sv3 mask is D2[a] != D2[b]")
+    hooked3 = int((want[0] != D2).sum())
+    print(f"edge_hook {name}: m2={a.shape[0]} n={D1.shape[0]} s={s} "
+          f"sv2 max_abs_err={err2} sv3 max_abs_err={err3} "
+          f"sv3 slots hooked={hooked3}")
+    errs["edge_hook.sv2"] = max(errs.get("edge_hook.sv2", 0), err2)
+    errs["edge_hook.sv3"] = max(errs.get("edge_hook.sv3", 0), err3)
+    return D2, Q2, want[0]
+
+
+def phase_kernels(dev, graphs, list_n, splitters, big_p, kernel_impl):
     """Phase 2: every kernel against its plain version at the main
     path's shapes. Returns ``{name: max_abs_err}`` and the inputs phase
     5 times."""
@@ -487,24 +570,38 @@ def phase_kernels(dev, cc_edges, list_n, splitters, big_p, kernel_impl):
     from repro_torch.ops.kiss import random_linked_list
 
     errs: dict[str, int] = {}
-    src, dst, n = cc_edges
-    a, b = oriented_edges(*dedup_edges(src, dst), n, device=dev)
-    for k, (D1, D, Q, s) in enumerate(hook_states(a, b, n, dev)):
-        got = edge_hook(a, b, D1, Q, s, labels_prev=D, mode="sv2", impl=kernel_impl)
-        want = edge_hook(a, b, D1, Q, s, labels_prev=D, mode="sv2", impl="torch")
-        err2 = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-        D2, Q2 = want
-        got = edge_hook(a, b, D2, Q2, s, mode="sv3", impl=kernel_impl)
-        want = edge_hook(a, b, D2, Q2, s, mode="sv3", impl="torch")
-        err3 = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-        check(bool((want[1] == (D2[a] != D2[b])).all()),
-              "sv3 mask is D2[a] != D2[b]")
-        print(f"edge_hook round-{s} state: m2={a.shape[0]} n={n} "
-              f"sv2 max_abs_err={err2} sv3 max_abs_err={err3}")
-        errs["edge_hook.sv2"] = max(errs.get("edge_hook.sv2", 0), err2)
-        errs["edge_hook.sv3"] = max(errs.get("edge_hook.sv3", 0), err3)
+    cells = {name: (edges, n) for name, edges, n in graphs}
+    edges, n = cells["giant_dust"]
+    a, b = oriented_edges(*dedup_edges(edges[:, 0], edges[:, 1]), n, device=dev)
+    for k, state in enumerate(hook_states(a, b, n, dev)):
+        D2, Q2, _ = check_hook_state(f"giant_dust round-{state[3]} state", a, b,
+                                     state, kernel_impl, errs)
         if k == 0:
+            D1, D, Q, s = state
             hook_inputs = (a, b, D1, D, Q, D2, Q2, s, n)
+    edges, n = cells["random"]
+    ra, rb = oriented_edges(*dedup_edges(edges[:, 0], edges[:, 1]), n, device=dev)
+    check_hook_state("random round-1 state", ra, rb, hook_states(ra, rb, n, dev)[0],
+                     kernel_impl, errs)
+    del ra, rb
+    edges, n = cells["random_dense"]
+    sa, sb, state = sampling_state(dev, edges[:, 0], edges[:, 1], n)
+    check_hook_state("random_dense sampling round (a = arange(n))", sa, sb, state,
+                     kernel_impl, errs)
+    del sa, sb, state
+    # Odd sizes (tails of the node and edge passes), both paths.
+    for n_r, m_r in ((1001, 777), (1001, 4001)):
+        ra, rb, state = random_hook_state(dev, n_r, m_r, n_r + m_r)
+        check_hook_state(f"random labels and stamps n={n_r}", ra, rb, state,
+                         kernel_impl, errs, sv3_from=(state[0], state[2]))
+    # sv3 on the round-1 state too, where the root is stagnant: every
+    # hook of both phases targets node STAR_M.
+    sa, sb, state = star_state(dev)
+    _, _, D3 = check_hook_state(f"star of {STAR_M} edges into one root", sa, sb,
+                                state, kernel_impl, errs, sv3_from=state[1:3])
+    check(int(D3[STAR_M]) == 0 and int((D3 != state[0]).sum()) == 1,
+          "the star's sv3 hooks its one root onto leaf 0")
+    del sa, sb, state, D3
     empty = torch.zeros(0, dtype=torch.int32, device=dev)
     before = dict(launch_counts)
     lab = torch.arange(10, dtype=torch.int32, device=dev)
@@ -702,10 +799,10 @@ def kernel_times(hook_inputs, pj_inputs, agg_inputs, splitters, big_p,
         "edge_hook.sv2": (
             lambda impl: edge_hook(a, b, D1, Q, s, labels_prev=D, mode="sv2",
                                    impl=impl),
-            8 * m2 + 20 * n),
+            hook_bytes("sv2", m2, n)),
         "edge_hook.sv3": (
             lambda impl: edge_hook(a, b, D2, Q2, s, mode="sv3", impl=impl),
-            9 * m2 + 12 * n),
+            hook_bytes("sv3", m2, n)),
         "pointer_jump": (
             lambda impl: pointer_jump(nxt, w, impl=impl), 16 * splitters),
         "splitter_aggregate": (
@@ -721,6 +818,134 @@ def kernel_times(hook_inputs, pj_inputs, agg_inputs, splitters, big_p,
                      graph_ms(lambda: fn("torch")),
                      cuda_ms(lambda: fn(kernel_impl)), nbytes)
     return out
+
+
+def cc_graphs():
+    """The three CC cells' graphs, ``[(name, edges, n)]``, edges an
+    ``(m, 2)`` int32 array."""
+    from repro_torch.ops.kiss import giant_dust_graph, random_graph
+
+    return [
+        ("giant_dust", giant_dust_graph(CC_GIANT_N, seed=0), CC_GIANT_N),
+        ("random", random_graph(CC_RANDOM_N, CC_RANDOM_DENSITY, seed=1), CC_RANDOM_N),
+        ("random_dense", random_graph(CC_DENSE_N, CC_DENSE_DENSITY, seed=2),
+         CC_DENSE_N),
+    ]
+
+
+def record_hook_calls(graphs, dev) -> dict:
+    """Run ``connected_components`` once on each graph with the name
+    ``core/components.py`` calls, ``edge_hook``, wrapped; returns each
+    cell's calls in order, ``{name: [(mode, a, b, labels, labels_prev,
+    stamps, s)]}``, with copies of the labels and stamps each call saw."""
+    import repro_torch.core.components as components
+    from repro_torch.core import connected_components
+
+    real = components.edge_hook
+    calls = []
+
+    def recording(a, b, labels, stamps, s, *, labels_prev=None, mode="sv2",
+                  impl="auto"):
+        prev = None if labels_prev is None else labels_prev.clone()
+        calls.append((mode, a, b, labels.clone(), prev, stamps.clone(), s))
+        return real(a, b, labels, stamps, s, labels_prev=labels_prev, mode=mode,
+                    impl=impl)
+
+    out = {}
+    components.edge_hook = recording
+    try:
+        for name, edges, n in graphs:
+            connected_components(edges[:, 0], edges[:, 1], n, device=dev)
+            out[name], calls[:] = list(calls), []
+    finally:
+        components.edge_hook = real
+    return out
+
+
+def hook_bytes(mode: str, m2: int, n: int) -> int:
+    """The bytes one edge_hook call must move: each input read once and
+    each output written once."""
+    return 8 * m2 + 20 * n if mode == "sv2" else 9 * m2 + 12 * n
+
+
+def hook_call_times(calls, impl: str = "cuda") -> list:
+    """Each recorded call replayed on its own inputs: ``[(mode, ms,
+    bound_ms)]`` in call order, ``ms`` by ``graph_ms``."""
+    from repro_torch.kernels.edge_hook.ops import edge_hook
+
+    out = []
+    for mode, a, b, labels, prev, stamps, s in calls:
+        ms = graph_ms(lambda: edge_hook(a, b, labels, stamps, s, labels_prev=prev,
+                                        mode=mode, impl=impl), calls=10, replays=3)
+        bound = hook_bytes(mode, a.shape[0], labels.shape[0]) / HBM_BYTES_PER_S * 1e3
+        out.append((mode, ms, bound))
+    return out
+
+
+def hook_cell_sums(times) -> dict:
+    """``{mode: (calls, summed ms, summed bound_ms)}`` of one cell."""
+    sums = {}
+    for mode, ms, bound in times:
+        k, t, bd = sums.get(mode, (0, 0.0, 0.0))
+        sums[mode] = (k + 1, t + ms, bd + bound)
+    return sums
+
+
+def pointer_jump_floor_ms(nxt, w) -> float:
+    """Device ms of ``pointer_jump_floor`` (``csrc/pointer_jump.cu``):
+    the one-launch kernel's launch, loads, stores and barrier steps at
+    this ``p``, without its gathers; timed as phase 5 times the kernel."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.build import function
+    from repro_torch.kernels.pointer_jump.ops import default_iters
+
+    p = nxt.shape[0]
+    fn = function("pointer_jump", "pointer_jump_floor",
+                  (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+    rank_out, nxt_out = torch.empty_like(w), torch.empty_like(nxt)
+
+    def launch():
+        status = fn(nxt.data_ptr(), w.data_ptr(), rank_out.data_ptr(),
+                    nxt_out.data_ptr(), p, default_iters(p),
+                    torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"pointer_jump_floor launch: CUDA error {status}")
+
+    return graph_ms(launch)
+
+
+def phase_segment_ops(dev) -> None:
+    """Phase 2, ``ops/segment.py`` on the card: sorted int64 ids with a
+    negative id, ids past ``num_segments`` and past int32 reach the
+    kernel sorted, and sum, mean and softmax read what the plain path
+    reads."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.ops import segment
+
+    ids = torch.tensor([-(2**32) + 1, 0, 3, 3, 2**32 + 3, 2**40], dtype=torch.int64)
+    x = torch.arange(1.0, 7.0)
+    before = launch_counts["segment_sum"]
+    got = {fn: getattr(segment, fn)(x.to(dev), ids.to(dev), 5, indices_are_sorted=True)
+           for fn in ("segment_sum", "segment_mean", "segment_softmax")}
+    launched = launch_counts["segment_sum"] - before
+    want = {fn: getattr(segment, fn)(x, ids, 5, indices_are_sorted=True) for fn in got}
+    print(f"ops/segment.py sorted ids {ids.tolist()}: "
+          f"segment_sum={got['segment_sum'].tolist()} "
+          f"segment_mean={got['segment_mean'].tolist()} "
+          f"segment_softmax={got['segment_softmax'].tolist()} "
+          f"kernel launches={launched}")
+    check(got["segment_sum"].tolist() == [2.0, 0.0, 0.0, 7.0, 0.0],
+          "ops/segment.py segment_sum of the sorted wide ids is [2, 0, 0, 7, 0]")
+    check(got["segment_mean"].tolist() == [2.0, 0.0, 0.0, 3.5, 0.0],
+          "ops/segment.py segment_mean of the sorted wide ids")
+    check(torch.allclose(got["segment_softmax"].cpu(), want["segment_softmax"],
+                         rtol=2e-6, atol=0.0),
+          "ops/segment.py segment_softmax equals the plain path")
+    check(launched == 3, f"three segment_sum launches, got {launched}")
 
 
 def check_attention_build() -> None:
@@ -1568,7 +1793,6 @@ def main() -> int:
     from repro_torch.core import AUTO_SAMPLE_ROUNDS
     from repro_torch.data.graphs import full_graph
     from repro_torch.kernels import build
-    from repro_torch.ops.kiss import giant_dust_graph, random_graph
 
     dev = torch.device("cuda")
     # Float32 products in full float32 (no TF32), for the plain versions.
@@ -1595,10 +1819,9 @@ def main() -> int:
     print(f"gnn graph full_graph({GNN_N}, {GNN_M}, {GNN_D}, {GNN_CLASSES}, "
           f"seed=0): host_s={time.perf_counter() - t0}")
 
-    giant = giant_dust_graph(CC_GIANT_N, seed=0)
+    graphs = cc_graphs()
+    (_, giant, _), (_, rand, _), (_, dense, _) = graphs
     g = max(2, int(CC_GIANT_N * 0.9))
-    rand = random_graph(CC_RANDOM_N, CC_RANDOM_DENSITY, seed=1)
-    dense = random_graph(CC_DENSE_N, CC_DENSE_DENSITY, seed=2)
     counts = {}
     for name, edges, n in (("random", rand, CC_RANDOM_N),
                            ("random_dense", dense, CC_DENSE_N)):
@@ -1609,9 +1832,9 @@ def main() -> int:
 
     # Phase 2: kernels against their plain versions.
     errs, hook_inputs, pj_inputs, agg_inputs = phase_kernels(
-        dev, (giant[:, 0], giant[:, 1], CC_GIANT_N), LIST_N, SPLITTERS,
-        POINTER_JUMP_BIG_P, "cuda")
+        dev, graphs, LIST_N, SPLITTERS, POINTER_JUMP_BIG_P, "cuda")
     errs["segment_sum"] = phase_segment_sum(dev, ogb["dst"])
+    phase_segment_ops(dev)
 
     # Phases 3 and 4: the main path, launches counted from 0 in each run.
     check_sample_table(dev, dense[:, 0], dense[:, 1], CC_DENSE_N,
@@ -1629,7 +1852,17 @@ def main() -> int:
     times = kernel_times(hook_inputs, pj_inputs, agg_inputs, SPLITTERS,
                          POINTER_JUMP_BIG_P, "cuda")
     launches = {k: cc_counts[k] + list_counts[k] for k in cc_counts}
-    del giant, rand, dense, hook_inputs, pj_inputs, agg_inputs
+    floor_ms = pointer_jump_floor_ms(*pj_inputs[SPLITTERS])
+    print(f"time pointer_jump floor p={SPLITTERS}: ms={floor_ms} (launch, loads, "
+          f"stores and {2 * math.ceil(math.log2(SPLITTERS))} barriers, no gathers) "
+          f"[{card}]")
+    for name, calls in record_hook_calls(graphs, dev).items():
+        sums = hook_cell_sums(hook_call_times(calls))
+        print(f"time edge_hook cc {name}: " + " ".join(
+            f"{mode} calls={k} ms={ms} bound_ms={bound} share_of_bound={bound / ms}"
+            for mode, (k, ms, bound) in sorted(sums.items())) + f" [{card}]")
+        del calls
+    del graphs, giant, rand, dense, hook_inputs, pj_inputs, agg_inputs
     torch.cuda.empty_cache()
     ss_times = segment_sum_times(dev, ogb["dst"])
 

@@ -69,6 +69,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// jump_shared without its gathers: the same launch, loads, stores and
+// barrier steps, each element read and written in its own place. Its time is
+// the latency floor of the one-launch path, which chip_smoke.py prints beside
+// the kernel's; it computes nothing the port uses.
+__global__ void __launch_bounds__(kThreads)
+    jump_floor(const int* __restrict__ nxt, const int* __restrict__ w,
+               int* __restrict__ rank_out, int* __restrict__ nxt_out, int p,
+               int iters) {
+  __shared__ int r_s[kSharedLimit];
+  __shared__ int n_s[kSharedLimit];
+  for (int i = threadIdx.x; i < p; i += kThreads) {
+    r_s[i] = w[i];
+    n_s[i] = nxt[i];
+  }
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    int r_new[kPerThread];
+    int n_new[kPerThread];
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i < p) {
+        r_new[k] = r_s[i] + 1;
+        n_new[k] = n_s[i] ^ it;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i < p) {
+        r_s[i] = r_new[k];
+        n_s[i] = n_new[k];
+      }
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < p; i += kThreads) {
+    rank_out[i] = r_s[i];
+    nxt_out[i] = n_s[i];
+  }
+}
+
 __global__ void jump_step(const int* __restrict__ rank, const int* __restrict__ nxt,
                           int* __restrict__ rank_out, int* __restrict__ nxt_out,
                           int p) {
@@ -88,6 +131,16 @@ extern "C" int pointer_jump_shared(const void* nxt, const void* w, void* rank_ou
                                    void* stream) {
   if (p < 1 || p > kSharedLimit) return static_cast<int>(cudaErrorInvalidValue);
   jump_shared<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(nxt), static_cast<const int*>(w),
+      static_cast<int*>(rank_out), static_cast<int*>(nxt_out), p, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// jump_floor's launch, with pointer_jump_shared's arguments and limits.
+extern "C" int pointer_jump_floor(const void* nxt, const void* w, void* rank_out,
+                                  void* nxt_out, int p, int iters, void* stream) {
+  if (p < 1 || p > kSharedLimit) return static_cast<int>(cudaErrorInvalidValue);
+  jump_floor<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(nxt), static_cast<const int*>(w),
       static_cast<int*>(rank_out), static_cast<int*>(nxt_out), p, iters);
   return static_cast<int>(cudaGetLastError());

@@ -7,8 +7,11 @@ the CPU: with ``indices_are_sorted=True`` directly, otherwise after a
 stable sort of the ids and a gather of the rows. Integer sums and
 ``segment_max``/``segment_min``/``segment_count`` are scatters in the
 reference too, outside any Pallas kernel, and stay PyTorch scatters
-here. Ids outside ``[0, num_segments)`` contribute nothing: they go to
-a drop row past the end, cut off afterwards. An empty segment sums to
+here. Ids outside ``[0, num_segments)`` contribute nothing: the
+scatters send them to a drop row past the end, cut off afterwards, and
+the kernel skips them. Ids wider than int32 are clamped to ``[-1,
+num_segments]`` before the kernel's int32, so sorted ids reach it
+sorted. An empty segment sums to
 0, and its max/min is the identity (``-inf``/``+inf`` for floats, the
 type's least/greatest integer), as in ``jax.ops``.
 
@@ -49,8 +52,8 @@ def segment_sum(
         return out[:num_segments]
     if segment_ids.dtype == torch.int32:
         ids = segment_ids
-    else:  # out-of-range ids go to the drop row before narrowing
-        ids = _drop_ids(segment_ids, num_segments).to(torch.int32)
+    else:  # clamped before narrowing: still dropped, and sorted ids stay sorted
+        ids = segment_ids.clamp(-1, num_segments).to(torch.int32)
     if data.dtype == torch.float16:
         return segment_sum(data.float(), ids, num_segments,
                            indices_are_sorted=indices_are_sorted).half()

@@ -104,6 +104,60 @@ def test_float_sum_drops_int64_ids_past_int32(sorted_):
     assert tseg.segment_sum(x.long(), ids, 5, **kw).tolist() == [2, 0, 0, 7, 0]
 
 
+SORTED_ID_CASES = {
+    "negative": [-(2**32) + 1, -7, -1, 0, 3, 3],
+    "past-num-segments": [0, 3, 3, 5, 6, 40],
+    "past-int32": [0, 3, 3, 2**32 + 3, 2**40, 2**62],
+    "all": [-(2**32) + 1, 0, 3, 3, 2**32 + 3, 2**40],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SORTED_ID_CASES))
+@pytest.mark.parametrize("fn", ["segment_sum", "segment_mean", "segment_softmax",
+                                "segment_softmax_dist"])
+def test_sorted_wide_ids_reach_the_kernel_sorted(monkeypatch, fn, case):
+    # The kernel takes a tile whose first id is >= num_segments to hold
+    # no row in range, so ids that were sorted must reach it sorted.
+    seen = []
+    real = tseg.segment_sum_sorted
+
+    def spy(data, ids, num_segments, **kw):
+        seen.append(ids.clone())
+        return real(data, ids, num_segments, **kw)
+
+    monkeypatch.setattr(tseg, "segment_sum_sorted", spy)
+    ids = torch.tensor(SORTED_ID_CASES[case], dtype=torch.int64)
+    x = torch.arange(1.0, 7.0)
+    getattr(tseg, fn)(x, ids, 5, indices_are_sorted=True)
+    assert len(seen) == 1
+    got = seen[0]
+    assert got.dtype == torch.int32
+    assert bool((got[1:] >= got[:-1]).all()), got.tolist()
+    keep = (ids >= 0) & (ids < 5)
+    assert torch.equal(got[keep].long(), ids[keep])
+    assert bool(((got[~keep] < 0) | (got[~keep] >= 5)).all())
+
+
+def test_sorted_wide_ids_sum_and_mean_on_the_tiled_split(monkeypatch):
+    # The fault's ids through the kernel's split, stated plainly.
+    from repro_torch.kernels.segment_sum.ops import segment_sum_tiled_ref
+
+    narrowed = []
+
+    def tiled(data, seg_ids, n, **kw):
+        narrowed.append(seg_ids.tolist())
+        return segment_sum_tiled_ref(data, seg_ids, n, tile_rows=2)
+
+    monkeypatch.setattr(tseg, "segment_sum_sorted", tiled)
+    ids = torch.tensor(SORTED_ID_CASES["all"], dtype=torch.int64)
+    x = torch.arange(1.0, 7.0)
+    total = tseg.segment_sum(x, ids, 5, indices_are_sorted=True)
+    mean = tseg.segment_mean(x, ids, 5, indices_are_sorted=True)
+    assert narrowed == [[-1, 0, 3, 3, 5, 5]] * 2
+    assert total.tolist() == [2.0, 0.0, 0.0, 7.0, 0.0]
+    assert mean.tolist() == [2.0, 0.0, 0.0, 3.5, 0.0]
+
+
 def test_float16_sum_is_summed_in_float32_and_rounded_once():
     m = 300
     ids = _ids(13, m, sorted_=True, invalid=True)
