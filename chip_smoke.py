@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100. Phases, each
 of which raises on failure:
 
 1. Device and build: the card's name and power limit, the torch
-   version, and the five CUDA kernels built from ``kernels/csrc`` (one
+   version, and the six CUDA kernels built from ``kernels/csrc`` (one
    ``nvcc`` per source, all at once; the build's seconds printed) with
    ``-Xptxas -v``'s registers, shared memory and spills; the bf16
    attention kernel's D = 128 instance must not spill. Then the
@@ -40,6 +40,10 @@ of which raises on failure:
    ``segment_mean`` and ``segment_softmax`` on sorted int64 ids with a
    negative id and ids past int32: ``[2, 0, 0, 7, 0]``, its mean, and
    the plain path's softmax, through three kernel launches.
+   ``ordered_fold`` against its plain version, bit for bit: PageRank's
+   degrees (also against ``np.add.at``) and first mass step on phase 12's
+   graph, two empty groups in three, and one group of 4,096 values; and
+   a star of 2^20 arcs into one hub against ``np.add.at``.
 3. Connected components through ``connected_components(src, dst, n)``
    on a 2^22-node giant+dust graph, a 2^20-node random graph with about
    2^22 edges, and a 2^20-node random graph with about 9 * 2^20 edges,
@@ -73,7 +77,13 @@ of which raises on failure:
    "sum", lengths=...)`` (``library_ms``; ``index_add_`` beside it),
    both yardsticks the port never calls, with the byte bound; at
    gin-tu's layer-1 shape also its passes by device time and
-   ``torch.searchsorted``'s time for the row pointers.
+   ``torch.searchsorted``'s time for the row pointers. ``ordered_fold``
+   on PageRank's mass step: device ms, ms per Python call, the plain
+   version's ms per Python call (it reads the degrees to the host, so no
+   CUDA graph holds it), ``torch.index_add`` on the same data
+   (``library_ms``: it adds through atomics in no fixed order, so it is a
+   yardstick, not the same function) and the byte bound; and the star's
+   hub, folded by one thread.
 
 6. ``flash_attention`` against its plain version (``attention_ref``)
    on the card within rtol = 3e-2 in bf16 and 2e-3 in float32, and an
@@ -130,6 +140,32 @@ of which raises on failure:
    device kernels of each from one ``torch.profiler`` run. Then gin-tu
    with graph readout on ``molecule_batch(128)``: 6 launches, the same
    check.
+12. Graph analytics, on the CC random cell's graph (2^20 nodes, about
+   2^22 edges) with float32 weights uniform in [0, 1) from
+   ``default_rng(3)``. SSSP through ``shortest_paths`` from source 0 and
+   from a batch of four: the frontier engine equal to the dense one bit
+   for bit (distances, parents, rounds), each batched row equal to its
+   solo run, the fixpoint on every arc, every reachable node's parent
+   arc tight, and the distances within 1e-5 relative of scipy's float64
+   Dijkstra. PageRank through ``pagerank`` to tol = 1e-6: the dense
+   engine at the same iterations bit-equal, 5 iterations bit-equal to
+   the numpy ``serial_pagerank``, ``ordered_fold`` launched once for the
+   degrees and once per iteration. Tree analytics through
+   ``tree_analytics`` on ``benchmarks/tree_ops.py``'s families: a path
+   and ``random_tree(2^22, seed=1)``, and ``random_tree_forest(2^20,
+   2^20 // 30, seed=2)`` (cut from 2^22: its host build is a Python loop
+   over the trees; its seconds printed). Both rank engines equal, the
+   tree invariants, ``edge_hook`` twice a CC round, one
+   ``splitter_aggregate``, and ``pointer_jump`` once at p <= 4096 or
+   once a step above (the forest's p takes the step path); then each
+   stage timed (median of three under 5 s, else one call); and a 2^16-node
+   forest against the port's ``serial_tree_reference``. The SSSP and
+   PageRank calls are timed as the median of three after a warm-up, and
+   so is the dense PageRank engine at ``pagerank_iter_bound()``
+   iterations (98 ``ordered_fold`` launches and one for the degrees);
+   ``torch.profiler`` gives the idle share of one ``pagerank`` call and
+   one path ``tree_analytics`` call. The script's total seconds are
+   printed at the end.
 
 Every profile prints the host's launch calls beside the device records
 it kept, and is used only if it kept one for each (``device_share``).
@@ -195,6 +231,18 @@ SEGSUM_RTOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 SEGSUM_ATOL = 2e-5  # times the output's rms times sqrt(max degree)
 GNN_TOL = 2e-3  # rtol of the logits against gnn_by_index_add; atol x min(1, rms)
 GNN_MARGIN = 1e-2  # top-2 gap above which two argmaxes must agree
+
+# Phase 12's sizes. SSSP and PageRank run on the CC random cell's graph.
+SSSP_WEIGHT_SEED = 3  # float32 weights uniform in [0, 1) from default_rng(3)
+SSSP_BATCH = (0, 262_144, 524_288, 786_432)  # the batch of four sources
+SSSP_RTOL = 1e-5  # float32 distances against scipy's float64 Dijkstra
+PAGERANK_ORACLE_ITERS = 5  # iterations held to the numpy oracle
+TREE_N = 4_194_304  # the path and one-tree families
+# The molecule-batch forest, cut from 2^22 nodes: its host build runs one
+# random_tree per tree (n / 30 of them) in a Python loop.
+TREE_MOLECULE_N = 1_048_576
+TREE_ORACLE_N = 65_536  # forest held to serial_tree_reference
+STAR_LEAVES = 1 << 20  # phase 2's ordered_fold star: every arc into one hub
 
 # The LM phases' sizes.
 LM_ARCH = "qwen3-4b"
@@ -1782,6 +1830,462 @@ def phase_lm(dev) -> dict:
     }
 
 
+def float_err(x, y, what: str) -> float:
+    """Largest |x - y| over two float tensors of one shape; raises unless
+    they are equal bit for bit."""
+    import torch
+
+    if x.shape != y.shape:
+        raise RuntimeError(f"shapes differ: {tuple(x.shape)} vs {tuple(y.shape)}")
+    if x.numel() == 0:
+        return 0.0
+    bits = torch.equal(x.contiguous().view(torch.int32),
+                       y.contiguous().view(torch.int32))
+    err = float((x.double() - y.double()).abs().nan_to_num(0.0).max())
+    check(bits, f"{what}: bit for bit (max_abs_err {err})")
+    return err
+
+
+def sssp_weights(m: int) -> np.ndarray:
+    """Phase 12's float32 edge weights, uniform in [0, 1)."""
+    return np.random.default_rng(SSSP_WEIGHT_SEED).random(m).astype(np.float32)
+
+
+def phase_ordered_fold(dev, edges: np.ndarray, n: int, weights: np.ndarray):
+    """Phase 2, ``ordered_fold`` against its plain version on the card,
+    bit for bit: PageRank's degrees and first mass step on phase 12's
+    graph (the degrees also against ``np.add.at``), empty groups, a
+    one-group buffer, and a star of STAR_LEAVES arcs into one hub
+    against ``np.add.at`` (the plain version would take STAR_LEAVES
+    steps). Returns the largest error and the inputs phase 5 times."""
+    import torch
+
+    from repro_torch.core.components import oriented_edges
+    from repro_torch.kernels.ordered_fold.ops import fold_plan, ordered_fold_sorted
+
+    def both(name, base, plan, vals):
+        got = ordered_fold_sorted(base, plan.row_ptr, plan.perm, vals, impl="cuda")
+        err = float_err(got, ordered_fold_sorted(base, plan.row_ptr, plan.perm,
+                                                 vals, impl="torch"),
+                        f"ordered_fold {name} against its plain version")
+        print(f"ordered_fold {name}: groups={base.numel()} slots={vals.numel()} "
+              f"max_abs_err={err}")
+        return got, err
+
+    a, b = oriented_edges(edges[:, 0], edges[:, 1], n, device=dev)
+    w = torch.from_numpy(weights).to(dev)
+    w2 = torch.cat([w, w])
+    a_plan, b_plan = fold_plan(a, n), fold_plan(b, n)
+    deg, err = both("pagerank degrees", torch.zeros(n, device=dev), a_plan, w2)
+    want = np.zeros(n, np.float32)
+    np.add.at(want, a.cpu().numpy(), w2.cpu().numpy())
+    err = max(err, float_err(deg.cpu(), torch.from_numpy(want),
+                             "ordered_fold degrees against np.add.at"))
+    dmp = torch.tensor(np.float32(0.85), device=dev)
+    omd = torch.tensor(np.float32(1.0) - np.float32(0.85), device=dev)
+    t = torch.full((n,), 1.0 / n, device=dev)
+    out = torch.where(deg > 0, t / deg, 0.0)
+    mass = (omd * t, b_plan, dmp * (out[a] * w2))
+    errs = [err, both("pagerank mass step", *mass)[1]]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    groups = 1 << 16
+    idx = 3 * torch.randint(0, groups // 3, (1 << 20,), device=dev, generator=gen)
+    vals = torch.randn(1 << 20, device=dev, generator=gen)
+    base = torch.randn(groups, device=dev, generator=gen)
+    errs.append(both("two empty groups in three", base, fold_plan(idx, groups),
+                     vals)[1])
+    one = torch.randn(4096, device=dev, generator=gen) * 1e3
+    got, e1 = both("one group", torch.zeros(1, device=dev),
+                   fold_plan(torch.zeros(4096, dtype=torch.int32, device=dev), 1),
+                   one)
+    want = np.zeros(1, np.float32)
+    np.add.at(want, np.zeros(4096, np.int64), one.cpu().numpy())
+    errs += [e1, float_err(got.cpu(), torch.from_numpy(want),
+                           "ordered_fold one group against np.add.at")]
+    hub_vals = torch.randn(STAR_LEAVES, device=dev, generator=gen)
+    hub_base = torch.randn(STAR_LEAVES + 1, device=dev, generator=gen)
+    hub_plan = fold_plan(torch.zeros(STAR_LEAVES, dtype=torch.int32, device=dev),
+                         STAR_LEAVES + 1)
+    got = ordered_fold_sorted(hub_base, hub_plan.row_ptr, hub_plan.perm, hub_vals,
+                              impl="cuda")
+    want = hub_base.cpu().numpy()
+    np.add.at(want, np.zeros(STAR_LEAVES, np.int64), hub_vals.cpu().numpy())
+    errs.append(float_err(got.cpu(), torch.from_numpy(want),
+                          "ordered_fold star against np.add.at"))
+    print(f"ordered_fold star of {STAR_LEAVES} arcs into one hub: against "
+          f"np.add.at max_abs_err={errs[-1]}")
+    return max(errs), (mass, b.long(), (hub_base, hub_plan, hub_vals))
+
+
+def ordered_fold_times(inputs):
+    """Phase 5, ``ordered_fold`` on PageRank's mass step: device ms (CUDA
+    graph replays), ms per Python call, the plain version's ms per call
+    (CUDA events around Python calls: it reads the degrees to the host,
+    so a CUDA graph cannot hold it), ``torch.index_add`` on the same
+    data (the yardstick: it sums through atomics in no fixed order, so
+    it is not the same function), the bytes a call must move, and the
+    star's hub. Returns ``(ms, plain_ms, eager_ms, library_ms, bytes)``."""
+    import torch
+
+    from repro_torch.kernels.ordered_fold.ops import ordered_fold_sorted
+
+    (base, plan, vals), b_long, (hub_base, hub_plan, hub_vals) = inputs
+    n, m2 = base.numel(), vals.numel()
+
+    def call(impl):
+        return lambda: ordered_fold_sorted(base, plan.row_ptr, plan.perm, vals,
+                                           impl=impl)
+
+    ms, eager = graph_ms(call("cuda")), cuda_ms(call("cuda"))
+    plain = cuda_ms(call("torch"), iters=3, warmup=1)
+    lib = graph_ms(lambda: torch.index_add(base, 0, b_long, vals))
+    hub_ms = graph_ms(lambda: ordered_fold_sorted(
+        hub_base, hub_plan.row_ptr, hub_plan.perm, hub_vals, impl="cuda"),
+        calls=2, replays=2)
+    hub_bound = (8 * hub_vals.numel() + 12 * hub_base.numel() + 4) / HBM_BYTES_PER_S * 1e3
+    print(f"time ordered_fold star hub ({hub_vals.numel()} arcs, one thread): "
+          f"ms={hub_ms} bound_ms={hub_bound} share_of_bound={hub_bound / hub_ms}")
+    return ms, plain, eager, lib, 8 * m2 + 12 * n + 4
+
+
+def sssp_by_scipy(src, dst, w, n, sources) -> np.ndarray:
+    """float64 Dijkstra distances from scipy, independent of the port:
+    both orientations, the least weight of each repeated arc."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    u = np.concatenate([src, dst]).astype(np.int64)
+    v = np.concatenate([dst, src]).astype(np.int64)
+    ww = np.concatenate([w, w]).astype(np.float64)
+    order = np.lexsort((ww, v, u))
+    u, v, ww = u[order], v[order], ww[order]
+    first = np.ones(len(u), bool)
+    first[1:] = (u[1:] != u[:-1]) | (v[1:] != v[:-1])
+    g = csr_matrix((ww[first], (u[first], v[first])), shape=(n, n))
+    return dijkstra(g, directed=True, indices=np.asarray(sources))
+
+
+def check_sssp_tree(name, a, b, w2, dist, parent, sources) -> None:
+    """The fixpoint holds on every arc, in float32, and every reachable
+    non-source node's parent arc is tight; unreachable nodes have no
+    parent. ``dist``/``parent`` are (S, n)."""
+    import torch
+
+    for row, s in enumerate(sources):
+        d, p = dist[row], parent[row]
+        check(bool((d[b] <= d[a] + w2).all()), f"{name} source {s}: fixpoint on every arc")
+        tight = (d[a] + w2 == d[b]) & (a == p[b.long()]) & (a != b)
+        has = torch.zeros(d.numel(), dtype=torch.int32, device=d.device)
+        has.scatter_reduce_(0, b.long(), tight.to(torch.int32), "amax")
+        reach = torch.isfinite(d)
+        nonsrc = torch.ones_like(reach)
+        nonsrc[int(s)] = False
+        check(bool((has.bool() | ~(reach & nonsrc)).all()),
+              f"{name} source {s}: every reachable node's parent arc is tight")
+        check(bool(((p == -1) == ~reach).all()) and int(p[int(s)]) == int(s),
+              f"{name} source {s}: parents -1 exactly where unreachable")
+
+
+def phase_sssp(dev, edges, n, weights, timer) -> dict:
+    """Phase 12, SSSP through ``shortest_paths`` from one source and from
+    a batch of four. Returns ``{label: (median s, rounds)}``."""
+    import torch
+
+    from repro_torch.core import shortest_paths
+    from repro_torch.core.components import oriented_edges
+
+    src, dst = edges[:, 0], edges[:, 1]
+    a, b = oriented_edges(src, dst, n, device=dev)
+    w2 = torch.from_numpy(np.concatenate([weights, weights])).to(dev)
+    rows = {}
+    solo = {}
+    for label, sources in (("solo", 0), ("batch", np.array(SSSP_BATCH, np.int32))):
+        def call(sources=sources):
+            return shortest_paths(src, dst, weights, n, sources=sources,
+                                  with_stats=True, device=dev)
+
+        call()  # warm-up
+        (dist, parent, rounds, st), first = timer(call)
+        secs = [first] + [timer(call)[1] for _ in range(E2E_SAMPLES - 1)]
+        (dd, dp, dr, dst_), dense_s = timer(lambda sources=sources: shortest_paths(
+            src, dst, weights, n, sources=sources, engine="dense",
+            with_stats=True, device=dev))
+        check(dr == rounds and torch.equal(dd, dist) and torch.equal(dp, parent),
+              f"sssp {label}: the frontier engine equals the dense engine bit "
+              f"for bit (rounds {rounds} / {dr})")
+        srcs = np.atleast_1d(sources)
+        d2, p2 = dist.reshape(len(srcs), n), parent.reshape(len(srcs), n)
+        check_sssp_tree(f"sssp {label}", a, b, w2, d2, p2, srcs)
+        if label == "solo":
+            solo[0] = (dist, parent)
+        else:
+            for row, s in enumerate(srcs):
+                if int(s) not in solo:
+                    solo[int(s)] = shortest_paths(src, dst, weights, n,
+                                                  sources=int(s), device=dev)[:2]
+                check(torch.equal(d2[row], solo[int(s)][0])
+                      and torch.equal(p2[row], solo[int(s)][1]),
+                      f"sssp batch row {row} (source {s}) equals its solo run")
+            t0 = time.perf_counter()
+            ref = sssp_by_scipy(src, dst, weights, n, srcs)
+            got = d2.double().cpu().numpy()
+            fin = np.isfinite(ref)
+            check(np.array_equal(fin, np.isfinite(got)),
+                  "sssp: the same nodes reachable as scipy's dijkstra")
+            rel = float((np.abs(got[fin] - ref[fin])
+                         / np.maximum(np.abs(ref[fin]), 1e-30)).max())
+            check(rel <= SSSP_RTOL, f"sssp: within {SSSP_RTOL} of scipy's float64 "
+                                    f"dijkstra (largest relative error {rel})")
+            print(f"sssp batch against scipy dijkstra: reachable={int(fin.sum())} "
+                  f"of {fin.size} max_rel_err={rel} "
+                  f"host_s={time.perf_counter() - t0}")
+        print(f"sssp {label}: n={n} m2={st.m2} sources={st.num_sources} "
+              f"rounds={rounds} relax_visits={st.relax_visits} "
+              f"mask_visits={st.mask_visits} levels={len(st.levels)} "
+              f"dense relax_visits={dst_.relax_visits} dense_wall_s={dense_s} "
+              f"max_dist={float(dist[torch.isfinite(dist)].max())} "
+              f"wall_s={median(secs)} samples={secs}")
+        rows[label] = (median(secs), rounds)
+    return rows
+
+
+def phase_pagerank(dev, edges, n, weights, timer):
+    """Phase 12, PageRank through ``pagerank`` to tol = 1e-6, and the
+    dense engine at ``pagerank_iter_bound()`` iterations (tol is absolute,
+    and at n = 2^20 every score moves less than 1e-6 within a few
+    iterations). Returns the tolerance run's median seconds, iterations,
+    ``ordered_fold`` launches of the checked run and profiled idle
+    share, and the dense run's median seconds and launches."""
+    import torch
+
+    from repro_torch.core import pagerank, pagerank_iter_bound
+    from repro_torch.core.serial import serial_pagerank
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    src, dst = edges[:, 0], edges[:, 1]
+
+    def call():
+        return pagerank(src, dst, weights, n, engine="frontier", with_stats=True,
+                        device=dev)
+
+    call()  # warm-up
+    reset_launch_counts()
+    (scores, iters, st), first = timer(call)
+    launches = launch_counts["ordered_fold"]
+    secs = [first] + [timer(call)[1] for _ in range(E2E_SAMPLES - 1)]
+    check(launches == iters + 1,
+          f"pagerank: ordered_fold launched once for the degrees and once per "
+          f"iteration ({launches} launches, {iters} iterations)")
+    dense, dense_it = pagerank(src, dst, weights, n, engine="dense",
+                               num_iters=iters, device=dev)
+    check(dense_it == iters and torch.equal(dense, scores),
+          "pagerank: the dense engine at the same iterations is bit-equal")
+    few, _ = pagerank(src, dst, weights, n, engine="dense",
+                      num_iters=PAGERANK_ORACLE_ITERS, device=dev)
+    t0 = time.perf_counter()
+    want = serial_pagerank(edges, weights, n, num_iters=PAGERANK_ORACLE_ITERS)
+    oracle_s = time.perf_counter() - t0
+    float_err(few.cpu(), torch.from_numpy(want),
+              f"pagerank: {PAGERANK_ORACLE_ITERS} iterations against serial_pagerank")
+    check(bool(torch.isfinite(scores).all()) and scores.shape == (n,),
+          "pagerank: finite scores, one a node")
+    bound = pagerank_iter_bound()
+
+    def fixed():
+        return pagerank(src, dst, weights, n, engine="dense", device=dev)
+
+    fixed()  # warm-up
+    reset_launch_counts()
+    (_, fixed_it), first = timer(fixed)
+    fixed_launches = launch_counts["ordered_fold"]
+    fixed_secs = [first] + [timer(fixed)[1] for _ in range(E2E_SAMPLES - 1)]
+    check(fixed_it == bound and fixed_launches == bound + 1,
+          f"pagerank dense: {bound} iterations, ordered_fold launched "
+          f"{fixed_launches} times (want {bound + 1})")
+    wall_ms, busy_ms, _, top, idle = device_share(
+        lambda: pagerank(src, dst, weights, n, engine="frontier", device=dev),
+        top=4)
+    print(f"pagerank: n={n} m2={st.m2} iterations={iters} "
+          f"edges_touched={st.edges_touched} ordered_fold launches={launches} "
+          f"num_iters={PAGERANK_ORACLE_ITERS} equals serial_pagerank bit for bit "
+          f"(numpy host_s={oracle_s}) score_sum={float(scores.double().sum())} "
+          f"wall_s={median(secs)} samples={secs}")
+    print(f"pagerank profiled: wall_ms={wall_ms} device_busy_ms={busy_ms} "
+          f"device_idle_share={idle} top={top}")
+    print(f"pagerank dense num_iters={bound}: ordered_fold launches="
+          f"{fixed_launches} wall_s={median(fixed_secs)} samples={fixed_secs}")
+    return median(secs), iters, launches, idle, median(fixed_secs), fixed_launches
+
+
+def tree_families():
+    """Phase 12's tree inputs, ``{family: (n, edges)}``, and the
+    molecule-batch forest's host build seconds."""
+    from repro_torch.data.graphs import random_tree, random_tree_forest
+
+    path = np.stack([np.arange(TREE_N - 1, dtype=np.int32),
+                     np.arange(1, TREE_N, dtype=np.int32)], axis=1)
+    t0 = time.perf_counter()
+    mol = random_tree_forest(TREE_MOLECULE_N, TREE_MOLECULE_N // 30, seed=2)
+    build_s = time.perf_counter() - t0
+    return {
+        "path": (TREE_N, path),
+        "one-tree": (TREE_N, random_tree(TREE_N, seed=1)),
+        "molecule-batch": (TREE_MOLECULE_N, mol),
+    }, build_s
+
+
+def check_tree_invariants(name, comp, root_of) -> None:
+    """Vectorised invariants of one forest's tree computations: roots
+    point at themselves at depth 0, a child is one deeper than its
+    parent, a subtree is one plus its children's, and preorder and
+    postorder are permutations within each tree."""
+    import torch
+
+    parent, depth, size = comp.parent.long(), comp.depth, comp.subtree_size
+    n = parent.numel()
+    nodes = torch.arange(n, device=parent.device)
+    is_root = root_of.long() == nodes
+    check(bool((parent[is_root] == nodes[is_root]).all()
+               and (depth[is_root] == 0).all()
+               and (parent[~is_root] != nodes[~is_root]).all()),
+          f"{name}: roots point at themselves at depth 0, no other node does")
+    check(bool((depth[~is_root] == depth[parent[~is_root]] + 1).all()),
+          f"{name}: depth[v] == depth[parent[v]] + 1")
+    kids = torch.zeros(n, dtype=torch.int64, device=parent.device)
+    kids.index_add_(0, parent[~is_root], size[~is_root].long())
+    check(bool((size.long() == kids + 1).all()),
+          f"{name}: subtree_size[v] == 1 + the sum over its children")
+    tsize = torch.where(is_root, size.long(), 0)
+    base = torch.cumsum(tsize, 0) - tsize
+    own = tsize[root_of.long()]
+    for field in ("preorder", "postorder"):
+        order = getattr(comp, field).long()
+        code = base[root_of.long()] + order
+        check(bool(((order >= 0) & (order < own)).all()
+                   and (torch.bincount(code, minlength=n) == 1).all()),
+              f"{name}: {field} is a permutation within each tree")
+
+
+def phase_trees(dev, timer) -> dict:
+    """Phase 12, tree analytics through ``tree_analytics`` on the three
+    families of ``benchmarks/tree_ops.py``, on both rank engines, then
+    each stage timed; and the splitter path against the port's serial
+    oracle on a TREE_ORACLE_N-node forest. Returns ``{family: report}``."""
+    import torch
+
+    from repro_torch.core import tree_analytics
+    from repro_torch.core.list_ranking import random_splitter_rank, wylie_rank
+    from repro_torch.data.graphs import random_tree_forest
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.pointer_jump.ops import SHARED_LIMIT, default_iters
+    from repro_torch.trees import (
+        euler_tour,
+        spanning_forest,
+        tour_splitters,
+        tree_computations,
+    )
+    from repro_torch.trees.reference import serial_tree_reference
+
+    families, build_s = tree_families()
+    print(f"trees molecule-batch random_tree_forest({TREE_MOLECULE_N}, "
+          f"{TREE_MOLECULE_N // 30}, seed=2): host_s={build_s}")
+    fields = ("parent", "depth", "subtree_size", "preorder", "postorder")
+    out = {}
+    for fam, (n, edges) in families.items():
+        u, v = edges[:, 0], edges[:, 1]
+        runs = {}
+        for eng in ("splitter", "wylie"):
+            reset_launch_counts()
+            ta, secs = timer(lambda eng=eng: tree_analytics(
+                u, v, n, rank_engine=eng, device=dev))
+            runs[eng] = (ta, dict(launch_counts), secs)
+        (ta, counts, ta_s), (tw, wcounts, tw_s) = runs["splitter"], runs["wylie"]
+        for k in fields:
+            check(torch.equal(getattr(ta.computations, k),
+                              getattr(tw.computations, k)),
+                  f"trees {fam}: {k} equal on both rank engines")
+        check_tree_invariants(f"trees {fam}", ta.computations, ta.tour.root_of)
+        rounds = ta.forest.rounds
+        p = len(tour_splitters(ta.tour))
+        want_pj = 1 if p <= SHARED_LIMIT else default_iters(p)
+        for c, name in ((counts, "splitter"), (wcounts, "wylie")):
+            check(c["edge_hook.sv2"] == rounds and c["edge_hook.sv3"] == rounds,
+                  f"trees {fam} {name}: edge_hook launched twice a CC round ({c}, "
+                  f"{rounds} rounds)")
+        check(counts["splitter_aggregate"] == 1 and counts["pointer_jump"] == want_pj,
+              f"trees {fam}: one splitter_aggregate launch and {want_pj} "
+              f"pointer_jump launches at p={p}, got {counts}")
+        check(wcounts["splitter_aggregate"] == 0 and wcounts["pointer_jump"] == 0,
+              f"trees {fam}: wylie launches no list-ranking kernel ({wcounts})")
+        if fam == "molecule-batch":
+            check(p > SHARED_LIMIT, f"trees {fam}: p={p} takes pointer_jump's step path")
+        # Each stage on its own; the two runs above were its warm-ups.
+        stage = {}
+
+        def timed(name, fn):
+            res, s = timer(fn)
+            samples = [s]
+            if s < 5.0:
+                samples += [timer(fn)[1] for _ in range(E2E_SAMPLES - 1)]
+            stage[name] = (median(samples), len(samples))
+            return res
+
+        forest = timed("forest", lambda: spanning_forest(u, v, n, device=dev))
+        tour = timed("tour", lambda: euler_tour(
+            forest.edge_u, forest.edge_v, n, labels=forest.labels, device=dev))
+        spl = tour_splitters(tour)
+        ranks, rs = timed("rank_splitter", lambda: random_splitter_rank(
+            tour.succ, splitters=spl, with_stats=True))
+        timed("rank_wylie", lambda: wylie_rank(tour.succ))
+        timed("analytics", lambda: tree_computations(tour, ranks=ranks))
+        comp = tree_computations(tour, ranks=ranks)
+        for k in fields:
+            check(torch.equal(getattr(comp, k), getattr(ta.computations, k)),
+                  f"trees {fam}: the staged run equals tree_analytics ({k})")
+        report = dict(
+            n=n, trees=ta.forest.num_trees, arcs=ta.tour.num_arcs,
+            capacity=ta.tour.capacity, cc_rounds=rounds, p=p,
+            walk_steps=rs.walk_steps, max_depth=int(ta.depth.max()),
+            size_sum=int(ta.subtree_size.long().sum()),
+            launches={k: c for k, c in counts.items() if c},
+            tree_analytics_splitter_s=ta_s, tree_analytics_wylie_s=tw_s,
+            stages={k: f"{s} s (median of {k_n})" if k_n > 1 else f"{s} s (one call)"
+                    for k, (s, k_n) in stage.items()},
+        )
+        print(f"trees {fam}: " + " ".join(f"{k}={v}" for k, v in report.items()))
+        out[fam] = report
+        del runs, ta, tw, forest, tour, ranks, comp
+        torch.cuda.empty_cache()
+    n = TREE_ORACLE_N
+    e = random_tree_forest(n, n // 30, seed=2)
+    ta = tree_analytics(e[:, 0], e[:, 1], n, rank_engine="splitter", device=dev)
+    want = serial_tree_reference(ta.forest.edge_u, ta.forest.edge_v, n)
+    for k in fields:
+        check(np.array_equal(getattr(ta.computations, k).cpu().numpy(), want[k]),
+              f"trees oracle forest n={n}: {k} equals serial_tree_reference")
+    print(f"trees oracle: random_tree_forest({n}, {n // 30}, seed=2) splitter "
+          f"path equals serial_tree_reference bit for bit")
+    n, edges = families["path"]
+    tree_analytics(edges[:, 0], edges[:, 1], n, device=dev)  # warm-up
+    wall_ms, busy_ms, _, top, idle = device_share(
+        lambda: tree_analytics(edges[:, 0], edges[:, 1], n, device=dev), top=4)
+    print(f"trees path tree_analytics (rank_engine auto: wylie) profiled: "
+          f"wall_ms={wall_ms} device_busy_ms={busy_ms} device_idle_share={idle} "
+          f"top={top}")
+    out["path"]["idle"] = idle
+    return out
+
+
+def phase_graph_analytics(dev, edges, n, weights, timer) -> dict:
+    """Phase 12: SSSP, PageRank and tree analytics on the card."""
+    t0 = time.perf_counter()
+    sssp = phase_sssp(dev, edges, n, weights, timer)
+    pr = phase_pagerank(dev, edges, n, weights, timer)
+    trees = phase_trees(dev, timer)
+    print(f"phase 12 graph analytics: s={time.perf_counter() - t0}")
+    return {"sssp": sssp, "pagerank": pr, "trees": trees}
+
+
 def main() -> int:
     import torch
 
@@ -1795,6 +2299,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
+    start = time.perf_counter()
     # Float32 products in full float32 (no TF32), for the plain versions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1833,6 +2338,9 @@ def main() -> int:
     # Phase 2: kernels against their plain versions.
     errs, hook_inputs, pj_inputs, agg_inputs = phase_kernels(
         dev, graphs, LIST_N, SPLITTERS, POINTER_JUMP_BIG_P, "cuda")
+    sssp_w = sssp_weights(len(rand))
+    errs["ordered_fold"], of_inputs = phase_ordered_fold(dev, rand, CC_RANDOM_N,
+                                                         sssp_w)
     errs["segment_sum"] = phase_segment_sum(dev, ogb["dst"])
     phase_segment_ops(dev)
 
@@ -1862,7 +2370,8 @@ def main() -> int:
             f"{mode} calls={k} ms={ms} bound_ms={bound} share_of_bound={bound / ms}"
             for mode, (k, ms, bound) in sorted(sums.items())) + f" [{card}]")
         del calls
-    del graphs, giant, rand, dense, hook_inputs, pj_inputs, agg_inputs
+    of_ms, of_plain, of_eager, of_lib, of_bytes = ordered_fold_times(of_inputs)
+    del graphs, giant, dense, hook_inputs, pj_inputs, agg_inputs, of_inputs
     torch.cuda.empty_cache()
     ss_times = segment_sum_times(dev, ogb["dst"])
 
@@ -1874,6 +2383,10 @@ def main() -> int:
     gnn = phase_gnn(dev, ogb)
     del ogb
     launches["segment_sum"] = sum(cell[-1] for cell in gnn.values())
+
+    # Phase 12: graph analytics, launches counted from 0 in each checked run.
+    ga = phase_graph_analytics(dev, rand, CC_RANDOM_N, sssp_w, wall_s)
+    launches["ordered_fold"] = ga["pagerank"][2]
     errs["flash_attention"] = lm["max_abs_err"]
     records = []
     for name, (ms, plain_ms, eager_ms, nbytes) in times.items():
@@ -1922,6 +2435,22 @@ def main() -> int:
     print(f"time segment_sum (record, {GNN_SHAPE} (m, {GNN_D}) float32): "
           f"ms={ss_ms} eager_ms={ss_eager} plain_ms={ss_plain} "
           f"library_ms(segment_reduce)={ss_lib} bound_ms={ss_bound} [{card}]")
+    of_bound = of_bytes / HBM_BYTES_PER_S * 1e3
+    records.append({
+        "name": "ordered_fold", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ordered_fold.cu",
+        "replaces": "src/repro/core/operators.py:96",
+        "launches": launches["ordered_fold"],
+        "max_abs_err": errs["ordered_fold"], "ms": of_ms, "plain_ms": of_plain,
+        "bound_ms": of_bound, "bound_by": "bytes", "library_ms": of_lib,
+    })
+    print(f"time ordered_fold (record, pagerank's mass step, n={CC_RANDOM_N}): "
+          f"ms={of_ms} eager_ms={of_eager} plain_ms={of_plain} (events around "
+          f"Python calls) library_ms(index_add, atomics in no fixed order)={of_lib} "
+          f"bound_ms={of_bound} bytes={of_bytes} share_of_bound={of_bound / of_ms} "
+          f"[{card}]")
+    print("ordered_fold has no Pallas counterpart: it replaces the slot-order "
+          "scatter-add of the reference's ADD monoid (operators.py:96)")
     for name, secs in cc_rows:
         print(f"e2e connected_components {name}: wall_s={secs} [{card}]")
     print(f"e2e list_rank n={LIST_N}: wall_s={list_secs} "
@@ -1941,6 +2470,20 @@ def main() -> int:
               f"peak_memory_gb={peak} segment_sum_launches={n_launch} "
               f"device_idle_share={'not profiled' if idle is None else idle} "
               f"[{card}]")
+    for label, (secs, rounds) in ga["sssp"].items():
+        print(f"e2e shortest_paths {label} n={CC_RANDOM_N}: wall_s={secs} "
+              f"rounds={rounds} [{card}]")
+    pr_s, pr_iters, pr_launches, pr_idle, fixed_s, fixed_launches = ga["pagerank"]
+    print(f"e2e pagerank n={CC_RANDOM_N}: wall_s={pr_s} iterations={pr_iters} "
+          f"ordered_fold_launches={pr_launches} device_idle_share={pr_idle} [{card}]")
+    print(f"e2e pagerank dense n={CC_RANDOM_N}: wall_s={fixed_s} "
+          f"ordered_fold_launches={fixed_launches} [{card}]")
+    for fam, rep_ in ga["trees"].items():
+        print(f"e2e tree_analytics {fam} n={rep_['n']}: splitter_s="
+              f"{rep_['tree_analytics_splitter_s']} wylie_s="
+              f"{rep_['tree_analytics_wylie_s']} stages={rep_['stages']} "
+              f"device_idle_share={rep_.get('idle', 'not profiled')} [{card}]")
+    print(f"chip_smoke total_s={time.perf_counter() - start}")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

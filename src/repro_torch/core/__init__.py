@@ -1,10 +1,13 @@
-"""The paper's two algorithms in PyTorch: connected components and list
-ranking, with the dispatch rules of ``repro.core``.
+"""The paper's two algorithms in PyTorch -- connected components and
+list ranking, with the dispatch rules of ``repro.core`` -- and the
+graph analytics on them: SSSP and PageRank on the operator layer, and
+the Euler-tour tree wrappers (``repro_torch.trees``).
 
-This slice of the port runs on one device. The sharded engines of the
-reference (``engine="sharded_frontier"``, ``mesh=``, the ``exchange=`` /
+This port runs on one device. The sharded engines of the reference
+(``engine="sharded_frontier"``, ``mesh=``, the ``exchange=`` /
 ``sparse_capacity=`` / ``axis=`` keywords) raise ``NotImplementedError``
-until ROADMAP queue 1 item 11 ports them.
+until ROADMAP queue 1 item 11 ports them; ``serve_graphs`` raises until
+item 10 ports graph serving.
 """
 from repro_torch.core.components import (
     ConvergenceError,
@@ -25,6 +28,20 @@ from repro_torch.core.list_ranking import (
     random_splitter_rank,
     select_splitters,
     wylie_rank,
+)
+from repro_torch.core.pagerank import (
+    PAGERANK_ENGINES,
+    PageRankStats,
+    pagerank,
+    pagerank_iter_bound,
+)
+from repro_torch.core.sssp import (
+    SSSP_ENGINES,
+    SsspStats,
+    bellman_ford,
+    frontier_bellman_ford,
+    shortest_paths,
+    sssp_round_bound,
 )
 from repro_torch.core.pram import (
     lockstep_walk,
@@ -152,9 +169,56 @@ def list_rank(succ, num_splitters=None, *, mesh=None, device=None, **kwargs):
     return random_splitter_rank(succ, num_splitters, device=device, **kwargs)
 
 
+def spanning_forest(src, dst, num_nodes, **kwargs):
+    """Spanning forest from CC hook decisions -- see
+    ``repro_torch.trees.spanning_forest`` (engine dispatch as above)."""
+    from repro_torch.trees import spanning_forest as _sf
+
+    return _sf(src, dst, num_nodes, **kwargs)
+
+
+def euler_tour(edge_u, edge_v, num_nodes, **kwargs):
+    """Euler tour of a spanning forest -- see
+    ``repro_torch.trees.euler_tour``; the returned tour's ``succ`` feeds
+    ``list_rank``/``wylie_rank``."""
+    from repro_torch.trees import euler_tour as _et
+
+    return _et(edge_u, edge_v, num_nodes, **kwargs)
+
+
+def root_tree(tour, **kwargs):
+    """Parent array of a toured forest -- see
+    ``repro_torch.trees.root_tree``; ``rank_engine=``/``kernel_impl=``
+    dispatch the underlying list ranking."""
+    from repro_torch.trees import root_tree as _rt
+
+    return _rt(tour, **kwargs)
+
+
+def tree_analytics(src, dst, num_nodes, **kwargs):
+    """One-shot graph -> forest -> tour -> tree computations pipeline --
+    see ``repro_torch.trees.tree_analytics``."""
+    from repro_torch.trees import tree_analytics as _ta
+
+    return _ta(src, dst, num_nodes, **kwargs)
+
+
+def serve_graphs(requests, **kwargs):
+    """Wave-batched graph serving: not ported yet."""
+    raise NotImplementedError(
+        "graph serving is not ported yet (ROADMAP queue 1, item 10: "
+        "graph serving)"
+    )
+
+
 __all__ = [
     "connected_components",
     "list_rank",
+    "spanning_forest",
+    "euler_tour",
+    "root_tree",
+    "tree_analytics",
+    "serve_graphs",
     "check_choice",
     "wylie_rank",
     "random_splitter_rank",
@@ -170,6 +234,16 @@ __all__ = [
     "ConvergenceError",
     "num_components",
     "dedup_edges",
+    "shortest_paths",
+    "bellman_ford",
+    "frontier_bellman_ford",
+    "SsspStats",
+    "SSSP_ENGINES",
+    "sssp_round_bound",
+    "pagerank",
+    "pagerank_iter_bound",
+    "PageRankStats",
+    "PAGERANK_ENGINES",
     "striding_indices",
     "partitioning_indices",
     "strided_view",

@@ -250,6 +250,22 @@ def oriented_edges(src, dst, n: int, device=None):
     return a, b
 
 
+def oriented_weights(weights, a: torch.Tensor) -> torch.Tensor:
+    """The float32 weight lane of the arcs ``a`` that ``oriented_edges``
+    returned: ``weights`` (one per input edge; ``None`` means unit
+    weights) for both orientations, on ``a``'s device."""
+    m = a.shape[0] // 2
+    if weights is None:
+        w = torch.ones(m, dtype=torch.float32, device=a.device)
+    elif isinstance(weights, torch.Tensor):
+        w = weights.reshape(-1).to(device=a.device, dtype=torch.float32)
+    else:
+        w = torch.from_numpy(np.asarray(weights, np.float32).ravel()).to(a.device)
+    if w.shape[0] != m:
+        raise ValueError(f"weights length {w.shape[0]} != edge count {m}")
+    return torch.cat([w, w])
+
+
 def shiloach_vishkin(
     src,
     dst,

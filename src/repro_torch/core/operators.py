@@ -1,17 +1,25 @@
 """Advance / filter / compute operators for the frontier engines.
 
 The port of ``repro.core.operators`` (see its docstring and
-``docs/operators.md`` for the contract). This slice carries the parts
-the connected-components frontier engine runs, plus the MIN advance:
+``docs/operators.md`` for the contract), which the CC, SSSP and
+PageRank engines compose:
 
 * **advance** -- the scatter half of gather-apply-scatter, collisions
-  resolved by a commutative :class:`Monoid`. Only ``MIN`` is here: it
-  is idempotent, so any collision order gives the same bits. The ADD
-  monoid (PageRank) waits for a kernel of its own, because a CUDA
-  ``index_add_`` accumulates through atomics in no fixed order.
+  resolved by a commutative :class:`Monoid`. ``MIN`` (CC labels, SSSP
+  distances) is idempotent, so any collision order gives the same bits.
+  ``ADD`` (PageRank mass) is not: float adds do not associate, and the
+  reference is bit-stable only because XLA's CPU/TPU scatter-add folds
+  in edge-slot order. A CUDA ``index_add_`` folds through atomics in no
+  fixed order, so the port's ``ADD`` never uses it: it sorts the index
+  stably and folds each target's values in slot order, through the
+  ``ordered_fold`` kernel on the card and its plain version on the CPU.
+  A caller that scatters along one index many times builds the
+  ``FoldPlan`` once (``kernels.ordered_fold.ops.fold_plan``) and passes
+  it in place of the index.
 * **filter** -- ``next_pow2`` size buckets, ``bucket_size``, and
-  ``compact_frontier``, which gathers the masked live edges into a
-  fixed-size buffer padded with inert ``(0, 0)`` self-loops.
+  ``compact_frontier`` / ``compact_weighted``, which gather the masked
+  live edges into a fixed-size buffer padded with inert ``(0, 0)``
+  (zero-weight) self-loops.
 * **compute** -- a per-node map.
 
 plus the two host drivers ``run_bucket_ladder`` (CC's shrinking
@@ -27,6 +35,11 @@ from typing import Callable
 import torch
 
 from repro_torch.core.components import ConvergenceError
+from repro_torch.kernels.ordered_fold.ops import (
+    FoldPlan,
+    fold_plan,
+    ordered_fold_sorted,
+)
 
 
 @dataclass(frozen=True)
@@ -49,7 +62,20 @@ def _scatter_min(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor):
     )
 
 
+def _scatter_add(t: torch.Tensor, i, v: torch.Tensor):
+    # Slot-order fold along the last (node) axis; ``i`` is an index or a
+    # FoldPlan built from one. (S, n) rows fold one row at a time.
+    plan = i if isinstance(i, FoldPlan) else fold_plan(i, t.shape[-1])
+    if t.dim() == 1:
+        return ordered_fold_sorted(t, plan.row_ptr, plan.perm, v)
+    return torch.stack([
+        ordered_fold_sorted(tr, plan.row_ptr, plan.perm, vr)
+        for tr, vr in zip(t, v.expand(t.shape[0], -1))
+    ])
+
+
 MIN = Monoid("min", float("inf"), _scatter_min)
+ADD = Monoid("add", 0.0, _scatter_add)
 
 
 def advance(target, index, values, *, monoid: Monoid):
@@ -76,20 +102,32 @@ def bucket_size(live: int, *, min_bucket: int, cap: int | None = None) -> int:
     return size if cap is None else min(cap, size)
 
 
+def _compact(fmask, size, *arrays):
+    # A cumulative sum gives each live slot its place; one scatter per
+    # array moves it there, dropped lanes going to a scratch slot past
+    # the end that is cut off.
+    slot = torch.cumsum(fmask, 0) - 1
+    tgt = torch.where(fmask, slot, size).clamp_(max=size)
+    return tuple(x.new_zeros(size + 1).scatter_(0, tgt, x)[:size]
+                 for x in arrays)
+
+
 def compact_frontier(a, b, fmask, *, size):
     """Gather the masked frontier into a ``size``-slot buffer, in edge
     order, padding with inert (0, 0) self-loops.
 
-    The counterpart of ``jnp.nonzero(fmask, size=size)``: a cumulative
-    sum gives each live edge its slot, and one scatter per array moves
-    it there, with no device->host read. Live edges past ``size`` are
-    dropped, as ``jnp.nonzero`` truncates; callers size the buffer to
-    cover the live count."""
-    slot = torch.cumsum(fmask, 0) - 1
-    tgt = torch.where(fmask, slot, size).clamp_(max=size)
-    out_a = a.new_zeros(size + 1).scatter_(0, tgt, a)
-    out_b = b.new_zeros(size + 1).scatter_(0, tgt, b)
-    return out_a[:size], out_b[:size]
+    The counterpart of ``jnp.nonzero(fmask, size=size)``, with no
+    device->host read. Live edges past ``size`` are dropped, as
+    ``jnp.nonzero`` truncates; callers size the buffer to cover the live
+    count."""
+    return _compact(fmask, size, a, b)
+
+
+def compact_weighted(a, b, w, fmask, *, size):
+    """``compact_frontier`` with a weight lane: pads are inert (0, 0)
+    zero-weight self-loops (a self-relax never improves, and 0.0 is the
+    ADD identity, so they are inert under both monoids)."""
+    return _compact(fmask, size, a, b, w)
 
 
 def run_bucket_ladder(

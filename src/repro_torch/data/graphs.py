@@ -1,10 +1,12 @@
-"""Graph datasets of the port: ``full_graph`` and
-``molecule_batch``, the port's copies of ``repro/data/graphs.py``.
+"""Graph datasets of the port: ``full_graph``, ``molecule_batch``,
+``random_tree`` and ``random_tree_forest``, the port's copies of
+``repro/data/graphs.py``.
 
 They run on the port's KISS (``ops/kiss.py``), which is bit-identical
 to the reference's, so the same seed gives both packages the same
-arrays (``tests/test_torch_gnn.py`` holds them equal bit for bit).
-Edges are returned SORTED BY DESTINATION (stable), so a GNN forward
+arrays (``tests/test_torch_gnn.py`` and ``tests/test_torch_trees.py``
+hold them equal bit for bit). The GNN graphs' edges are returned SORTED
+BY DESTINATION (stable), so a GNN forward
 sums every aggregation with the ``segment_sum`` kernel without sorting
 again. Everything is numpy on the host; ``forward`` moves the arrays
 to its parameters' device. ``sampled_minibatch`` needs the neighbor
@@ -91,3 +93,43 @@ def molecule_batch(
         ),
         "num_graphs": batch,
     }
+
+
+def random_tree(n: int, seed: int = 0) -> np.ndarray:
+    """Edge list (n-1, 2) of a uniform-attachment random tree.
+
+    Node i > 0 attaches to a KISS-uniform earlier node, then the whole
+    tree is KISS-relabeled so node ids carry no structure (the
+    ``repro_torch.trees`` input family: expected depth O(log n)).
+    """
+    if n < 1:
+        raise ValueError(f"need n >= 1, got {n}")
+    rng = KissRng(seed, n_streams=min(max(n, 1), 8192))
+    if n == 1:
+        return np.zeros((0, 2), np.int32)
+    draws = rng.uniform_ints((n - 1,), 1 << 31)
+    child = np.arange(1, n, dtype=np.int64)
+    parent = draws % child  # uniform in [0, i) for node i
+    keys = rng.uniform_ints((n,), 1 << 31)
+    relabel = np.argsort(keys, kind="stable").astype(np.int32)
+    return np.stack([relabel[parent], relabel[child]], axis=1).astype(np.int32)
+
+
+def random_tree_forest(n: int, num_trees: int, seed: int = 0) -> np.ndarray:
+    """Edge list of ``num_trees`` disjoint uniform-attachment random
+    trees over n nodes (KISS-random node partition): the batched
+    many-small-trees workload, served in one padded tour. One
+    ``random_tree`` per tree, in a host loop."""
+    rng = KissRng(seed, n_streams=min(max(n, 1), 8192))
+    keys = rng.uniform_ints((n,), 1 << 31)
+    order = np.argsort(keys, kind="stable")
+    pieces = np.array_split(order, max(num_trees, 1))
+    edges = []
+    for ci, nodes in enumerate(pieces):
+        if len(nodes) < 2:
+            continue
+        local = random_tree(len(nodes), seed=seed * 7919 + ci + 1)
+        edges.append(nodes[local])
+    if not edges:
+        return np.zeros((0, 2), np.int32)
+    return np.concatenate(edges, axis=0).astype(np.int32)

@@ -1,7 +1,9 @@
 """CUDA C++ kernels for Hopper (``sm_90a``), the port's counterparts of
 the Pallas TPU kernels in ``repro.kernels``: ``edge_hook``,
 ``pointer_jump``, ``splitter_aggregate``, ``flash_attention`` and
-``segment_sum``.
+``segment_sum``; and ``ordered_fold``, which has no Pallas counterpart
+(the slot-order fold of the ``ADD`` monoid, which XLA's scatter-add gives
+the reference for free).
 
 Each kernel directory holds:
   ops.py  -- the wrapper: checks its inputs, launches the kernel on a
@@ -37,6 +39,7 @@ launch_counts = {
     "splitter_aggregate": 0,
     "flash_attention": 0,
     "segment_sum": 0,
+    "ordered_fold": 0,
 }
 
 
