@@ -42,7 +42,12 @@ of which raises on failure:
    the plain path's softmax, through three kernel launches.
    ``ordered_fold`` against its plain version, bit for bit: PageRank's
    degrees (also against ``np.add.at``) and first mass step on phase 12's
-   graph, two empty groups in three, and one group of 4,096 values; and
+   graph, the mass step in both forms (generic, on ``dmp * (out[a] * w2)``
+   written out; fused, the kernel gathering ``out`` and multiplying
+   itself), which must also agree; two empty groups in three and one
+   group of 4,096 values, each in both forms; 2^23 power-law ids over
+   2^20 groups (drawn as the GNN phase's power-law ids are; also against
+   ``np.add.at``, and the fused form on them against ``np.add.at``); and
    a star of 2^20 arcs into one hub against ``np.add.at``.
 3. Connected components through ``connected_components(src, dst, n)``
    on a 2^22-node giant+dust graph, a 2^20-node random graph with about
@@ -64,7 +69,9 @@ of which raises on failure:
    3.35 TB/s, its plain version's time taken the same way, and the time
    per call when the wrapper is called from Python (the difference is
    the host's cost of a call); ``pointer_jump``'s latency floor (its
-   launch and barrier steps without gathers, at p = 4096); ``edge_hook``
+   launch and barrier steps without gathers, at p = 4096) and its step
+   path's (p = 65,536: 16 dependent step launches on a one-node list),
+   beside the step path's byte bound; ``edge_hook``
    summed over every call of each CC cell (recorded in one more run of
    each and replayed), beside the summed byte bound; the
    end-to-end wall time of phases 3 and 4 (median of three calls after
@@ -78,12 +85,16 @@ of which raises on failure:
    both yardsticks the port never calls, with the byte bound; at
    gin-tu's layer-1 shape also its passes by device time and
    ``torch.searchsorted``'s time for the row pointers. ``ordered_fold``
-   on PageRank's mass step: device ms, ms per Python call, the plain
-   version's ms per Python call (it reads the degrees to the host, so no
-   CUDA graph holds it), ``torch.index_add`` on the same data
-   (``library_ms``: it adds through atomics in no fixed order, so it is a
-   yardstick, not the same function) and the byte bound; and the star's
-   hub, folded by one thread.
+   on PageRank's mass step, generic and fused (the record: the call each
+   iteration makes), on the power-law ids and on the star's hub: device
+   ms, ms per Python call, the plain version's ms per Python call (it
+   reads the degrees to the host, so no CUDA graph holds it),
+   ``torch.index_add`` on the same values (``library_ms``: it adds
+   through atomics in no fixed order, so it is a yardstick, not the same
+   function), the byte bound, the floor that L2's random-sector rate sets
+   on the gathers, and the chain floor: the largest degree times the
+   latency of one add, from ``ordered_fold_chain_floor`` (2^20 dependent
+   adds in one thread).
 
 6. ``flash_attention`` against its plain version (``attention_ref``)
    on the card within rtol = 3e-2 in bf16 and 2e-3 in float32, and an
@@ -150,7 +161,10 @@ of which raises on failure:
    Dijkstra. PageRank through ``pagerank`` to tol = 1e-6: the dense
    engine at the same iterations bit-equal, 5 iterations bit-equal to
    the numpy ``serial_pagerank``, ``ordered_fold`` launched once for the
-   degrees and once per iteration. Tree analytics through
+   degrees and once per iteration; the same checks on a power-law graph
+   of 2^20 nodes and 2^22 edges (uniform sources, destinations drawn
+   with weight (rank + 1) ** -0.8), with its wall time and largest
+   degree. Tree analytics through
    ``tree_analytics`` on ``benchmarks/tree_ops.py``'s families: a path
    and ``random_tree(2^22, seed=1)``, and ``random_tree_forest(2^20,
    2^20 // 30, seed=2)`` (cut from 2^22: its host build is a Python loop
@@ -243,6 +257,10 @@ TREE_N = 4_194_304  # the path and one-tree families
 TREE_MOLECULE_N = 1_048_576
 TREE_ORACLE_N = 65_536  # forest held to serial_tree_reference
 STAR_LEAVES = 1 << 20  # phase 2's ordered_fold star: every arc into one hub
+PAGERANK_M2 = 1 << 23  # arcs of phase 2's power-law ids and phase 12's power-law graph
+# Random 4-byte gathers a second from a 16 MB table, which L2 holds: the
+# probe of tools/edge_hook_ab.py on an H100 80GB HBM3 at 700 W (PERF.md).
+L2_SECTORS_PER_S = 1.36e11
 
 # The LM phases' sizes.
 LM_ARCH = "qwen3-4b"
@@ -964,6 +982,33 @@ def pointer_jump_floor_ms(nxt, w) -> float:
     return graph_ms(launch)
 
 
+def pointer_jump_step_floor_ms(p: int) -> float:
+    """Device ms of the step path's launches alone: ``default_iters(p)``
+    dependent launches of ``pointer_jump_step`` on a one-node list, as
+    one call at ``p`` makes them (each a node of the CUDA graph), with
+    one element's gather each."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.build import function
+    from repro_torch.kernels.pointer_jump.ops import default_iters
+
+    fn = function("pointer_jump", "pointer_jump_step",
+                  (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_void_p))
+    bufs = [torch.zeros(1, dtype=torch.int32, device="cuda") for _ in range(4)]
+
+    def launches():
+        src, dst = bufs[:2], bufs[2:]
+        for _ in range(default_iters(p)):
+            status = fn(src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
+                        dst[1].data_ptr(), 1, torch.cuda.current_stream().cuda_stream)
+            check(status == 0, f"pointer_jump_step launch: CUDA error {status}")
+            src, dst = dst, src
+
+    return graph_ms(launches)
+
+
 def phase_segment_ops(dev) -> None:
     """Phase 2, ``ops/segment.py`` on the card: sorted int64 ids with a
     negative id, ids past ``num_segments`` and past int32 reach the
@@ -1531,17 +1576,24 @@ def hub_case(dev, gen, m: int = HUB_M, n: int = HUB_N, d: int = 64):
     return ids, torch.randn(m, d, device=dev, generator=gen)
 
 
+def power_law_draws(dev, gen, n: int, m: int):
+    """m ids over n nodes in the order drawn (int64), node r drawn with
+    weight (r + 1) ** -POWER_LAW."""
+    import torch
+
+    weights = (torch.arange(n, device=dev, dtype=torch.float64) + 1) ** -POWER_LAW
+    return torch.cat([
+        torch.multinomial(weights, min(1 << 24, m - i), replacement=True, generator=gen)
+        for i in range(0, m, 1 << 24)])
+
+
 def power_law_ids(dev, gen):
     """GNN_M sorted destinations over the GNN_N nodes, node r drawn with
     weight (r + 1) ** -POWER_LAW: a products graph's in-degrees, whose
     largest segment holds about 1.1% of the rows. Prints the degrees."""
     import torch
 
-    weights = (torch.arange(GNN_N, device=dev, dtype=torch.float64) + 1) ** -POWER_LAW
-    ids = torch.cat([
-        torch.multinomial(weights, min(1 << 24, GNN_M - i), replacement=True, generator=gen)
-        for i in range(0, GNN_M, 1 << 24)])
-    ids = ids.sort().values.to(torch.int32)
+    ids = power_law_draws(dev, gen, GNN_N, GNN_M).sort().values.to(torch.int32)
     deg = torch.bincount(ids.long(), minlength=GNN_N)
     print(f"power-law ids: m={GNN_M} n={GNN_N} weight (r+1)^-{POWER_LAW}: "
           f"max_degree={int(deg.max())} segments_over_10k_rows={int((deg > 10_000).sum())} "
@@ -1854,14 +1906,23 @@ def sssp_weights(m: int) -> np.ndarray:
 def phase_ordered_fold(dev, edges: np.ndarray, n: int, weights: np.ndarray):
     """Phase 2, ``ordered_fold`` against its plain version on the card,
     bit for bit: PageRank's degrees and first mass step on phase 12's
-    graph (the degrees also against ``np.add.at``), empty groups, a
-    one-group buffer, and a star of STAR_LEAVES arcs into one hub
-    against ``np.add.at`` (the plain version would take STAR_LEAVES
-    steps). Returns the largest error and the inputs phase 5 times."""
+    graph (the degrees also against ``np.add.at``), the mass step in both
+    forms (generic, on ``dmp * (out[a] * w2)`` written out; fused, the
+    kernel gathering ``out`` and multiplying itself), which must also
+    agree with each other; empty groups and a one-group buffer in both
+    forms; PAGERANK_M2 power-law ids over n groups (also against
+    ``np.add.at``, and the fused form on them against ``np.add.at``); and
+    a star of STAR_LEAVES arcs into one hub against ``np.add.at`` (the
+    plain version would take STAR_LEAVES steps). Returns the largest
+    error and the inputs phase 5 times."""
     import torch
 
     from repro_torch.core.components import oriented_edges
-    from repro_torch.kernels.ordered_fold.ops import fold_plan, ordered_fold_sorted
+    from repro_torch.kernels.ordered_fold.ops import (
+        fold_plan,
+        ordered_fold_gathered,
+        ordered_fold_sorted,
+    )
 
     def both(name, base, plan, vals):
         got = ordered_fold_sorted(base, plan.row_ptr, plan.perm, vals, impl="cuda")
@@ -1872,80 +1933,182 @@ def phase_ordered_fold(dev, edges: np.ndarray, n: int, weights: np.ndarray):
               f"max_abs_err={err}")
         return got, err
 
+    def both_gathered(name, args):
+        got = ordered_fold_gathered(*args, impl="cuda")
+        err = float_err(got, ordered_fold_gathered(*args, impl="torch"),
+                        f"ordered_fold fused {name} against its plain version")
+        print(f"ordered_fold fused {name}: groups={args[0].numel()} "
+              f"slots={args[2].numel()} max_abs_err={err}")
+        return got, err
+
+    def add_at(name, got, base, ids, vals):
+        want = base.cpu().numpy()
+        np.add.at(want, ids.cpu().numpy(), vals.cpu().numpy())
+        err = float_err(got.cpu(), torch.from_numpy(want),
+                        f"ordered_fold {name} against np.add.at")
+        print(f"ordered_fold {name}: against np.add.at max_abs_err={err}")
+        return err
+
+    def sorted_args(base, plan, a, node, w, scale):
+        perm = plan.perm
+        return (base, plan.row_ptr, a.index_select(0, perm), node,
+                w.index_select(0, perm), scale)
+
     a, b = oriented_edges(edges[:, 0], edges[:, 1], n, device=dev)
     w = torch.from_numpy(weights).to(dev)
     w2 = torch.cat([w, w])
     a_plan, b_plan = fold_plan(a, n), fold_plan(b, n)
     deg, err = both("pagerank degrees", torch.zeros(n, device=dev), a_plan, w2)
-    want = np.zeros(n, np.float32)
-    np.add.at(want, a.cpu().numpy(), w2.cpu().numpy())
-    err = max(err, float_err(deg.cpu(), torch.from_numpy(want),
-                             "ordered_fold degrees against np.add.at"))
+    errs = [err, add_at("degrees", deg, torch.zeros(n, device=dev), a, w2)]
     dmp = torch.tensor(np.float32(0.85), device=dev)
     omd = torch.tensor(np.float32(1.0) - np.float32(0.85), device=dev)
     t = torch.full((n,), 1.0 / n, device=dev)
     out = torch.where(deg > 0, t / deg, 0.0)
     mass = (omd * t, b_plan, dmp * (out[a] * w2))
-    errs = [err, both("pagerank mass step", *mass)[1]]
+    generic, err = both("pagerank mass step", *mass)
+    fused = sorted_args(omd * t, b_plan, a, out, w2, dmp)
+    got, err_f = both_gathered("pagerank mass step", fused)
+    errs += [err, err_f, float_err(got, generic, "ordered_fold mass step: fused "
+                                   "against generic")]
     gen = torch.Generator(device=dev).manual_seed(12)
     groups = 1 << 16
     idx = 3 * torch.randint(0, groups // 3, (1 << 20,), device=dev, generator=gen)
     vals = torch.randn(1 << 20, device=dev, generator=gen)
     base = torch.randn(groups, device=dev, generator=gen)
-    errs.append(both("two empty groups in three", base, fold_plan(idx, groups),
-                     vals)[1])
+    plan = fold_plan(idx, groups)
+    errs.append(both("two empty groups in three", base, plan, vals)[1])
+    src = torch.randint(0, groups, (1 << 20,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    errs.append(both_gathered("two empty groups in three", sorted_args(
+        base, plan, src, base, vals, dmp))[1])
     one = torch.randn(4096, device=dev, generator=gen) * 1e3
-    got, e1 = both("one group", torch.zeros(1, device=dev),
-                   fold_plan(torch.zeros(4096, dtype=torch.int32, device=dev), 1),
-                   one)
-    want = np.zeros(1, np.float32)
-    np.add.at(want, np.zeros(4096, np.int64), one.cpu().numpy())
-    errs += [e1, float_err(got.cpu(), torch.from_numpy(want),
-                           "ordered_fold one group against np.add.at")]
+    one_plan = fold_plan(torch.zeros(4096, dtype=torch.int32, device=dev), 1)
+    got, e1 = both("one group", torch.zeros(1, device=dev), one_plan, one)
+    errs += [e1, add_at("one group", got, torch.zeros(1, device=dev),
+                        torch.zeros(4096, dtype=torch.int64), one)]
+    errs.append(both_gathered("one group", (
+        torch.zeros(1, device=dev), one_plan.row_ptr,
+        torch.zeros(4096, dtype=torch.int32, device=dev), one[:1].contiguous(),
+        one, dmp))[1])
+    pl_ids = power_law_draws(dev, gen, n, PAGERANK_M2).to(torch.int32)
+    pl_vals = torch.randn(PAGERANK_M2, device=dev, generator=gen)
+    pl_base = torch.randn(n, device=dev, generator=gen)
+    pl_plan = fold_plan(pl_ids, n)
+    got, err = both("power-law ids", pl_base, pl_plan, pl_vals)
+    errs += [err, add_at("power-law ids", got, pl_base, pl_ids, pl_vals)]
+    pl_src = torch.randint(0, n, (PAGERANK_M2,), device=dev, generator=gen,
+                           dtype=torch.int32)
+    pl_w = torch.rand(PAGERANK_M2, device=dev, generator=gen)
+    pl_node = torch.rand(n, device=dev, generator=gen)
+    pl_fused = sorted_args(pl_base, pl_plan, pl_src, pl_node, pl_w, dmp)
+    got = ordered_fold_gathered(*pl_fused, impl="cuda")
+    errs.append(add_at("fused power-law ids", got, pl_base, pl_ids,
+                       dmp * (pl_node[pl_src.long()] * pl_w)))
+    pl_deg = int(torch.diff(pl_plan.row_ptr).max())
+    print(f"ordered_fold power-law ids: n={n} m2={PAGERANK_M2} weight "
+          f"(r+1)^-{POWER_LAW}: max_degree={pl_deg}")
     hub_vals = torch.randn(STAR_LEAVES, device=dev, generator=gen)
     hub_base = torch.randn(STAR_LEAVES + 1, device=dev, generator=gen)
     hub_plan = fold_plan(torch.zeros(STAR_LEAVES, dtype=torch.int32, device=dev),
                          STAR_LEAVES + 1)
     got = ordered_fold_sorted(hub_base, hub_plan.row_ptr, hub_plan.perm, hub_vals,
                               impl="cuda")
-    want = hub_base.cpu().numpy()
-    np.add.at(want, np.zeros(STAR_LEAVES, np.int64), hub_vals.cpu().numpy())
-    errs.append(float_err(got.cpu(), torch.from_numpy(want),
-                          "ordered_fold star against np.add.at"))
-    print(f"ordered_fold star of {STAR_LEAVES} arcs into one hub: against "
-          f"np.add.at max_abs_err={errs[-1]}")
-    return max(errs), (mass, b.long(), (hub_base, hub_plan, hub_vals))
+    errs.append(add_at(f"star of {STAR_LEAVES} arcs into one hub", got, hub_base,
+                       torch.zeros(STAR_LEAVES, dtype=torch.int64), hub_vals))
+    return max(errs), {
+        "mass": (mass, b.long()), "fused": fused,
+        "power_law": (pl_base, pl_plan, pl_vals, pl_ids.long(), pl_deg),
+        "hub": (hub_base, hub_plan, hub_vals)}
 
 
-def ordered_fold_times(inputs):
-    """Phase 5, ``ordered_fold`` on PageRank's mass step: device ms (CUDA
-    graph replays), ms per Python call, the plain version's ms per call
-    (CUDA events around Python calls: it reads the degrees to the host,
-    so a CUDA graph cannot hold it), ``torch.index_add`` on the same
-    data (the yardstick: it sums through atomics in no fixed order, so
-    it is not the same function), the bytes a call must move, and the
-    star's hub. Returns ``(ms, plain_ms, eager_ms, library_ms, bytes)``."""
+def chain_floor_ms(adds: int) -> float:
+    """Device ms of ``ordered_fold_chain_floor`` (``csrc/ordered_fold.cu``):
+    one thread adding ``adds`` values from registers, each
+    ``__fadd_rn`` waiting on the last: the least time a bit-exact fold of
+    a target with ``adds`` slots can take."""
+    import ctypes
+
     import torch
 
-    from repro_torch.kernels.ordered_fold.ops import ordered_fold_sorted
+    from repro_torch.kernels.build import function
 
-    (base, plan, vals), b_long, (hub_base, hub_plan, hub_vals) = inputs
+    fn = function("ordered_fold", "ordered_fold_chain_floor",
+                  (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
+    src = torch.tensor([1e-8, 2e-8, 3e-8, 4e-8, 1.0], device="cuda")
+    out = torch.empty(1, device="cuda")
+
+    def launch():
+        status = fn(src.data_ptr(), out.data_ptr(), adds,
+                    torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"ordered_fold_chain_floor launch: CUDA error {status}")
+
+    return graph_ms(launch, calls=2, replays=2)
+
+
+def ordered_fold_times(inputs, card: str):
+    """Phase 5, ``ordered_fold``: device ms (CUDA graph replays), ms per
+    Python call, the plain version's ms per call (CUDA events around
+    Python calls: it reads the degrees to the host, so a CUDA graph
+    cannot hold it), ``torch.index_add`` on the same values (the
+    yardstick: it sums through atomics in no fixed order, so it is not
+    the same function), the byte bound, the floor that L2's
+    random-sector rate sets on the gathers (``L2_SECTORS_PER_S``) and the
+    chain floor (the largest degree times one add's latency, from
+    ``chain_floor_ms``): PageRank's mass step generic and fused, the
+    power-law ids and the star's hub. Returns the fused mass step's
+    ``(ms, plain_ms, eager_ms, library_ms, bound_ms)``, the record of the
+    call the main path makes each iteration."""
+    import torch
+
+    from repro_torch.kernels.ordered_fold.ops import (
+        ordered_fold_gathered,
+        ordered_fold_sorted,
+    )
+
+    ((base, plan, vals), b_long) = inputs["mass"]
+    fused = inputs["fused"]
+    pl_base, pl_plan, pl_vals, pl_ids, pl_deg = inputs["power_law"]
+    hub_base, hub_plan, hub_vals = inputs["hub"]
     n, m2 = base.numel(), vals.numel()
+    chain_ms = chain_floor_ms(STAR_LEAVES)
+    add_ms = chain_ms / STAR_LEAVES
+    print(f"time ordered_fold chain floor: {STAR_LEAVES} dependent __fadd_rn in one "
+          f"thread ms={chain_ms} ns_per_add={add_ms * 1e6} [{card}]")
+    mass_deg = int(torch.diff(plan.row_ptr).max())
 
-    def call(impl):
-        return lambda: ordered_fold_sorted(base, plan.row_ptr, plan.perm, vals,
-                                           impl=impl)
+    def row(name, fold, plain, lib, nbytes, gathers, max_deg, **kw):
+        ms = graph_ms(fold, **kw)
+        eager = cuda_ms(fold, iters=kw.get("calls", 20))
+        plain_ms = None if plain is None else cuda_ms(plain, iters=3, warmup=1)
+        lib_ms = graph_ms(lib)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        l2 = gathers / L2_SECTORS_PER_S * 1e3
+        print(f"time ordered_fold {name}: ms={ms} eager_ms={eager} plain_ms={plain_ms} "
+              f"library_ms(index_add)={lib_ms} bound_ms={bound} bytes={nbytes} "
+              f"share_of_bound={bound / ms} l2_floor_ms={l2} max_degree={max_deg} "
+              f"chain_floor_ms={max_deg * add_ms} [{card}]")
+        return ms, plain_ms, eager, lib_ms, bound
 
-    ms, eager = graph_ms(call("cuda")), cuda_ms(call("cuda"))
-    plain = cuda_ms(call("torch"), iters=3, warmup=1)
-    lib = graph_ms(lambda: torch.index_add(base, 0, b_long, vals))
-    hub_ms = graph_ms(lambda: ordered_fold_sorted(
-        hub_base, hub_plan.row_ptr, hub_plan.perm, hub_vals, impl="cuda"),
+    def sorted_call(b, p, v, impl="cuda"):
+        return lambda: ordered_fold_sorted(b, p.row_ptr, p.perm, v, impl=impl)
+
+    row("mass step generic", sorted_call(base, plan, vals),
+        sorted_call(base, plan, vals, "torch"),
+        lambda: torch.index_add(base, 0, b_long, vals), 8 * m2 + 12 * n + 4, m2,
+        mass_deg)
+    record = row("mass step fused", lambda: ordered_fold_gathered(*fused, impl="cuda"),
+                 lambda: ordered_fold_gathered(*fused, impl="torch"),
+                 lambda: torch.index_add(base, 0, b_long, vals),
+                 8 * m2 + 16 * n + 8, m2, mass_deg)
+    row("power-law ids", sorted_call(pl_base, pl_plan, pl_vals), None,
+        lambda: torch.index_add(pl_base, 0, pl_ids, pl_vals),
+        8 * pl_vals.numel() + 12 * n + 4, pl_vals.numel(), pl_deg)
+    hub_ids = torch.zeros(STAR_LEAVES, dtype=torch.int64, device=hub_vals.device)
+    row("star hub", sorted_call(hub_base, hub_plan, hub_vals), None,
+        lambda: torch.index_add(hub_base, 0, hub_ids, hub_vals),
+        8 * STAR_LEAVES + 12 * hub_base.numel() + 4, STAR_LEAVES, STAR_LEAVES,
         calls=2, replays=2)
-    hub_bound = (8 * hub_vals.numel() + 12 * hub_base.numel() + 4) / HBM_BYTES_PER_S * 1e3
-    print(f"time ordered_fold star hub ({hub_vals.numel()} arcs, one thread): "
-          f"ms={hub_ms} bound_ms={hub_bound} share_of_bound={hub_bound / hub_ms}")
-    return ms, plain, eager, lib, 8 * m2 + 12 * n + 4
+    return record
 
 
 def sssp_by_scipy(src, dst, w, n, sources) -> np.ndarray:
@@ -2049,16 +2212,16 @@ def phase_sssp(dev, edges, n, weights, timer) -> dict:
     return rows
 
 
-def phase_pagerank(dev, edges, n, weights, timer):
-    """Phase 12, PageRank through ``pagerank`` to tol = 1e-6, and the
-    dense engine at ``pagerank_iter_bound()`` iterations (tol is absolute,
-    and at n = 2^20 every score moves less than 1e-6 within a few
-    iterations). Returns the tolerance run's median seconds, iterations,
-    ``ordered_fold`` launches of the checked run and profiled idle
-    share, and the dense run's median seconds and launches."""
+def pagerank_checked(dev, edges, n, weights, timer, label: str):
+    """A warm-up ``pagerank`` call to tol = 1e-6, then a checked one:
+    ``ordered_fold`` launched once for the degrees and once per
+    iteration, the dense engine at the same iterations bit-equal, finite
+    scores, and PAGERANK_ORACLE_ITERS iterations bit-equal to the numpy
+    ``serial_pagerank``. Returns the checked call's seconds, scores,
+    iterations, stats, launches and the oracle's host seconds."""
     import torch
 
-    from repro_torch.core import pagerank, pagerank_iter_bound
+    from repro_torch.core import pagerank
     from repro_torch.core.serial import serial_pagerank
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
@@ -2070,25 +2233,58 @@ def phase_pagerank(dev, edges, n, weights, timer):
 
     call()  # warm-up
     reset_launch_counts()
-    (scores, iters, st), first = timer(call)
+    (scores, iters, st), secs = timer(call)
     launches = launch_counts["ordered_fold"]
-    secs = [first] + [timer(call)[1] for _ in range(E2E_SAMPLES - 1)]
     check(launches == iters + 1,
-          f"pagerank: ordered_fold launched once for the degrees and once per "
-          f"iteration ({launches} launches, {iters} iterations)")
+          f"pagerank {label}: ordered_fold launched once for the degrees and once "
+          f"per iteration ({launches} launches, {iters} iterations)")
     dense, dense_it = pagerank(src, dst, weights, n, engine="dense",
                                num_iters=iters, device=dev)
     check(dense_it == iters and torch.equal(dense, scores),
-          "pagerank: the dense engine at the same iterations is bit-equal")
+          f"pagerank {label}: the dense engine at the same iterations is bit-equal")
     few, _ = pagerank(src, dst, weights, n, engine="dense",
                       num_iters=PAGERANK_ORACLE_ITERS, device=dev)
     t0 = time.perf_counter()
     want = serial_pagerank(edges, weights, n, num_iters=PAGERANK_ORACLE_ITERS)
     oracle_s = time.perf_counter() - t0
     float_err(few.cpu(), torch.from_numpy(want),
-              f"pagerank: {PAGERANK_ORACLE_ITERS} iterations against serial_pagerank")
+              f"pagerank {label}: {PAGERANK_ORACLE_ITERS} iterations against "
+              f"serial_pagerank")
     check(bool(torch.isfinite(scores).all()) and scores.shape == (n,),
-          "pagerank: finite scores, one a node")
+          f"pagerank {label}: finite scores, one a node")
+    return secs, scores, iters, st, launches, oracle_s
+
+
+def power_law_graph(dev, n: int):
+    """PAGERANK_M2 // 2 edges over n nodes: uniform sources, destinations
+    drawn with weight (r + 1) ** -POWER_LAW (as ``power_law_draws``, from a
+    seeded card generator), as a host ``(m, 2)`` int32 array."""
+    import torch
+
+    m = PAGERANK_M2 // 2
+    gen = torch.Generator(device=dev).manual_seed(14)
+    dst = power_law_draws(dev, gen, n, m).to(torch.int32).cpu().numpy()
+    src = np.random.default_rng(4).integers(0, n, m).astype(np.int32)
+    return np.stack([src, dst], axis=1)
+
+
+def phase_pagerank(dev, edges, n, weights, timer):
+    """Phase 12, PageRank through ``pagerank`` to tol = 1e-6, and the
+    dense engine at ``pagerank_iter_bound()`` iterations (tol is absolute,
+    and at n = 2^20 every score moves less than 1e-6 within a few
+    iterations); then the checks once more on a power-law graph of as
+    many arcs (``power_law_graph``, ``default_rng(3)`` weights). Returns
+    the tolerance run's median seconds, iterations, ``ordered_fold``
+    launches of the checked run and profiled idle share, and the dense
+    run's median seconds and launches."""
+    from repro_torch.core import pagerank, pagerank_iter_bound
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    src, dst = edges[:, 0], edges[:, 1]
+    first, scores, iters, st, launches, oracle_s = pagerank_checked(
+        dev, edges, n, weights, timer, "random")
+    secs = [first] + [timer(lambda: pagerank(src, dst, weights, n, device=dev))[1]
+                      for _ in range(E2E_SAMPLES - 1)]
     bound = pagerank_iter_bound()
 
     def fixed():
@@ -2114,6 +2310,15 @@ def phase_pagerank(dev, edges, n, weights, timer):
           f"device_idle_share={idle} top={top}")
     print(f"pagerank dense num_iters={bound}: ordered_fold launches="
           f"{fixed_launches} wall_s={median(fixed_secs)} samples={fixed_secs}")
+    pl = power_law_graph(dev, n)
+    pl_secs, pl_scores, pl_iters, pl_st, pl_launches, pl_oracle_s = pagerank_checked(
+        dev, pl, n, sssp_weights(len(pl)), timer, "power-law")
+    pl_deg = int(np.bincount(pl.ravel(), minlength=n).max())
+    print(f"pagerank power-law: n={n} m2={pl_st.m2} max_degree={pl_deg} "
+          f"iterations={pl_iters} ordered_fold launches={pl_launches} "
+          f"num_iters={PAGERANK_ORACLE_ITERS} equals serial_pagerank bit for bit "
+          f"(numpy host_s={pl_oracle_s}) dense equals frontier "
+          f"score_sum={float(pl_scores.double().sum())} wall_s={pl_secs}")
     return median(secs), iters, launches, idle, median(fixed_secs), fixed_launches
 
 
@@ -2364,13 +2569,18 @@ def main() -> int:
     print(f"time pointer_jump floor p={SPLITTERS}: ms={floor_ms} (launch, loads, "
           f"stores and {2 * math.ceil(math.log2(SPLITTERS))} barriers, no gathers) "
           f"[{card}]")
+    step_floor = pointer_jump_step_floor_ms(POINTER_JUMP_BIG_P)
+    print(f"time pointer_jump step path floor p={POINTER_JUMP_BIG_P}: ms={step_floor} "
+          f"({math.ceil(math.log2(POINTER_JUMP_BIG_P))} dependent step launches on "
+          f"one node) bound_ms={16 * POINTER_JUMP_BIG_P / HBM_BYTES_PER_S * 1e3} "
+          f"[{card}]")
     for name, calls in record_hook_calls(graphs, dev).items():
         sums = hook_cell_sums(hook_call_times(calls))
         print(f"time edge_hook cc {name}: " + " ".join(
             f"{mode} calls={k} ms={ms} bound_ms={bound} share_of_bound={bound / ms}"
             for mode, (k, ms, bound) in sorted(sums.items())) + f" [{card}]")
         del calls
-    of_ms, of_plain, of_eager, of_lib, of_bytes = ordered_fold_times(of_inputs)
+    of_ms, of_plain, of_eager, of_lib, of_bound = ordered_fold_times(of_inputs, card)
     del graphs, giant, dense, hook_inputs, pj_inputs, agg_inputs, of_inputs
     torch.cuda.empty_cache()
     ss_times = segment_sum_times(dev, ogb["dst"])
@@ -2435,7 +2645,6 @@ def main() -> int:
     print(f"time segment_sum (record, {GNN_SHAPE} (m, {GNN_D}) float32): "
           f"ms={ss_ms} eager_ms={ss_eager} plain_ms={ss_plain} "
           f"library_ms(segment_reduce)={ss_lib} bound_ms={ss_bound} [{card}]")
-    of_bound = of_bytes / HBM_BYTES_PER_S * 1e3
     records.append({
         "name": "ordered_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ordered_fold.cu",
@@ -2444,11 +2653,11 @@ def main() -> int:
         "max_abs_err": errs["ordered_fold"], "ms": of_ms, "plain_ms": of_plain,
         "bound_ms": of_bound, "bound_by": "bytes", "library_ms": of_lib,
     })
-    print(f"time ordered_fold (record, pagerank's mass step, n={CC_RANDOM_N}): "
+    print(f"time ordered_fold (record, pagerank's fused mass step, n={CC_RANDOM_N}): "
           f"ms={of_ms} eager_ms={of_eager} plain_ms={of_plain} (events around "
-          f"Python calls) library_ms(index_add, atomics in no fixed order)={of_lib} "
-          f"bound_ms={of_bound} bytes={of_bytes} share_of_bound={of_bound / of_ms} "
-          f"[{card}]")
+          f"Python calls) library_ms(index_add of the values written out, atomics "
+          f"in no fixed order)={of_lib} bound_ms={of_bound} "
+          f"share_of_bound={of_bound / of_ms} [{card}]")
     print("ordered_fold has no Pallas counterpart: it replaces the slot-order "
           "scatter-add of the reference's ADD monoid (operators.py:96)")
     for name, secs in cc_rows:

@@ -15,7 +15,9 @@ PageRank engines compose:
   ``ordered_fold`` kernel on the card and its plain version on the CPU.
   A caller that scatters along one index many times builds the
   ``FoldPlan`` once (``kernels.ordered_fold.ops.fold_plan``) and passes
-  it in place of the index.
+  it in place of the index; with a plan, the values may be a
+  :class:`GatheredValues`, which the kernel gathers and multiplies itself
+  (PageRank's mass step), so no m-long value array is written.
 * **filter** -- ``next_pow2`` size buckets, ``bucket_size``, and
   ``compact_frontier`` / ``compact_weighted``, which gather the masked
   live edges into a fixed-size buffer padded with inert ``(0, 0)``
@@ -30,7 +32,7 @@ stopped early return wrong results.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -38,6 +40,7 @@ from repro_torch.core.components import ConvergenceError
 from repro_torch.kernels.ordered_fold.ops import (
     FoldPlan,
     fold_plan,
+    ordered_fold_gathered,
     ordered_fold_sorted,
 )
 
@@ -62,9 +65,26 @@ def _scatter_min(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor):
     )
 
 
-def _scatter_add(t: torch.Tensor, i, v: torch.Tensor):
+class GatheredValues(NamedTuple):
+    """ADD advance values that the fold gathers itself: slot ``s`` of a
+    ``FoldPlan`` carries ``scale * (node[index[s]] * weight[s])``, each
+    multiply rounded on its own; ``index`` and ``weight`` are in the plan's
+    slot order (``x[plan.perm]`` of arrays in edge order)."""
+
+    node: torch.Tensor
+    index: torch.Tensor
+    weight: torch.Tensor
+    scale: torch.Tensor  # one float32 value
+
+
+def _scatter_add(t: torch.Tensor, i, v):
     # Slot-order fold along the last (node) axis; ``i`` is an index or a
     # FoldPlan built from one. (S, n) rows fold one row at a time.
+    if isinstance(v, GatheredValues):
+        if not isinstance(i, FoldPlan) or t.dim() != 1:
+            raise ValueError("GatheredValues need a FoldPlan and an (n,) target")
+        return ordered_fold_gathered(t, i.row_ptr, v.index, v.node, v.weight,
+                                     v.scale)
     plan = i if isinstance(i, FoldPlan) else fold_plan(i, t.shape[-1])
     if t.dim() == 1:
         return ordered_fold_sorted(t, plan.row_ptr, plan.perm, v)

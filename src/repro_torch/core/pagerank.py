@@ -18,7 +18,10 @@ The reference gets slot order from XLA's scatter-add. Here the ``ADD``
 monoid folds through the ``ordered_fold`` kernel on the card (its plain
 version on the CPU), and the two stable sorts it needs -- arcs by ``b``
 for the mass, by ``a`` for the degrees -- are made once a call, outside
-the iteration loop (``fold_plan``). Scores are then bit-equal to the
+the iteration loop (``fold_plan``). So are the arcs' sources and weights
+in the mass plan's slot order, from which the kernel gathers ``out`` and
+multiplies itself each iteration (``GatheredValues``): the m2-long
+``dmp * (out[a] * w2)`` is never written. Scores are then bit-equal to the
 numpy oracle ``core.serial.serial_pagerank`` iteration for iteration, on
 either device. Per-node ``teleport`` vectors and the leak of dangling
 mass are the reference's.
@@ -45,7 +48,13 @@ from repro_torch.core.components import (
     oriented_edges,
     oriented_weights,
 )
-from repro_torch.core.operators import ADD, advance, compute, run_rebuild_loop
+from repro_torch.core.operators import (
+    ADD,
+    GatheredValues,
+    advance,
+    compute,
+    run_rebuild_loop,
+)
 from repro_torch.kernels.ordered_fold.ops import fold_plan
 from repro_torch.obs import trace
 
@@ -113,25 +122,33 @@ def _degrees(a_plan, w2, t):
     return advance(torch.zeros_like(t), a_plan, w2, monoid=ADD)
 
 
-def _mass_step(a, b_plan, w2, deg, t, r, dmp, omd):
+def _mass_arcs(a, w2, b_plan):
+    """The arcs' sources and weights in ``b_plan``'s slot order: one
+    gather of each, once a call."""
+    return a.index_select(0, b_plan.perm), w2.index_select(0, b_plan.perm)
+
+
+def _mass_step(b_plan, a_sorted, w_sorted, deg, t, r, dmp, omd):
     """One push iteration: per-node out-mass, advanced along every arc
-    under ADD onto the teleport base ``(1-d) * t``, each multiply
-    rounded on its own."""
+    under ADD onto the teleport base ``(1-d) * t``; each arc carries
+    ``dmp * (out[a] * w2)``, each multiply rounded on its own, gathered
+    and multiplied inside the fold."""
     out = compute(lambda ri, di: torch.where(di > 0, ri / di, 0.0), r, deg)
-    return advance(omd * t, b_plan, dmp * (out[a] * w2), monoid=ADD)
+    return advance(omd * t, b_plan, GatheredValues(out, a_sorted, w_sorted, dmp),
+                   monoid=ADD)
 
 
-def _pr_iterate(a, b_plan, w2, deg, t, r, dmp, omd, tol):
+def _pr_iterate(b_plan, a_sorted, w_sorted, deg, t, r, dmp, omd, tol):
     """One host-loop iteration: new scores and the tolerance mask."""
-    new = _mass_step(a, b_plan, w2, deg, t, r, dmp, omd)
+    new = _mass_step(b_plan, a_sorted, w_sorted, deg, t, r, dmp, omd)
     return new, (new - r).abs() > tol
 
 
-def _pr_fixed(a, b_plan, w2, deg, t, r, dmp, omd, *, num_iters):
+def _pr_fixed(b_plan, a_sorted, w_sorted, deg, t, r, dmp, omd, *, num_iters):
     """``num_iters`` iterations with no read to the host: the dense
     engine, bit-equal to the host loop's first ``num_iters`` steps."""
     for _ in range(num_iters):
-        r = _mass_step(a, b_plan, w2, deg, t, r, dmp, omd)
+        r = _mass_step(b_plan, a_sorted, w_sorted, deg, t, r, dmp, omd)
     return r
 
 
@@ -207,9 +224,11 @@ def pagerank(
             "num_iters= is a dense-engine option (fixed schedule); the "
             "frontier engine iterates to tol -- use engine='dense'"
         )
-    # The two stable sorts of the call, outside the iteration loop.
+    # The two stable sorts of the call and the arcs in the mass plan's
+    # slot order, outside the iteration loop.
     a_plan, b_plan = fold_plan(a, n), fold_plan(b, n)
     deg = _degrees(a_plan, w2, t)
+    arcs = (b_plan, *_mass_arcs(a, w2, b_plan))
     r = t  # iteration 0 state: all mass at its teleport slot
     stats = PageRankStats(iterations=0, edges_touched=m2, m2=m2)
 
@@ -222,13 +241,12 @@ def pagerank(
         with trace.span(
             "pagerank.dense", device=True, n=n, m2=m2, iters=run_iters,
         ) as sp:
-            r = _pr_fixed(a, b_plan, w2, deg, t, r, dmp, omd,
-                          num_iters=run_iters)
+            r = _pr_fixed(*arcs, deg, t, r, dmp, omd, num_iters=run_iters)
             sp.block_on(r)
         if max_rounds is not None and run_iters < iters:
             # The budget cut the fixed schedule short: probe one extra
             # iteration and fail loudly if scores are still moving.
-            _new, mask = _pr_iterate(a, b_plan, w2, deg, t, r, dmp, omd, tolv)
+            _new, mask = _pr_iterate(*arcs, deg, t, r, dmp, omd, tolv)
             live = int(mask.sum())
             if live:
                 raise ConvergenceError(
@@ -255,9 +273,7 @@ def pagerank(
         def push_level(live):
             nonlocal r, live_mask
             with trace.span("pagerank.level", live=live):
-                r, live_mask = _pr_iterate(
-                    a, b_plan, w2, deg, t, r, dmp, omd, tolv
-                )
+                r, live_mask = _pr_iterate(*arcs, deg, t, r, dmp, omd, tolv)
             stats.edges_touched += m2
             stats.levels.append(live)
 

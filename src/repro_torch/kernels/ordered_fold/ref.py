@@ -39,3 +39,20 @@ def ordered_fold_ref(
         g = order[:count]
         out[g] = out[g] + vals[start[g] + k]
     return out
+
+
+def ordered_fold_gathered_ref(
+    base: torch.Tensor,
+    row_ptr: torch.Tensor,
+    idx: torch.Tensor,
+    node: torch.Tensor,
+    weight: torch.Tensor,
+    scale: torch.Tensor,
+) -> torch.Tensor:
+    """``ordered_fold_ref`` of ``scale * (node[idx] * weight)`` in slot
+    order: the gather and the two multiplies as the kernel does them, then
+    the fold with the identity permutation. Every ``idx`` must index
+    ``node``."""
+    vals = scale * (node[idx.long()] * weight)
+    slots = torch.arange(idx.numel(), dtype=torch.int32, device=idx.device)
+    return ordered_fold_ref(base, row_ptr, slots, vals)
