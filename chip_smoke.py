@@ -178,8 +178,29 @@ of which raises on failure:
    so is the dense PageRank engine at ``pagerank_iter_bound()``
    iterations (98 ``ordered_fold`` launches and one for the degrees);
    ``torch.profiler`` gives the idle share of one ``pagerank`` call and
-   one path ``tree_analytics`` call. The script's total seconds are
-   printed at the end.
+   one path ``tree_analytics`` call.
+13. Graph serving through ``GraphServeEngine`` on the card: a backlog of
+   ``graph_request_stream(4096, seed=11)`` requests (6-40 nodes each) of
+   each kind -- cc and forest (random graphs), analytics (random trees)
+   with ``rank_engine="auto"`` (wylie) and ``"splitter"``, sssp and
+   pagerank (random graphs) -- served at the reference's default budget
+   (16 requests, 4,096 nodes, 16,384 edges a wave) and at a wide one
+   (1,024 requests, 32,768 nodes, 65,536 edges): requests/s, waves, the
+   median wave's ms (each wave ends in its outputs' read), hand-kernel
+   launches a wave and peak memory. ``edge_hook`` twice a CC round of
+   every cc-chain wave, ``ordered_fold`` 1 + ``pagerank_iters`` times a
+   pagerank wave, ``pointer_jump`` and one ``splitter_aggregate`` a wave
+   in the splitter runs and neither in the wylie runs. The first 64
+   requests of each stream, served solo on the card and batched on the
+   CPU, bit-equal to both budgets' results; their component counts
+   against numpy propagation, forests of n - components edges, the tree
+   invariants, SSSP against scipy's Dijkstra, PageRank against
+   ``serial_pagerank`` bit for bit. The idle share (and the pad hub's
+   slots at node 0) of one wide pagerank wave and one wide analytics
+   wave from ``torch.profiler``. ``benchmarks/serve_chaos.py``'s streams
+   and fault plans at their ``BENCH_smoke.json`` sizes give exactly that
+   file's containment counters on the card. The script's total seconds
+   are printed at the end.
 
 Every profile prints the host's launch calls beside the device records
 it kept, and is used only if it kept one for each (``device_share``).
@@ -261,6 +282,26 @@ PAGERANK_M2 = 1 << 23  # arcs of phase 2's power-law ids and phase 12's power-la
 # Random 4-byte gathers a second from a 16 MB table, which L2 holds: the
 # probe of tools/edge_hook_ab.py on an H100 80GB HBM3 at 700 W (PERF.md).
 L2_SECTORS_PER_S = 1.36e11
+
+# Phase 13's sizes: graph serving. Each stream is a backlog of
+# SERVE_GRAPH_REQUESTS requests of 6-40 nodes, served at the reference's
+# default budget and at a wide one; the first SERVE_GRAPH_CHECKED requests
+# of each are also served solo on the card and batched on the CPU.
+SERVE_GRAPH_REQUESTS = 4096
+SERVE_GRAPH_CHECKED = 64
+SERVE_GRAPH_SEED = 11
+SERVE_GRAPH_STREAMS = (  # (label, kind, family, engine knobs)
+    ("cc", "cc", "random", {}),
+    ("forest", "forest", "random", {}),
+    ("analytics-wylie", "analytics", "tree", {"rank_engine": "auto"}),
+    ("analytics-splitter", "analytics", "tree", {"rank_engine": "splitter"}),
+    ("sssp", "sssp", "random", {}),
+    ("pagerank", "pagerank", "random", {}),
+)
+SERVE_GRAPH_BUDGETS = (
+    ("default", {}),  # 16 requests, 4,096 nodes, 16,384 edges a wave
+    ("wide", {"max_requests": 1024, "max_nodes": 32768, "max_edges": 65536}),
+)
 
 # The LM phases' sizes.
 LM_ARCH = "qwen3-4b"
@@ -2491,6 +2532,293 @@ def phase_graph_analytics(dev, edges, n, weights, timer) -> dict:
     return {"sssp": sssp, "pagerank": pr, "trees": trees}
 
 
+def bench_counters(name: str) -> str:
+    """The counters of a ``BENCH_smoke.json`` row: its derived string
+    without the wall-time entries (``~p10_us``...)."""
+    rows = json.loads((ROOT / "BENCH_smoke.json").read_text())
+    derived = next(r["derived"] for r in rows if r["name"] == name)
+    return ";".join(p for p in derived.split(";") if not p.startswith("~"))
+
+
+def serve_requests(stream, device, **knobs):
+    """Serve ``stream`` (``graph_request_stream`` entries) through one
+    ``GraphServeEngine``; returns the engine, its finished requests by
+    uid, and each wave's seconds (every wave ends in a read of its
+    outputs, so the host clock times it)."""
+    from repro_torch.serve import GraphRequest, GraphServeEngine
+
+    eng = GraphServeEngine(device=device, **knobs)
+    for i, g in enumerate(stream):
+        eng.submit(GraphRequest(uid=i, **g))
+    wave_s = []
+    run_wave = eng._run_wave
+
+    def timed(wave):
+        t0 = time.perf_counter()
+        try:
+            return run_wave(wave)
+        finally:
+            wave_s.append(time.perf_counter() - t0)
+
+    eng._run_wave = timed
+    done = {r.uid: r for r in eng.run()}
+    check(len(done) == len(stream) and all(r.done for r in done.values()),
+          f"serve_graphs: all {len(stream)} requests served")
+    return eng, done, wave_s
+
+
+def same_result(x, y) -> bool:
+    """Two ``GraphResult``s equal field by field, bit for bit."""
+    import dataclasses
+
+    for f in dataclasses.fields(x):
+        a, b = getattr(x, f.name), getattr(y, f.name)
+        if a is None or b is None:
+            if a is not b:
+                return False
+        elif isinstance(a, np.ndarray):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                return False
+            if a.dtype.kind == "f":
+                if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                    return False
+            elif not np.array_equal(a, b):
+                return False
+        elif a != b:
+            return False
+    return True
+
+
+def check_served(label, kind, stream, results, iters) -> None:
+    """Each served request against an oracle independent of the engine:
+    component counts by numpy propagation, forests of n - components
+    edges, the tree invariants, SSSP against scipy's Dijkstra, PageRank
+    against ``serial_pagerank`` bit for bit."""
+    import types
+
+    import torch
+
+    from repro_torch.core.serial import serial_pagerank
+
+    for uid, g in enumerate(stream):
+        res, n = results[uid].result, g["num_nodes"]
+        name = f"serve_graphs {label} request {uid}"
+        if kind in ("cc", "forest", "analytics"):
+            want = components_by_propagation(g["src"], g["dst"], n)
+            check(res.num_components == want,
+                  f"{name}: {res.num_components} components, want {want}")
+        if kind in ("forest", "analytics"):
+            check(len(res.edge_u) == n - res.num_components,
+                  f"{name}: a spanning forest of n - components edges")
+        if kind == "analytics":
+            comp = types.SimpleNamespace(**{
+                k: torch.from_numpy(getattr(res, k)) for k in
+                ("parent", "depth", "subtree_size", "preorder", "postorder")})
+            check_tree_invariants(name, comp, torch.from_numpy(res.labels))
+        if kind == "sssp":
+            ref = sssp_by_scipy(g["src"], g["dst"], g["weights"], n, g["sources"])
+            fin = np.isfinite(ref)
+            check(np.array_equal(fin, np.isfinite(res.dist)),
+                  f"{name}: the same nodes reachable as scipy's dijkstra")
+            rel = (np.abs(res.dist[fin] - ref[fin])
+                   / np.maximum(np.abs(ref[fin]), 1e-30))
+            check(rel.size == 0 or float(rel.max()) <= SSSP_RTOL,
+                  f"{name}: within {SSSP_RTOL} of scipy's dijkstra")
+        if kind == "pagerank":
+            want = serial_pagerank(np.stack([g["src"], g["dst"]], axis=1),
+                                   g["weights"], n, num_iters=iters)
+            check(np.array_equal(res.scores.view(np.int32), want.view(np.int32)),
+                  f"{name}: serial_pagerank at {iters} iterations, bit for bit")
+
+
+def serve_chaos_on_card(dev) -> None:
+    """``benchmarks/serve_chaos.py``'s streams and fault plans at their
+    ``BENCH_smoke.json`` sizes, on the card: the containment counters
+    (and the cc row's whole metric fragment) equal to that file's."""
+    from repro_torch.data.graphs import graph_request_stream
+    from repro_torch.obs.metrics import derived_fragment
+    from repro_torch.serve import FaultPlan, GraphRequest, GraphServeEngine
+
+    full = ("completed", "failed", "retried", "quarantined", "degraded",
+            "bisections", "wave_runs")
+
+    def serve(stream, plan=None):
+        eng = GraphServeEngine(device=dev, max_requests=8, fault_plan=plan,
+                               max_retries=2)
+        for i, g in enumerate(stream):
+            eng.submit(GraphRequest(uid=i, **g))
+        eng.run()
+        return eng
+
+    def health(eng, keys):
+        h = eng.health_records[-1]
+        return ";".join(f"{k}={getattr(h, k)}" for k in keys)
+
+    out = {}
+    for row, r, kind, seed, plan_seed, p in (
+            ("", 16, "cc", 29, 31, (0.08, 0.12, 0.04)),
+            ("sssp_", 8, "sssp", 37, 40, (0.2, 0.2, 0.12)),
+            ("pagerank_", 8, "pagerank", 43, 44, (0.2, 0.2, 0.12))):
+        stream = graph_request_stream(r, kind=kind, family="random", seed=seed)
+        clean = serve(stream)
+        got = health(clean, ("completed", "failed", "wave_runs")) + f";waves={clean.waves}"
+        want = bench_counters(f"serve_chaos/{row}clean/req={r}")
+        check(got == want, f"serve_chaos/{row}clean on the card: {got}, want {want}")
+        plan = FaultPlan.random(plan_seed, range(r), p_poison=p[0], p_transient=p[1],
+                                max_transient=2, p_nonconverge=p[2])
+        if kind == "cc":  # an OOM on the first wave's own bucket, as there
+            probe = GraphServeEngine(max_requests=8, device=dev)
+            first_cap, _ = probe._wave_caps(
+                [GraphRequest(uid=i, **g) for i, g in enumerate(stream)][:8])
+            plan = FaultPlan(poison_uids=plan.poison_uids,
+                             transient_uids=plan.transient_uids,
+                             nonconverge_uids=plan.nonconverge_uids,
+                             oom_node_caps=frozenset([first_cap]))
+        eng = serve(stream, plan)
+        got = health(eng, full)
+        if kind == "cc":
+            got += ";" + derived_fragment(eng.metrics.snapshot())
+        want = bench_counters(f"serve_chaos/{row}faulty/req={r}")
+        check(got == want, f"serve_chaos/{row}faulty on the card: {got}, want {want}")
+        out[kind] = health(eng, full)
+    print(f"serve_chaos on the card: {out} equal BENCH_smoke.json (clean rows too)")
+
+
+def phase_serve_graphs(dev, card: str) -> dict:
+    """Phase 13: graph serving through ``GraphServeEngine`` on the card.
+    Returns the hand kernels' launches of the phase's served streams and
+    the report rows."""
+    import torch
+
+    from repro_torch.data.graphs import graph_request_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in launch_counts}
+    rows = []
+    pagerank_waves = {}
+    for label, kind, family, knobs in SERVE_GRAPH_STREAMS:
+        stream = graph_request_stream(SERVE_GRAPH_REQUESTS, kind=kind, family=family,
+                                      seed=SERVE_GRAPH_SEED)
+        checked = stream[:SERVE_GRAPH_CHECKED]
+        serve_requests(checked, dev, **knobs)  # warm-up
+        batched = {}
+        for budget, caps in SERVE_GRAPH_BUDGETS:
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng, done, wave_s = serve_requests(stream, dev, **knobs, **caps)
+            secs = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            for k in totals:
+                totals[k] += counts[k]
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            recs = eng.wave_records
+            hand = sum(counts.values())
+            if kind in ("cc", "forest", "analytics"):
+                rounds = sum(r.rounds for r in recs)
+                check(counts["edge_hook.sv2"] == rounds == counts["edge_hook.sv3"],
+                      f"serve_graphs {label} {budget}: edge_hook twice a CC round "
+                      f"({counts}, {rounds} rounds)")
+            spl = knobs.get("rank_engine") == "splitter"
+            if kind == "analytics":
+                pj, agg = counts["pointer_jump"], counts["splitter_aggregate"]
+                check((pj > 0 and agg == eng.waves) if spl else (pj == agg == 0),
+                      f"serve_graphs {label} {budget}: pointer_jump {pj}, "
+                      f"splitter_aggregate {agg} launches in {eng.waves} waves")
+            if kind == "pagerank":
+                want = (1 + eng.pagerank_iters) * eng.waves
+                check(counts["ordered_fold"] == want,
+                      f"serve_graphs {label} {budget}: ordered_fold launched "
+                      f"{counts['ordered_fold']} times, want {want}")
+                pagerank_waves[budget] = (eng.waves, counts["ordered_fold"])
+            batched[budget] = done
+            extra = ""
+            if kind == "sssp":
+                extra = f" max_src_cap={max(r.src_cap for r in recs)}"
+            if kind == "pagerank":
+                hub = max(2 * (r.edge_cap - r.num_edges) for r in recs)
+                extra = f" pad_hub_slots_max={hub}"
+            row = dict(label=label, budget=budget, requests=len(stream),
+                       waves=eng.waves, secs=secs,
+                       rps=len(stream) / secs, wave_ms=median(wave_s) * 1e3,
+                       launches_per_wave=hand / eng.waves, peak_gb=peak_gb)
+            rows.append(row)
+            print(f"serve_graphs {label} {budget}: requests={len(stream)} "
+                  f"waves={eng.waves} req_per_wave={eng.requests_per_wave} "
+                  f"buckets={eng.bucket_compiles} node_cap_max="
+                  f"{max(r.node_cap for r in recs)} edge_cap_max="
+                  f"{max(r.edge_cap for r in recs)}{extra} "
+                  f"node_waste={eng.node_pad_waste} edge_waste={eng.edge_pad_waste} "
+                  f"wall_s={secs} requests_per_s={row['rps']} "
+                  f"median_wave_ms={row['wave_ms']} max_wave_ms={max(wave_s) * 1e3} "
+                  f"hand_launches_per_wave={row['launches_per_wave']} "
+                  f"launches={ {k: c for k, c in counts.items() if c} } "
+                  f"peak_memory_gb={peak_gb} [{card}]")
+            del eng, done
+        # The first SERVE_GRAPH_CHECKED requests: solo on the card, and
+        # batched by the port on the CPU, bit-equal to both budgets' runs.
+        t0 = time.perf_counter()
+        _, solo, _ = serve_requests(checked, dev, max_requests=1, **knobs)
+        _, on_cpu, _ = serve_requests(checked, "cpu", **knobs)
+        for uid in range(len(checked)):
+            for name, other in (("solo on the card", solo), ("on the CPU", on_cpu)):
+                for budget, done in batched.items():
+                    check(same_result(done[uid].result, other[uid].result),
+                          f"serve_graphs {label} request {uid}: {budget} batch "
+                          f"equals {name}")
+        iters = None
+        if kind == "pagerank":
+            from repro_torch.core import pagerank_iter_bound
+
+            iters = pagerank_iter_bound()
+        check_served(label, kind, checked, batched["default"], iters)
+        print(f"serve_graphs {label}: {len(checked)} requests bit-equal solo on the "
+              f"card, on the CPU and in both budgets, and held to their oracle "
+              f"(host_s={time.perf_counter() - t0})")
+        del batched, solo, on_cpu
+        torch.cuda.empty_cache()
+    for fam in ("edge_hook.sv2", "ordered_fold", "pointer_jump", "splitter_aggregate"):
+        check(totals[fam] > 0, f"serve_graphs: {fam} launched on the serving path")
+    # One wide wave of each stream traced (the serve.wave.* spans), and
+    # the idle share of one wide wave of each of pagerank and analytics.
+    wide = dict(SERVE_GRAPH_BUDGETS)["wide"]
+    for label, kind, family, knobs in SERVE_GRAPH_STREAMS:
+        stream = graph_request_stream(wide["max_requests"], kind=kind, family=family,
+                                      seed=SERVE_GRAPH_SEED)
+        spans, secs = wall_s(lambda: traced(
+            lambda: serve_requests(stream, dev, **knobs, **wide)))
+        print(f"serve_graphs {label} one wide wave traced: wall_ms={secs * 1e3} "
+              + " ".join(f"{k}_ms={spans.get(k, 0.0)}" for k in (
+                  "serve.wave.pack", "serve.wave.engine", "serve.wave.unpack"))
+              + f" [{card}]")
+        if label not in ("pagerank", "analytics-wylie"):
+            continue
+
+        def prepare(stream=stream, knobs=knobs):
+            from repro_torch.serve import GraphRequest, GraphServeEngine
+
+            eng = GraphServeEngine(device=dev, **knobs, **wide)
+            for i, g in enumerate(stream):
+                eng.submit(GraphRequest(uid=i, **g))
+            prepare.eng = eng
+            return eng.run
+
+        wall_ms, busy_ms, events, top, idle = device_share(prepare=prepare, top=5)
+        (rec,) = prepare.eng.wave_records
+        print(f"serve_graphs {label} one wide wave profiled: requests={rec.requests} "
+              f"node_cap={rec.node_cap} edge_cap={rec.edge_cap} "
+              f"pad_hub_slots={2 * (rec.edge_cap - rec.num_edges)} wall_ms={wall_ms} "
+              f"device_busy_ms={busy_ms} device_events={events} "
+              f"device_idle_share={idle} top={top} [{card}]")
+        rows.append(dict(label=label, budget="wide, one wave", idle=idle))
+    serve_chaos_on_card(dev)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 13 graph serving: s={secs} pagerank waves and ordered_fold "
+          f"launches={pagerank_waves}")
+    return {"launches": totals, "rows": rows, "secs": secs}
+
+
 def main() -> int:
     import torch
 
@@ -2597,6 +2925,11 @@ def main() -> int:
     # Phase 12: graph analytics, launches counted from 0 in each checked run.
     ga = phase_graph_analytics(dev, rand, CC_RANDOM_N, sssp_w, wall_s)
     launches["ordered_fold"] = ga["pagerank"][2]
+
+    # Phase 13: graph serving, launches counted over the served streams.
+    serving = phase_serve_graphs(dev, card)
+    for name, count in serving["launches"].items():
+        launches[name] = launches.get(name, 0) + count
     errs["flash_attention"] = lm["max_abs_err"]
     records = []
     for name, (ms, plain_ms, eager_ms, nbytes) in times.items():
@@ -2692,6 +3025,18 @@ def main() -> int:
               f"{rep_['tree_analytics_splitter_s']} wylie_s="
               f"{rep_['tree_analytics_wylie_s']} stages={rep_['stages']} "
               f"device_idle_share={rep_.get('idle', 'not profiled')} [{card}]")
+    for row in serving["rows"]:
+        if "idle" in row:
+            print(f"e2e serve_graphs {row['label']} {row['budget']}: "
+                  f"device_idle_share={row['idle']} [{card}]")
+            continue
+        print(f"e2e serve_graphs {row['label']} {row['budget']} "
+              f"{row['requests']} requests: requests_per_s={row['rps']} "
+              f"wall_s={row['secs']} waves={row['waves']} "
+              f"median_wave_ms={row['wave_ms']} "
+              f"hand_launches_per_wave={row['launches_per_wave']} "
+              f"peak_memory_gb={row['peak_gb']} [{card}]")
+    print(f"e2e serve_graphs phase_s={serving['secs']} [{card}]")
     print(f"chip_smoke total_s={time.perf_counter() - start}")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))

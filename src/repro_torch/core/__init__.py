@@ -6,8 +6,9 @@ the Euler-tour tree wrappers (``repro_torch.trees``).
 This port runs on one device. The sharded engines of the reference
 (``engine="sharded_frontier"``, ``mesh=``, the ``exchange=`` /
 ``sparse_capacity=`` / ``axis=`` keywords) raise ``NotImplementedError``
-until ROADMAP queue 1 item 11 ports them; ``serve_graphs`` raises until
-item 10 ports graph serving.
+until ROADMAP queue 1 item 11 ports them. ``serve_graphs`` serves many
+small graph requests in wave-batched disjoint unions
+(``repro_torch.serve.graph``).
 """
 from repro_torch.core.components import (
     ConvergenceError,
@@ -204,11 +205,23 @@ def tree_analytics(src, dst, num_nodes, **kwargs):
 
 
 def serve_graphs(requests, **kwargs):
-    """Wave-batched graph serving: not ported yet."""
-    raise NotImplementedError(
-        "graph serving is not ported yet (ROADMAP queue 1, item 10: "
-        "graph serving)"
-    )
+    """Serve many small graph requests wave-batched: one padded
+    disjoint-union engine call per wave, bit-exact vs issuing each
+    request alone -- see ``repro_torch.serve.graph.GraphServeEngine``.
+
+    ``requests`` is an iterable of ``repro_torch.serve.GraphRequest``;
+    ``kwargs`` are the engine knobs (``engine=`` / ``rank_engine=`` /
+    ``kernel_impl=`` dispatch as in the functions above, plus the
+    wave/bucket capacity knobs and ``device=``: the CUDA card by
+    default). Returns the finished requests with ``result`` populated,
+    in completion order.
+    """
+    from repro_torch.serve.graph import GraphServeEngine
+
+    eng = GraphServeEngine(**kwargs)
+    for r in requests:
+        eng.submit(r)
+    return eng.run()
 
 
 __all__ = [

@@ -1,13 +1,13 @@
 """Graph datasets of the port: ``full_graph``, ``molecule_batch``,
-``random_tree`` and ``random_tree_forest``, the port's copies of
-``repro/data/graphs.py``.
+``random_tree``, ``random_tree_forest`` and ``graph_request_stream``,
+the port's copies of ``repro/data/graphs.py``.
 
 They run on the port's KISS (``ops/kiss.py``), which is bit-identical
 to the reference's, so the same seed gives both packages the same
-arrays (``tests/test_torch_gnn.py`` and ``tests/test_torch_trees.py``
-hold them equal bit for bit). The GNN graphs' edges are returned SORTED
-BY DESTINATION (stable), so a GNN forward
-sums every aggregation with the ``segment_sum`` kernel without sorting
+arrays (``tests/test_torch_gnn.py``, ``tests/test_torch_trees.py`` and
+``tests/test_torch_serve_graph.py`` hold them equal bit for bit). The
+GNN graphs' edges are returned SORTED BY DESTINATION (stable), so a GNN
+forward sums every aggregation with the ``segment_sum`` kernel without sorting
 again. Everything is numpy on the host; ``forward`` moves the arrays
 to its parameters' device. ``sampled_minibatch`` needs the neighbor
 sampler and waits for it (ROADMAP queue 1, item 12).
@@ -133,3 +133,64 @@ def random_tree_forest(n: int, num_trees: int, seed: int = 0) -> np.ndarray:
     if not edges:
         return np.zeros((0, 2), np.int32)
     return np.concatenate(edges, axis=0).astype(np.int32)
+
+
+def graph_request_stream(
+    num_requests: int,
+    *,
+    min_nodes: int = 6,
+    max_nodes: int = 40,
+    edge_factor: float = 1.5,
+    kind: str = "analytics",
+    family: str = "random",
+    seed: int = 0,
+) -> list[dict]:
+    """A KISS-deterministic stream of small independent graph requests
+    -- the ``repro_torch.serve.graph`` workload (many small
+    molecule-scale graphs, one request each, NOT a pre-unioned batch
+    like ``molecule_batch``). Each entry is ``{"src", "dst",
+    "num_nodes", "kind"}``; sizes are KISS-uniform in ``[min_nodes,
+    max_nodes]``.
+
+    ``family="random"`` draws ``edge_factor * n`` uniform endpoint
+    pairs (self-loops/duplicates included, as real request traffic has
+    them); ``family="tree"`` builds uniform-attachment random trees
+    (``random_tree``), the forest-shaped traffic of the tree-analytics
+    stage.
+
+    ``kind="sssp"`` entries additionally carry ``"weights"`` (KISS
+    eighths in ``{0, 0.25, ..., 1.75}``: zero weights are an
+    adversarial tie-break case) and ``"sources"`` (1-2 KISS-uniform
+    nodes, duplicates allowed). ``kind="pagerank"`` entries carry the
+    same eighth-weights (zero weights exercise the dangling/zero-degree
+    branch) but no sources -- PageRank scores every node.
+    """
+    if family not in ("random", "tree"):
+        raise ValueError(f"unknown family {family!r}")
+    rng = KissRng(seed, 4096)
+    spans = rng.uniform_ints((max(num_requests, 1),),
+                             max_nodes - min_nodes + 1)
+    out = []
+    for i in range(num_requests):
+        n = min_nodes + int(spans[i])
+        if family == "tree":
+            edges = random_tree(n, seed=seed * 9973 + i + 1)
+            src, dst = edges[:, 0].copy(), edges[:, 1].copy()
+        else:
+            m = max(1, int(edge_factor * n))
+            ends = KissRng(seed * 9973 + i + 1, 1024).uniform_ints((m, 2), n)
+            src = ends[:, 0].astype(np.int32)
+            dst = ends[:, 1].astype(np.int32)
+        entry = {"src": src, "dst": dst, "num_nodes": n, "kind": kind}
+        if kind in ("sssp", "pagerank"):
+            wrng = KissRng(seed * 6007 + i + 1, 1024)
+            entry["weights"] = (
+                wrng.uniform_ints((len(src),), 8).astype(np.float32) / 4.0
+            )
+            if kind == "sssp":
+                k = 1 + int(spans[i] % 2)
+                entry["sources"] = wrng.uniform_ints((k,), n).astype(
+                    np.int32
+                )
+        out.append(entry)
+    return out

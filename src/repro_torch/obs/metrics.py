@@ -9,6 +9,9 @@ the reference, so the two packages' snapshots compare key for key.
   visits. Integer-valued fields of published stats objects land here.
 * **gauge** (``gauge``): last-write-wins level -- fractions, ratios.
   Float-valued stats fields land here.
+* **histogram** (``observe``): distribution summary; ``snapshot()``
+  expands it to ``name.count`` / ``name.sum`` / ``name.min`` /
+  ``name.max``.
 
 A name is permanently bound to its first kind; reusing it as another
 kind raises.
@@ -18,6 +21,10 @@ bool -> counter (0/1), int -> counter, float -> gauge, ndarray ->
 ``field.total`` counter (element sum), list/tuple -> ``field.count``
 counter, str/None -> skipped. Every mapping is a pure function of the
 stats values, so two identical runs produce identical snapshots.
+
+``derived_fragment(snap, prefix)`` renders a snapshot as the
+reference's benchmark ``derived`` string (``a=1;b=2.500``), so the
+port's serving counters compare with ``BENCH_smoke.json`` as text.
 """
 from __future__ import annotations
 
@@ -25,12 +32,14 @@ import dataclasses
 
 
 class Registry:
-    """Counters and gauges with a flat deterministic snapshot."""
+    """Counters/gauges/histograms with a flat deterministic snapshot."""
 
     def __init__(self):
         self._kinds: dict[str, str] = {}
         self._counters: dict[str, float] = {}
         self._gauges: dict[str, float] = {}
+        # name -> [count, sum, min, max]
+        self._hists: dict[str, list[float]] = {}
 
     def _claim(self, name: str, kind: str) -> None:
         have = self._kinds.setdefault(name, kind)
@@ -50,10 +59,28 @@ class Registry:
         self._claim(name, "gauge")
         self._gauges[name] = value
 
+    def observe(self, name: str, value: float) -> None:
+        """Record one sample into a histogram."""
+        self._claim(name, "histogram")
+        h = self._hists.get(name)
+        if h is None:
+            self._hists[name] = [1, value, value, value]
+        else:
+            h[0] += 1
+            h[1] += value
+            h[2] = min(h[2], value)
+            h[3] = max(h[3], value)
+
     def snapshot(self) -> dict:
-        """Flat ``{name: number}`` in deterministic (sorted) order;
-        values stay int where they accumulated as ints."""
+        """Flat ``{name: number}`` in deterministic (sorted) order.
+        Histograms expand to ``.count`` / ``.sum`` / ``.min`` /
+        ``.max``; values stay int where they accumulated as ints."""
         out: dict = {**self._counters, **self._gauges}
+        for name, (cnt, total, lo, hi) in self._hists.items():
+            out[f"{name}.count"] = cnt
+            out[f"{name}.sum"] = total
+            out[f"{name}.min"] = lo
+            out[f"{name}.max"] = hi
         return {k: out[k] for k in sorted(out)}
 
     def reset(self) -> None:
@@ -72,6 +99,10 @@ def inc(name: str, value: float = 1) -> None:
 
 def gauge(name: str, value: float) -> None:
     _GLOBAL.gauge(name, value)
+
+
+def observe(name: str, value: float) -> None:
+    _GLOBAL.observe(name, value)
 
 
 def snapshot() -> dict:
@@ -109,3 +140,20 @@ def publish_stats(stats, prefix: str, registry: Registry | None = None,
             reg.inc(f"{name}.total", float(v.sum()) if v.size else 0.0)
         elif isinstance(v, (list, tuple)):
             reg.inc(f"{name}.count", len(v))
+
+
+def derived_fragment(snap: dict, prefix: str = "") -> str:
+    """Render snapshot entries whose name starts with ``prefix`` as a
+    benchmark ``derived`` fragment (``a=1;b=2.500``): sorted by name
+    whatever the input order, integral values as ints, other floats to
+    three decimals -- the reference's rendering, character for
+    character."""
+    parts = []
+    for k, v in sorted(snap.items()):
+        if not k.startswith(prefix):
+            continue
+        if float(v) == int(v):
+            parts.append(f"{k}={int(v)}")
+        else:
+            parts.append(f"{k}={v:.3f}")
+    return ";".join(parts)

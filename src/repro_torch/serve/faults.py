@@ -1,15 +1,15 @@
-"""Deterministic fault injection for the LM serving engine: the port's
-copy of the LM half of ``repro.serve.faults`` (it imports no torch).
+"""Deterministic fault injection for the serving engines: the port's
+copy of ``repro.serve.faults`` (it imports numpy, not torch).
 
 The containment machinery in ``serve/waves.py`` (quarantine +
 bisection, bounded retry, graceful degradation) is only trustworthy if
 every path is exercised deterministically -- waiting for a real device
 OOM or a real invariant break in CI would test nothing. A ``FaultPlan``
-is a fully deterministic description of which faults to inject where;
-the engine accepts one (``fault_plan=``) behind a no-op default,
-consults it at the few natural failure points, and raises ordinary
-exceptions that then flow through the SAME classification / bisection /
-degradation code real failures do:
+is a seeded, fully deterministic description of which faults to inject
+where; both serving engines accept one (``fault_plan=``) behind a no-op
+default, consult it at the few natural failure points, and raise
+ordinary exceptions that then flow through the SAME classification /
+bisection / degradation code real failures do:
 
 * **poison** (``poison_uids``): an ``InjectedEngineError`` whenever a
   wave contains the uid -- the "request that trips an invariant only
@@ -17,14 +17,21 @@ degradation code real failures do:
 * **transient** (``transient_uids``: uid -> failure count): a
   ``TransientFault`` for the first N attempts of any wave containing
   the uid, success afterwards -- exercises the bounded retry policy.
-* **simulated OOM** (``oom_slots_at`` for the LM cache width): a
-  ``SimulatedOOM`` that is resource-exhaustion-shaped, so the scheduler
-  degrades (halves the slots, re-packs smaller waves) instead of
-  quarantining.
+* **simulated OOM** (``oom_node_caps`` for graph buckets,
+  ``oom_slots_at`` for the LM cache width): a ``SimulatedOOM`` that is
+  resource-exhaustion-shaped, so the scheduler degrades (caps the
+  bucket, re-packs smaller waves) instead of quarantining.
+* **non-convergence** (``nonconverge_uids``): the graph engine forces
+  ``max_rounds=0`` on waves containing the uid, so the REAL
+  ``ConvergenceError`` sentinel of the dense engines fires -- nothing
+  here fakes the error; the injection only removes the round budget.
+* **malformed submits** (``malformed_uids`` + ``malform``): a
+  test-stream-side corruption helper; the engines' ``submit``
+  validation must reject the request loudly before it ever reaches a
+  wave (the containment layer never sees it).
 
-The reference's graph-serving injections (``oom_node_caps``,
-``nonconverge_uids``, ``malformed_uids``, ``FaultPlan.random``) come
-with graph serving (ROADMAP queue 1, item 10).
+``FaultPlan.random`` draws from ``np.random.default_rng`` exactly as
+the reference does, so a seed gives both packages the same plan.
 
 Classification (``classify_failure`` / ``is_resource_exhausted``)
 covers real failures too: any ``MemoryError``, or an error message
@@ -35,6 +42,8 @@ degrades; everything else non-transient is poison.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import numpy as np
 
 
 class InjectedFault(RuntimeError):
@@ -84,15 +93,50 @@ def classify_failure(exc: BaseException) -> str:
 @dataclass
 class FaultPlan:
     """A deterministic injection schedule. Default-constructed (or
-    ``None``) injects nothing -- the engine's no-op default.
-    ``transient_uids`` is the plan's only mutable state: each injected
-    transient failure decrements its counter, so a plan instance
-    describes one engine run (build a fresh plan per engine).
+    ``None``) injects nothing -- the no-op default both engines ship
+    with. ``transient_uids`` is the plan's only mutable state: each
+    injected transient failure decrements its counter, so a plan
+    instance describes one engine run (build a fresh plan per engine).
     """
 
     poison_uids: frozenset = frozenset()
     transient_uids: dict = field(default_factory=dict)  # uid -> failures
+    oom_node_caps: frozenset = frozenset()  # graph bucket node_caps
     oom_slots_at: int | None = None  # LM: OOM when num_slots >= this
+    nonconverge_uids: frozenset = frozenset()  # graph: force max_rounds=0
+    malformed_uids: frozenset = frozenset()  # corrupted before submit
+
+    @classmethod
+    def random(
+        cls,
+        seed: int,
+        uids,
+        *,
+        p_poison: float = 0.1,
+        p_transient: float = 0.1,
+        max_transient: int = 1,
+        p_nonconverge: float = 0.0,
+    ) -> "FaultPlan":
+        """Seeded random plan over ``uids`` -- same seed, same plan (and
+        the reference's plan: the same draws in the same order)."""
+        rng = np.random.default_rng(seed)
+        uids = list(uids)
+        draws = rng.random((len(uids), 3))
+        poison, transient, nonconv = set(), {}, set()
+        for uid, (a, b, c) in zip(uids, draws):
+            if a < p_poison:
+                poison.add(uid)
+            elif c < p_nonconverge:
+                nonconv.add(uid)
+            elif b < p_transient:
+                transient[uid] = int(rng.integers(1, max_transient + 1))
+        return cls(
+            poison_uids=frozenset(poison),
+            transient_uids=transient,
+            nonconverge_uids=frozenset(nonconv),
+        )
+
+    # -- engine-side checkpoints ------------------------------------
 
     def check_wave(self, wave) -> None:
         """Top of ``_run_wave``: transient (counted) then poison."""
@@ -110,6 +154,14 @@ class FaultPlan:
                 f"injected engine error (poison uids {poisoned})"
             )
 
+    def check_bucket(self, node_cap: int) -> None:
+        """Graph engine, after the wave's capacity bucket is chosen."""
+        if node_cap in self.oom_node_caps:
+            raise SimulatedOOM(
+                "injected RESOURCE_EXHAUSTED on bucket "
+                f"node_cap={node_cap}"
+            )
+
     def check_slots(self, num_slots: int) -> None:
         """LM engine, before the (num_slots, max_len) cache allocates."""
         if self.oom_slots_at is not None and num_slots >= self.oom_slots_at:
@@ -117,3 +169,15 @@ class FaultPlan:
                 "injected RESOURCE_EXHAUSTED on KV cache width "
                 f"num_slots={num_slots}"
             )
+
+    def wants_nonconverge(self, wave) -> bool:
+        return any(r.uid in self.nonconverge_uids for r in wave)
+
+    # -- test-stream-side helper -------------------------------------
+    def malform(self, req):
+        """Corrupt a graph request so ``submit`` must reject it (edge
+        endpoint outside ``[0, num_nodes)``). Returns the request."""
+        bad = np.asarray([req.num_nodes + 7], np.int32)
+        req.src = np.concatenate([np.asarray(req.src, np.int32), bad])
+        req.dst = np.concatenate([np.asarray(req.dst, np.int32), bad])
+        return req

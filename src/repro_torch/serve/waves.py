@@ -1,9 +1,9 @@
 """Shared wave/slot machinery for the serving engines: the port's copy
 of ``repro.serve.waves``, scheduler and containment unchanged.
 
-The port has the LM token engine (``serve/engine.py``); the
-graph-analytics engine of the reference (``serve/graph.py``) waits for
-ROADMAP queue 1, item 10. In the reference both run the same outer loop:
+Both serving engines of the port -- the LM token engine
+(``serve/engine.py``) and the graph-analytics engine
+(``serve/graph.py``) -- run the same outer loop:
 requests queue up, a WAVE of them is admitted under a static capacity,
 the whole wave runs as one shape-static batched device program, and the
 wave retires together (the branch-free analogue of the paper's lockstep

@@ -262,8 +262,8 @@ def test_dispatch_validation_and_no_launch_on_the_cpu():
         tt.tour_ranks(tour, mesh=object())
     with pytest.raises(NotImplementedError, match="queue 1, item 11"):
         tcore.tree_analytics(e[:, 0], e[:, 1], n, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tcore.serve_graphs([])
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        tcore.serve_graphs([], mesh=object())
     with pytest.raises(ValueError, match="pad_to"):
         tt.euler_tour(e[:, 0], e[:, 1], n, pad_to=2, device="cpu")
     with pytest.raises(ValueError, match="num_edges"):
