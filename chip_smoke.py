@@ -199,8 +199,28 @@ of which raises on failure:
    slots at node 0) of one wide pagerank wave and one wide analytics
    wave from ``torch.profiler``. ``benchmarks/serve_chaos.py``'s streams
    and fault plans at their ``BENCH_smoke.json`` sizes give exactly that
-   file's containment counters on the card. The script's total seconds
-   are printed at the end.
+   file's containment counters on the card.
+14. The sharded graph engine (``repro_torch.distributed.graph``) over
+   NCCL at world size 1 (one rank, an in-memory store, no network;
+   the same collectives as P ranks, each with one participant):
+   ``benchmarks/multidev_scaling.py``'s ``*_dev1`` rows of
+   ``BENCH_smoke.json`` at n = 100, character for character; then each
+   CC cell of phase 3, deduplicated once on the host and passed with
+   ``dedup=False``, through ``connected_components(..., mesh=mesh)``
+   (the sharded frontier engine, sparse exchange) and ``engine="dense"``
+   with the dense and the sparse exchange: labels and rounds equal the
+   single-device dense engine's on the card (the sharded engines run no
+   Afforest pre-pass), ``edge_hook`` twice a round, each call's words
+   per round, its wall time (median of three after a warm-up) beside
+   the single-device engine's; the giant+dust cell with
+   ``record_hooks=True``, its forest equal; the share of the card's busy
+   time in NCCL kernels from one ``torch.profiler`` run; phase 4's list
+   through ``list_rank(succ, mesh=mesh)``, its ranks equal, one
+   ``pointer_jump`` and one ``splitter_aggregate`` launch; and
+   ``tree_analytics(..., mesh=mesh)`` on phase 12's molecule-batch
+   forest, equal to the single-device splitter run. The process group
+   is destroyed on the way out. The script's total seconds are printed
+   at the end.
 
 Every profile prints the host's launch calls beside the device records
 it kept, and is used only if it kept one for each (``device_share``).
@@ -213,6 +233,7 @@ result. It imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -302,6 +323,10 @@ SERVE_GRAPH_BUDGETS = (
     ("default", {}),  # 16 requests, 4,096 nodes, 16,384 edges a wave
     ("wide", {"max_requests": 1024, "max_nodes": 32768, "max_edges": 65536}),
 )
+
+# Phase 14's sizes: the sharded engine at phases 3-4's sizes, and the
+# multidev_scaling rows of BENCH_smoke.json at their smoke size.
+SHARDED_DEV1_N = 100
 
 # The LM phases' sizes.
 LM_ARCH = "qwen3-4b"
@@ -2363,6 +2388,7 @@ def phase_pagerank(dev, edges, n, weights, timer):
     return median(secs), iters, launches, idle, median(fixed_secs), fixed_launches
 
 
+@functools.lru_cache(maxsize=1)
 def tree_families():
     """Phase 12's tree inputs, ``{family: (n, edges)}``, and the
     molecule-batch forest's host build seconds."""
@@ -2819,6 +2845,247 @@ def phase_serve_graphs(dev, card: str) -> dict:
     return {"launches": totals, "rows": rows, "secs": secs}
 
 
+def random_succ(n: int, seed: int = 0) -> np.ndarray:
+    """Random linked-list succ[] with head 0 and a self-loop terminal:
+    the list input of ``benchmarks/multidev_scaling.py`` (a copy of
+    ``repro.data.graphs.random_succ``, plain numpy)."""
+    r = np.random.default_rng(seed)
+    order = (np.concatenate([[0], 1 + r.permutation(n - 1)]) if n > 1
+             else np.zeros(1, np.int64))
+    succ = np.empty(n, dtype=np.int32)
+    succ[order[:-1]] = order[1:]
+    succ[order[-1]] = order[-1]
+    return succ
+
+
+def multidev_dev1_rows(mesh) -> dict:
+    """``benchmarks/multidev_scaling.py``'s derived strings for one
+    device at the smoke size (n = 100), through the sharded engines on
+    ``mesh``: ``{row name: derived}``."""
+    from repro_torch.core.list_ranking import select_splitters
+    from repro_torch.distributed import (
+        cc_exchange_words_per_round,
+        rank_exchange_words,
+        sharded_frontier_shiloach_vishkin,
+        sharded_random_splitter_rank,
+        sharded_shiloach_vishkin,
+    )
+    from repro_torch.ops.kiss import random_graph
+
+    n, d = SHARDED_DEV1_N, mesh.size
+    edges = random_graph(n, 4.0 / n, seed=1)
+    succ = random_succ(n, seed=0)
+    p = min(512, n)
+    spl = select_splitters(n, p, seed=0)
+    _, rounds = sharded_shiloach_vishkin(edges[:, 0], edges[:, 1], n, mesh=mesh)
+    out = {f"cc_sharded_dev{d}": (
+        f"rounds={int(rounds)};"
+        f"exKiB/round={cc_exchange_words_per_round(n) * 4 / 1024:.1f};"
+        f"edges/dev={2 * len(edges) // d}")}
+    _, _, st = sharded_shiloach_vishkin(
+        edges[:, 0], edges[:, 1], n, mesh=mesh, exchange="sparse",
+        with_stats=True)
+    w = cc_exchange_words_per_round(n, stats=st)
+    out[f"cc_sharded_sparse_dev{d}"] = (
+        f"capacity={st.capacity};wordsR1={int(w[0])};wordsLast={int(w[-1])};"
+        f"denseWords={3 * n}")
+    _, _, stf = sharded_frontier_shiloach_vishkin(
+        edges[:, 0], edges[:, 1], n, mesh=mesh, min_bucket=64, with_stats=True)
+    out[f"cc_sharded_frontier_dev{d}"] = (
+        f"rounds={stf.rounds};edgesTouched/dev={stf.edges_touched};"
+        f"denseTouched/dev={2 * (-(-stf.m2 // d)) * stf.rounds};"
+        f"levels={len(stf.levels)};wordsLast={int(stf.words_per_round[-1])}")
+    sharded_random_splitter_rank(succ, splitters=spl, mesh=mesh)
+    out[f"rank_sharded_dev{d}"] = (
+        f"exKiB={rank_exchange_words(n, p, d) * 4 / 1024:.1f};"
+        f"lanes/dev={-(-p // d)}")
+    return out
+
+
+def nccl_share(fn) -> tuple:
+    """One ``torch.profiler`` run of ``fn``: its idle share and the share
+    of the card's busy time in NCCL kernels (a kernel whose name holds
+    "nccl"), with the NCCL kernels' count and milliseconds."""
+    wall_ms, busy_ms, events, top, idle = device_share(fn, top=10_000)
+    nccl = [(k, ms) for k, ms in top if "nccl" in k.lower()]
+    nccl_ms = sum(ms for _, ms in nccl)
+    return idle, nccl_ms / busy_ms, len(nccl), nccl_ms, busy_ms, events
+
+
+def phase_sharded(dev, card: str, list_single_s: float) -> dict:
+    """Phase 14: the sharded graph engine over NCCL at world size 1, at
+    phases 3-4's full sizes. Returns the hand kernels' launches of its
+    checked runs and the report rows; the process group is destroyed on
+    the way out, whatever happens."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import (
+        connected_components,
+        dedup_edges,
+        list_rank,
+        shiloach_vishkin,
+        tree_analytics,
+    )
+    from repro_torch.distributed import graph_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.pointer_jump.ops import SHARED_LIMIT, default_iters
+    from repro_torch.ops.kiss import random_linked_list
+    from repro_torch.trees import tour_splitters
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in launch_counts}
+    rows = []
+    # An in-memory store: one rank needs no rendezvous and no network.
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = graph_mesh(1)
+        check(dist.get_backend() == "nccl" and mesh.device.type == "cuda",
+              f"phase 14 runs NCCL on the card ({dist.get_backend()}, "
+              f"{mesh.device})")
+
+        def counted(fn):
+            """``fn()`` with the launches counted from 0, added to the
+            phase's totals; returns ``(result, seconds, launches)``."""
+            reset_launch_counts()
+            out, secs = wall_s(fn)
+            counts = dict(launch_counts)
+            for k in totals:
+                totals[k] += counts[k]
+            return out, secs, counts
+
+        def timed(fn):
+            """Median seconds of E2E_SAMPLES calls after a warm-up."""
+            fn()
+            return median([wall_s(fn)[1] for _ in range(E2E_SAMPLES)])
+
+        # The dev1 rows of BENCH_smoke.json, character for character.
+        for name, got in multidev_dev1_rows(mesh).items():
+            want = bench_counters(name)
+            check(got == want, f"sharded {name}: {got!r} == BENCH_smoke's {want!r}")
+            print(f"sharded {name} n={SHARDED_DEV1_N}: {got} (BENCH_smoke.json's)")
+
+        for name, edges, n in cc_graphs():
+            t0 = time.perf_counter()
+            du, dv = dedup_edges(edges[:, 0], edges[:, 1])
+            dedup_s = time.perf_counter() - t0
+            del edges
+            def single():
+                return shiloach_vishkin(du, dv, n, dedup=False, device=dev)
+
+            want_l, want_r = single()
+            single_s = timed(single)
+            calls = {
+                "sharded_frontier": dict(mesh=mesh),
+                "dense": dict(mesh=mesh, engine="dense"),
+                "dense_sparse": dict(mesh=mesh, engine="dense",
+                                     exchange="sparse"),
+            }
+            for label, kw in calls.items():
+                (labels, rounds, st), _, counts = counted(
+                    lambda kw=kw: connected_components(
+                        du, dv, n, dedup=False, with_stats=True, **kw))
+                check(rounds == want_r and torch.equal(labels, want_l),
+                      f"sharded {name} {label}: labels and rounds equal the "
+                      f"single-device dense engine's")
+                for mode in ("edge_hook.sv2", "edge_hook.sv3"):
+                    check(counts[mode] == rounds,
+                          f"sharded {name} {label}: {mode} launched "
+                          f"{counts[mode]} times in {rounds} rounds")
+                secs = timed(lambda kw=kw: connected_components(
+                    du, dv, n, dedup=False, **kw))
+                extra = (f"levels={st.levels} edges_touched={st.edges_touched} "
+                         f"capacities={st.capacities}"
+                         if label == "sharded_frontier" else
+                         f"capacity={st.capacity}")
+                print(f"sharded {name} {label} ({st.exchange} exchange): n={n} "
+                      f"m2={2 * len(du)} rounds={rounds} wall_s={secs} "
+                      f"single_device_dense_s={single_s} "
+                      f"words_per_round={st.words_per_round.tolist()} "
+                      f"frontier_per_round={st.frontier_per_round.tolist()} "
+                      f"{extra} [{card}]")
+                rows.append((f"cc {name} {label}", secs, single_s))
+            if name == "random":
+                idle, share, k, nccl_ms, busy_ms, events = nccl_share(
+                    lambda: connected_components(du, dv, n, dedup=False,
+                                                 mesh=mesh))
+                print(f"sharded {name} sharded_frontier profiled: "
+                      f"device_idle_share={idle} nccl_share_of_busy={share} "
+                      f"nccl_kernels={k} nccl_ms={nccl_ms} busy_ms={busy_ms} "
+                      f"device_events={events} [{card}]")
+                rows.append(("nccl share, cc random sharded_frontier", share, idle))
+            if name == "giant_dust":
+                want_h = shiloach_vishkin(du, dv, n, dedup=False,
+                                          record_hooks=True, device=dev)[2]
+                (labels, rounds, hooks), secs, counts = counted(
+                    lambda: connected_components(du, dv, n, dedup=False,
+                                                 mesh=mesh, record_hooks=True))
+                check(rounds == want_r and torch.equal(labels, want_l)
+                      and all(torch.equal(x, y) for x, y in zip(hooks, want_h)),
+                      f"sharded {name} record_hooks: labels, rounds and hook "
+                      "forest equal the single-device dense engine's")
+                check(counts["edge_hook.sv2"] == rounds,
+                      f"sharded {name} record_hooks: edge_hook twice a round")
+                print(f"sharded {name} record_hooks: forest bit-equal, "
+                      f"wall_s={secs} (one call) [{card}]")
+            print(f"sharded {name}: dedup_edges once, host_s={dedup_s}")
+            del du, dv, want_l
+            torch.cuda.empty_cache()
+
+        # List ranking on phase 4's list, against the single-device engine.
+        succ = random_linked_list(LIST_N, seed=0)
+        want = list_rank(succ, device=dev)
+        list_rank(random_linked_list(PROFILE_LIST_N, seed=0), mesh=mesh)  # warm-up
+        secs = []
+        for i in range(E2E_SAMPLES):
+            (rank, st), s, counts = counted(
+                lambda: list_rank(succ, mesh=mesh, with_stats=True))
+            secs.append(s)
+            if i == 0:
+                check(torch.equal(rank, want),
+                      "sharded list_rank: ranks equal the single-device engine's")
+                check(counts["pointer_jump"] == 1
+                      and counts["splitter_aggregate"] == 1,
+                      f"sharded list_rank: one pointer_jump and one "
+                      f"splitter_aggregate launch, got {counts}")
+        print(f"sharded list_rank n={LIST_N} p={len(st.splitters)} "
+              f"walk_steps={st.walk_steps} wall_s={median(secs)} samples={secs} "
+              f"single_device_s={list_single_s} (phase 4) words="
+              f"{2 * LIST_N + 2 * len(st.splitters)} [{card}]")
+        rows.append(("list_rank", median(secs), list_single_s))
+        del succ, want, rank
+
+        # Tree analytics on phase 12's molecule-batch forest: the sharded
+        # CC engine and the sharded splitter ranker end to end.
+        families, _ = tree_families()
+        n, edges = families["molecule-batch"]
+        want, single_s = wall_s(lambda: tree_analytics(
+            edges[:, 0], edges[:, 1], n, rank_engine="splitter", device=dev))
+        ta, secs, counts = counted(lambda: tree_analytics(
+            edges[:, 0], edges[:, 1], n, mesh=mesh))
+        for k in ("parent", "depth", "subtree_size", "preorder", "postorder"):
+            check(torch.equal(getattr(ta.computations, k),
+                              getattr(want.computations, k)),
+                  f"sharded tree_analytics: {k} equals the single-device run")
+        rounds = ta.forest.rounds
+        p = len(tour_splitters(ta.tour))
+        want_pj = 1 if p <= SHARED_LIMIT else default_iters(p)
+        check(counts["edge_hook.sv2"] == rounds == counts["edge_hook.sv3"]
+              and counts["pointer_jump"] == want_pj
+              and counts["splitter_aggregate"] == 1,
+              f"sharded tree_analytics: edge_hook twice a round, {want_pj} "
+              f"pointer_jump and one splitter_aggregate launch, got {counts}")
+        print(f"sharded tree_analytics molecule-batch n={n} cc_rounds={rounds} "
+              f"p={p}: every field equal, wall_s={secs} (one call) "
+              f"single_device_splitter_s={single_s} (one call) [{card}]")
+        rows.append(("tree_analytics molecule-batch", secs, single_s))
+    finally:
+        dist.destroy_process_group()
+    return {"launches": totals, "rows": rows,
+            "secs": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -2930,6 +3197,12 @@ def main() -> int:
     serving = phase_serve_graphs(dev, card)
     for name, count in serving["launches"].items():
         launches[name] = launches.get(name, 0) + count
+
+    # Phase 14: the sharded graph engine over NCCL at world size 1,
+    # launches counted over its checked runs.
+    sharded = phase_sharded(dev, card, list_secs)
+    for name, count in sharded["launches"].items():
+        launches[name] = launches.get(name, 0) + count
     errs["flash_attention"] = lm["max_abs_err"]
     records = []
     for name, (ms, plain_ms, eager_ms, nbytes) in times.items():
@@ -3037,6 +3310,14 @@ def main() -> int:
               f"hand_launches_per_wave={row['launches_per_wave']} "
               f"peak_memory_gb={row['peak_gb']} [{card}]")
     print(f"e2e serve_graphs phase_s={serving['secs']} [{card}]")
+    for label, secs, single in sharded["rows"]:
+        if label.startswith("nccl share"):
+            print(f"e2e sharded {label}: nccl_share_of_busy={secs} "
+                  f"device_idle_share={single} [{card}]")
+            continue
+        print(f"e2e sharded {label} (world size 1, NCCL): wall_s={secs} "
+              f"single_device_s={single} [{card}]")
+    print(f"e2e sharded phase_s={sharded['secs']} [{card}]")
     print(f"chip_smoke total_s={time.perf_counter() - start}")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))

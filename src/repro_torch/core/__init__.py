@@ -3,13 +3,15 @@ list ranking, with the dispatch rules of ``repro.core`` -- and the
 graph analytics on them: SSSP and PageRank on the operator layer, and
 the Euler-tour tree wrappers (``repro_torch.trees``).
 
-This port runs on one device. The sharded engines of the reference
-(``engine="sharded_frontier"``, ``mesh=``, the ``exchange=`` /
-``sparse_capacity=`` / ``axis=`` keywords) raise ``NotImplementedError``
-until ROADMAP queue 1 item 11 ports them. ``serve_graphs`` serves many
-small graph requests in wave-batched disjoint unions
-(``repro_torch.serve.graph``).
+The sharded engines (``engine="sharded_frontier"``, ``mesh=``, the
+``exchange=`` / ``sparse_capacity=`` / ``axis=`` keywords) run on
+``torch.distributed`` (``repro_torch.distributed.graph``): where the
+reference counts visible devices, the port counts the ranks of the
+default process group. ``serve_graphs`` serves many small graph requests
+in wave-batched disjoint unions (``repro_torch.serve.graph``).
 """
+import torch.distributed as dist
+
 from repro_torch.core.components import (
     ConvergenceError,
     check_choice,
@@ -53,11 +55,13 @@ from repro_torch.core.pram import (
 )
 
 # Engine-specific tuning knobs: naming one pins the dispatch to that
-# engine. The sampling pre-pass (sample_rounds/seed) and min_bucket
-# exist only on the frontier engine; hook_impl on both single-device
-# engines.
+# engine. The sampling pre-pass (sample_rounds/seed) exists only on the
+# single-device frontier engine; min_bucket and hook_impl are honoured
+# by both frontier engines (single-device and sharded), so with a mesh
+# they steer toward engine="sharded_frontier" instead of raising.
 _SAMPLING_KW = frozenset({"sample_rounds", "seed"})
 _FRONTIER_KW = _SAMPLING_KW | {"min_bucket"}
+_SINGLE_KW = _FRONTIER_KW | {"hook_impl"}
 _SHARDED_KW = frozenset({"exchange", "sparse_capacity", "axis"})
 _CC_ENGINES = ("auto", "frontier", "dense", "sharded_frontier")
 
@@ -70,10 +74,11 @@ _CC_ENGINES = ("auto", "frontier", "dense", "sharded_frontier")
 AUTO_SAMPLE_DENSITY = 8.0
 AUTO_SAMPLE_ROUNDS = 2
 
-_SHARDED_TODO = (
-    "the sharded engines are not ported yet (ROADMAP queue 1, item 11: "
-    "sharded graph engine)"
-)
+
+def _multi_rank() -> bool:
+    """Whether the default process group has several ranks: the port's
+    ``jax.device_count() > 1``."""
+    return dist.is_initialized() and dist.get_world_size() > 1
 
 
 def _auto_sample_rounds(src, num_nodes):
@@ -99,74 +104,175 @@ def connected_components(
     ``labels[i]`` being the component root id (an int32 tensor on the
     run's device) and ``rounds`` an int.
 
-    ``engine=`` -- ``"auto"`` (default) or ``"frontier"`` runs the
-    frontier-compacted engine (``repro_torch.core.frontier``);
-    ``"dense"`` walks every edge every round (``shiloach_vishkin``).
-    ``"sharded_frontier"`` and ``mesh=`` raise ``NotImplementedError``.
+    ``engine=`` -- one of ``"auto"`` (default), ``"frontier"``,
+    ``"dense"``, ``"sharded_frontier"``, with the reference's rules:
 
-    Keywords:
+    * ``"auto"``: an explicit ``mesh=`` picks the sharded frontier
+      engine; otherwise one rank runs the single-device frontier engine
+      (``repro_torch.core.frontier``) and a process group of several
+      ranks the dense sharded engine (``repro_torch.distributed.graph``).
+      The reference's fallbacks to the dense walks under a ``jax.jit``
+      trace have no torch meaning: nothing here is traced.
+    * ``"frontier"``: the single-device frontier engine (rejects
+      ``mesh=``).
+    * ``"dense"``: every edge every round (one rank: ``shiloach_vishkin``;
+      with a mesh, sharded keywords or several ranks: the dense sharded
+      engine).
+    * ``"sharded_frontier"``: the per-rank frontier engine (``mesh=``
+      optional; default ``graph_mesh(device=device)``).
+
+    Keywords (each steers the auto dispatch toward an engine that
+    honours it):
 
     * ``sample_rounds=`` / ``seed=`` -- the Afforest-style sampling
-      pre-pass; frontier engine only. On the auto path, graphs with at
-      least ``AUTO_SAMPLE_DENSITY`` input edges per node get
+      pre-pass; single-device frontier engine only (with a sharded
+      trigger they raise). On the auto path, graphs with at least
+      ``AUTO_SAMPLE_DENSITY`` input edges per node get
       ``AUTO_SAMPLE_ROUNDS`` rounds unless ``sample_rounds=`` is given.
-    * ``min_bucket=`` (int, default 1024) -- smallest frontier bucket.
+    * ``min_bucket=`` (int, default 1024) -- smallest frontier bucket;
+      both frontier engines (per rank in the sharded one).
     * ``hook_impl=`` -- ``"auto"`` (default: the ``edge_hook`` CUDA
       kernel for tensors on the card, its plain version on the CPU),
-      ``"torch"`` or ``"cuda"``.
+      ``"torch"`` or ``"cuda"``; the dense, frontier and sharded
+      frontier engines. The dense sharded engine takes no ``hook_impl``,
+      as in the reference; its hooks run through ``edge_hook`` "auto".
+    * ``exchange=`` (``"dense"`` / ``"sparse"``), ``sparse_capacity=``,
+      ``axis=`` -- the sharded engines' label exchange and mesh axis.
     * ``dedup=``, ``record_hooks=``, ``with_stats=`` -- as in
       ``repro.core.connected_components``.
     * ``device=`` -- where host (numpy/list) inputs go: the CUDA card by
-      default, ``"cpu"`` on request. Tensors stay on their device.
+      default, ``"cpu"`` on request. Tensors stay on their device; the
+      sharded engines run on the mesh's device.
     """
     check_choice("engine", engine, _CC_ENGINES)
+    single_kw = _SINGLE_KW & kwargs.keys()
     sharded_kw = _SHARDED_KW & kwargs.keys()
-    if mesh is not None or engine == "sharded_frontier" or sharded_kw:
-        raise NotImplementedError(_SHARDED_TODO)
+    sampling_kw = _SAMPLING_KW & kwargs.keys()
+    if sampling_kw and (
+        sharded_kw or mesh is not None or engine == "sharded_frontier"
+    ):
+        trigger = (
+            sorted(sharded_kw) if sharded_kw
+            else "mesh=" if mesh is not None
+            else "engine='sharded_frontier'"
+        )
+        raise ValueError(
+            f"{sorted(sampling_kw)} are single-device frontier options "
+            "(the sampling pre-pass has no sharded counterpart); drop "
+            f"them or drop {trigger}"
+        )
     if engine == "auto":
-        engine = "frontier"
-        if "sample_rounds" not in kwargs:
+        if mesh is not None:
+            engine = "sharded_frontier"
+        elif single_kw and not sharded_kw:
+            engine = "frontier"
+        elif sharded_kw:
+            # bucket/hook knobs and exchange knobs meet only in the
+            # composed engine
+            engine = "sharded_frontier" if single_kw else "_sharded"
+        elif _multi_rank():
+            engine = "_sharded"
+        else:
+            engine = "frontier"
+        if engine == "frontier" and "sample_rounds" not in kwargs:
             auto_k = _auto_sample_rounds(src, num_nodes)
             if auto_k:
                 kwargs["sample_rounds"] = auto_k
     if engine == "frontier":
+        if sharded_kw:
+            raise ValueError(
+                f"{sorted(sharded_kw)} are sharded-engine options; drop "
+                "them or use engine='auto'/'sharded_frontier'"
+            )
+        if mesh is not None:
+            raise ValueError(
+                "the frontier engine is single-device; drop mesh= or use "
+                "engine='auto'/'sharded_frontier'"
+            )
         return frontier_shiloach_vishkin(
             src, dst, num_nodes, max_rounds=max_rounds, device=device,
             **kwargs
         )
-    fkw = _FRONTIER_KW & kwargs.keys()
-    if fkw:
-        raise ValueError(
-            f"{sorted(fkw)} are frontier-engine options; use "
-            "engine='frontier'"
+    if engine == "sharded_frontier":
+        from repro_torch.distributed.graph import (
+            sharded_frontier_shiloach_vishkin,
         )
-    return shiloach_vishkin(
-        src, dst, num_nodes, max_rounds=max_rounds, device=device, **kwargs
+
+        return sharded_frontier_shiloach_vishkin(
+            src, dst, num_nodes, mesh=mesh, max_rounds=max_rounds,
+            device=device, **kwargs
+        )
+    if engine == "dense":
+        fkw = _FRONTIER_KW & kwargs.keys()
+        if fkw:
+            raise ValueError(
+                f"{sorted(fkw)} are frontier-engine options; use "
+                "engine='frontier' or engine='sharded_frontier'"
+            )
+        if single_kw and (mesh is not None or sharded_kw):
+            # only hook_impl can land here
+            raise ValueError(
+                f"{sorted(single_kw)} with a mesh needs "
+                "engine='sharded_frontier' (the dense sharded engine "
+                "takes no hook_impl)"
+            )
+        if single_kw or (
+            mesh is None and not sharded_kw and not _multi_rank()
+        ):
+            return shiloach_vishkin(
+                src, dst, num_nodes, max_rounds=max_rounds, device=device,
+                **kwargs
+            )
+    # several ranks, a mesh or sharded knobs: the sharded engine IS the
+    # dense walk
+    from repro_torch.distributed.graph import sharded_shiloach_vishkin
+
+    return sharded_shiloach_vishkin(
+        src, dst, num_nodes, mesh=mesh, max_rounds=max_rounds, device=device,
+        **kwargs
     )
 
 
+_SINGLE_ENGINE_KW = frozenset({"pack_mode"})
+
+
 def list_rank(succ, num_splitters=None, *, mesh=None, device=None, **kwargs):
-    """List ranking with the random-splitter engine. Returns the exact
-    int32 ranks. Keywords as in ``repro.core.list_rank``:
+    """List ranking with automatic engine dispatch: the random-splitter
+    engine on one rank, its sharded counterpart
+    (``repro_torch.distributed.graph.sharded_random_splitter_rank``) when
+    a ``mesh=`` is given or the process group has several ranks. Returns
+    the exact int32 ranks, the same on every path. Keywords as in
+    ``repro.core.list_rank``:
 
     * ``num_splitters=`` (int, default ``min(4096,
       max_splitters_for_linear_work(n))``).
     * ``kernel_impl=`` -- ``"auto"`` (default: the CUDA kernels for
       tensors on the card, their plain versions on the CPU),
-      ``"torch"`` or ``"cuda"``: RS4/RS5's implementation.
-    * ``pack_mode=`` -- ``"aos"`` (default), ``"soa"``, ``"word64"``.
+      ``"torch"`` or ``"cuda"``: RS4/RS5's implementation, on both
+      engines.
+    * ``pack_mode=`` -- ``"aos"`` (default), ``"soa"``, ``"word64"``:
+      single-device walk-state packing; given without a mesh it pins the
+      single-device engine, with a mesh it raises.
     * ``splitters=``/``seed=``/``head=``/``max_steps=``/``with_stats=``
       -- forwarded unchanged.
     * ``device=`` -- where a host list goes (the CUDA card by default).
-
-    ``mesh=`` raises ``NotImplementedError``.
     """
     if "kernel_impl" in kwargs:
         check_choice("kernel_impl", kwargs["kernel_impl"], KERNEL_IMPLS)
     if "pack_mode" in kwargs:
         check_choice("pack_mode", kwargs["pack_mode"], PACK_MODES)
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED_TODO)
+    single_only = _SINGLE_ENGINE_KW & kwargs.keys()
+    if mesh is not None or (_multi_rank() and not single_only):
+        if single_only:
+            raise ValueError(
+                f"{sorted(single_only)} are single-device options; drop "
+                "them or drop mesh="
+            )
+        from repro_torch.distributed.graph import sharded_random_splitter_rank
+
+        return sharded_random_splitter_rank(
+            succ, num_splitters, mesh=mesh, device=device, **kwargs
+        )
     return random_splitter_rank(succ, num_splitters, device=device, **kwargs)
 
 

@@ -14,11 +14,19 @@ has no torch mode; the port scatters into an ``n + 1`` buffer with
 (``kernels/edge_hook/ref.py``).
 
 The round body is built once by ``sv_round_fns`` and shared by the dense
-loop (``sv_run`` / ``shiloach_vishkin``) and the frontier-compacted
-engine (``repro_torch.core.frontier``), so their hook semantics are the
+loop (``sv_run`` / ``shiloach_vishkin``), the frontier-compacted engine
+(``repro_torch.core.frontier``) and the edge-partitioned engines
+(``repro_torch.distributed.graph``), so their hook semantics are the
 same by construction. Its SV2/SV3 hook phases always go through the
 ``edge_hook`` wrapper: the CUDA kernel for tensors on the card, the plain
 version for tensors on the CPU.
+
+Cross-rank merges use the reference's convention ``fn(arr, base, aux, s)
+-> (arr, aux)``: ``base`` is the replicated pre-scatter array (what every
+rank agreed on before this phase's min-scatter), which lets the sparse
+exchange send only the (index, label) pairs that changed; ``aux``
+threads exchange statistics through the round loop. On one device the
+merges are identities.
 """
 from __future__ import annotations
 
@@ -43,6 +51,24 @@ class ConvergenceError(RuntimeError):
     """A bounded round/walk loop hit its bound without reaching a
     fixpoint. Labels past the bound would be WRONG, so every engine
     raises this instead of returning them."""
+
+
+def _identity_merge(arr, base, aux, s):
+    del base, s
+    return arr, aux
+
+
+def _lift_merge(fn):
+    """Adapt an engine merge fn (which owns only its engine aux) to the
+    nested ``(hooks, engine_aux)`` aux used when ``record_hooks`` is on,
+    so no engine's merge functions need to know about hook recording."""
+
+    def lifted(arr, base, aux, s):
+        hooks, inner = aux
+        arr, inner = fn(arr, base, inner, s)
+        return arr, (hooks, inner)
+
+    return lifted
 
 
 def check_choice(kind: str, value, choices) -> None:
@@ -87,25 +113,41 @@ def sv_round_fns(
     a: torch.Tensor,
     b: torch.Tensor,
     n: int,
+    merge_labels=None,
+    merge_stamps=None,
     hook_impl: str = "auto",
     with_frontier: bool = False,
     record_hooks: bool = False,
+    merge_hooks=None,
 ):
     """Build the SV1a..SV5 round body over edge arrays ``(a, b)``.
 
     Returns ``round_body(carry) -> carry`` with carry
-    ``(D, Q, hooks, s, changed)``: labels, stamps, the hook record (or
-    ``None``), the round number as a Python int, and the device bool
+    ``(D, Q, aux, s, changed)``: labels, stamps, the merges' aux (with
+    ``record_hooks``, ``(hooks, engine_aux)``; ``None`` where nothing is
+    recorded), the round number as a Python int, and the device bool
     "did this round change anything" (SV5). ``with_frontier=True``
     appends the per-edge frontier mask, read off the SV3 phase's own
-    gathers (``(D, Q, hooks, s, changed, fmask)``).
+    gathers (``(D, Q, aux, s, changed, fmask)``).
+
+    ``merge_labels`` / ``merge_stamps`` run right after each phase's
+    min-scatter (identities by default; see the module docstring).
 
     ``record_hooks=True`` records, for every hook event, the graph edge
     that won the min-CRCW scatter, with ties broken to the
     lexicographically smallest ``(u, v)``. Recording only reads the
     label state, so labels, stamps and round counts are the same with
-    it on or off.
+    it on or off. ``merge_hooks`` is the cross-rank reduction of the
+    candidate arrays (a MIN all-reduce in the sharded engines); it runs
+    twice a phase -- once to agree on the winning ``u``, once for the
+    matching ``v`` -- so the recorded pair is a real edge even when the
+    winner lies in another rank's shard.
     """
+    ml = merge_labels if merge_labels is not None else _identity_merge
+    mq = merge_stamps if merge_stamps is not None else _identity_merge
+    if record_hooks:
+        ml, mq = _lift_merge(ml), _lift_merge(mq)
+    mh = merge_hooks if merge_hooks is not None else (lambda arr: arr)
     sv2_hook, sv3_hook = _hook_phase_fns(a, b, hook_impl)
 
     def record_phase(hooks, cond, tgt, val, D_before, D_after):
@@ -117,44 +159,52 @@ def sv_round_fns(
         hooked = D_after[tc] != D_before[tc]
         win = cond & (val == D_after[tc]) & hooked
         empty = torch.full_like(D_after, n)
-        cu = drop_scatter_min(empty, torch.where(win, tgt, n), a)
+        cu = mh(drop_scatter_min(empty, torch.where(win, tgt, n), a))
         win_v = win & (a == cu[tc])
-        cv = drop_scatter_min(empty, torch.where(win_v, tgt, n), b)
+        cv = mh(drop_scatter_min(empty, torch.where(win_v, tgt, n), b))
         return (
             torch.where(cu < n, cu, hook_u), torch.where(cv < n, cv, hook_v)
         )
 
     def round_body(carry):
-        D, Q, hooks, s = carry[:4]
+        D, Q, aux, s = carry[:4]
 
         # SV1a: short-cut.
         D1 = D[D]
         # SV1b: mark roots whose tree shrank (every lane writes s).
         Q = drop_scatter_fill(Q, torch.where(D1 != D, D1, n), s)
+        q_base = Q  # replicated: the shrink marks are rank-independent
 
         D2, Q = sv2_hook(D1, D, Q, s)
+        D2, aux = ml(D2, D1, aux, s)
+        Q, aux = mq(Q, q_base, aux, s)
         if record_hooks:
+            hooks, inner = aux
             Da, Db = D1[a], D1[b]
             cond2 = (Da == D[a]) & (Db < Da)
             hooks = record_phase(
                 hooks, cond2, torch.where(cond2, Da, n), Db, D1, D2
             )
+            aux = (hooks, inner)
 
         D3, fmask = sv3_hook(D2, Q, s)
+        D3, aux = ml(D3, D2, aux, s)
         if record_hooks:
+            hooks, inner = aux
             Da3, Db3 = D2[a], D2[b]
             cond3 = (Q[Da3] < s) & (D2[Da3] == Da3) & (Da3 != Db3)
             hooks = record_phase(
                 hooks, cond3, torch.where(cond3, Da3, n), Db3, D2, D3
             )
+            aux = (hooks, inner)
 
         # SV4: short-cut again.
         D4 = D3[D3]
         # SV5: parallel OR "did anything change this round?".
         changed = (Q == s).any()
         if with_frontier:
-            return D4, Q, hooks, s + 1, changed, fmask
-        return D4, Q, hooks, s + 1, changed
+            return D4, Q, aux, s + 1, changed, fmask
+        return D4, Q, aux, s + 1, changed
 
     return round_body
 
@@ -172,33 +222,47 @@ def sv_run(
     b: torch.Tensor,
     n: int,
     bound: int,
+    merge_labels=None,
+    merge_stamps=None,
     *,
     hook_impl: str = "auto",
+    aux0=None,
+    return_aux: bool = False,
     record_hooks: bool = False,
+    merge_hooks=None,
 ):
     """The SV0..SV5 round loop over edge arrays (a, b), on their device.
 
-    Returns ``(D, rounds, converged[, hooks])``. ``converged`` is True
-    iff the loop stopped because a round changed nothing, False iff it
-    stopped at ``bound`` with changes still flowing. The host reads the
-    round's "changed" flag once per round.
+    ``merge_labels`` / ``merge_stamps`` / ``merge_hooks`` and the merges'
+    starting ``aux0`` are as in ``sv_round_fns`` (identities on one
+    device). Returns ``(D, rounds, converged[, hooks][, aux])``.
+    ``converged`` is True iff the loop stopped because a round changed
+    nothing, False iff it stopped at ``bound`` with changes still
+    flowing. The host reads the round's "changed" flag once per round;
+    after the merges it is the same on every rank.
     """
     dev = a.device
     # SV0: D(0)[j] = j, Q[j] = 0
     D = torch.arange(n, dtype=torch.int32, device=dev)
     Q = torch.zeros(n, dtype=torch.int32, device=dev)
-    hooks = init_hooks(n, dev) if record_hooks else None
+    aux = aux0
+    if record_hooks:
+        aux = (init_hooks(n, dev), aux)
     round_body = sv_round_fns(
-        a, b, n, hook_impl=hook_impl, record_hooks=record_hooks
+        a, b, n, merge_labels, merge_stamps, hook_impl=hook_impl,
+        record_hooks=record_hooks, merge_hooks=merge_hooks,
     )
     s, changed = 1, True
     while changed and s <= bound:
-        D, Q, hooks, s, flag = round_body((D, Q, hooks, s, changed))
+        D, Q, aux, s, flag = round_body((D, Q, aux, s, changed))
         changed = bool(flag)
     D = sv_compress(D, n)
     out = (D, s - 1, not changed)
     if record_hooks:
+        hooks, aux = aux
         out = out + (hooks,)
+    if return_aux:
+        out = out + (aux,)
     return out
 
 

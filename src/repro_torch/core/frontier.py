@@ -79,27 +79,31 @@ class FrontierStats:
         publish_stats(self, prefix, registry)
 
 
-def _run_level(a, b, D, Q, s, hooks, *, n, bound, shrink_at, hook_impl,
-               record_hooks=False):
-    """Run SV rounds at one fixed buffer size until convergence, the
-    round bound, or (when ``shrink_at`` is set) the frontier mask drops
-    to half the buffer -- whichever comes first. The mask is the round
-    body's own SV3 compare, a superset of the truly-live edges, which
-    only delays a shrink, never breaks one. Returns ``(D, Q, hooks, s,
-    changed, fmask, rounds)``."""
-    body = sv_round_fns(a, b, n, hook_impl=hook_impl, with_frontier=True,
-                        record_hooks=record_hooks)
-    changed, live, rounds = True, a.shape[0], 0
-    fmask = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+def run_level(body, D, Q, aux, s, m_loc, *, bound, shrink_at,
+              reduce_flags=None):
+    """Run SV rounds of ``body`` (an ``sv_round_fns`` body built with
+    ``with_frontier=True`` over an ``m_loc``-edge buffer) until
+    convergence, the round bound, or (when ``shrink_at`` is set) the
+    frontier mask drops to half the buffer -- whichever comes first. The
+    mask is the round body's own SV3 compare, a superset of the
+    truly-live edges, which only delays a shrink, never breaks one.
+
+    After each round the host reads the changed flag and the live count
+    together, one read a round. ``reduce_flags`` (the sharded engine's
+    MAX all-reduce) makes the live count the largest over the ranks
+    first, so every rank takes the same branch. Returns ``(D, Q, aux, s,
+    changed, fmask, live, rounds)``."""
+    changed, live, rounds = True, m_loc, 0
+    fmask = torch.ones(m_loc, dtype=torch.bool, device=D.device)
     while changed and s <= bound and (shrink_at is None or live > shrink_at):
-        D, Q, hooks, s, flag, fmask = body((D, Q, hooks, s, changed, fmask))
+        D, Q, aux, s, flag, fmask = body((D, Q, aux, s, changed, fmask))
         rounds += 1
-        # The round's one device->host read: changed flag and live count.
-        changed, live = torch.stack(
-            [flag.to(torch.int64), fmask.sum()]
-        ).tolist()
+        flags = torch.stack([flag.to(torch.int64), fmask.sum()])
+        if reduce_flags is not None:
+            flags = reduce_flags(flags)
+        changed, live = flags.tolist()
         changed = bool(changed)
-    return D, Q, hooks, s, changed, fmask, rounds
+    return D, Q, aux, s, changed, fmask, live, rounds
 
 
 def _build_samples(a, b, perm, *, n, k):
@@ -120,7 +124,7 @@ def _build_samples(a, b, perm, *, n, k):
     return tbl.view(n, k)
 
 
-def _sample_round(neigh, D, Q, s, hooks, *, n, hook_impl,
+def _sample_round(neigh, D, Q, s, aux, *, n, hook_impl,
                   record_hooks=False):
     """One SV round hooking every node through one sampled neighbor;
     nodes without a sample become inert self-loops. Its hook phases go
@@ -129,8 +133,8 @@ def _sample_round(neigh, D, Q, s, hooks, *, n, hook_impl,
     sb = torch.where(neigh >= 0, neigh, sa)
     body = sv_round_fns(sa, sb, n, hook_impl=hook_impl,
                         record_hooks=record_hooks)
-    D, Q, hooks, s, _changed = body((D, Q, hooks, s, True))
-    return D, Q, hooks, s
+    D, Q, aux, s, _changed = body((D, Q, aux, s, True))
+    return D, Q, aux, s
 
 
 def _largest_component_frac(D, *, n) -> float:
@@ -175,7 +179,8 @@ def frontier_shiloach_vishkin(
     D = torch.arange(n, dtype=torch.int32, device=dev)
     Q = torch.zeros(n, dtype=torch.int32, device=dev)
     s = 1
-    hooks = init_hooks(n, dev) if record_hooks else None
+    # the round body's aux: the hook record, no exchange state
+    aux = (init_hooks(n, dev), None) if record_hooks else None
     stats = FrontierStats(rounds=0, edges_touched=0, m2=m2,
                           sample_rounds=sample_rounds)
 
@@ -186,8 +191,8 @@ def frontier_shiloach_vishkin(
             samples = _build_samples(a, b, perm, n=n, k=sample_rounds)
             stats.edges_touched += m2  # the sampling pass streams all edges once
             for t in range(sample_rounds):
-                D, Q, hooks, s = _sample_round(
-                    samples[:, t], D, Q, s, hooks, n=n, hook_impl=hook_impl,
+                D, Q, aux, s = _sample_round(
+                    samples[:, t], D, Q, s, aux, n=n, hook_impl=hook_impl,
                     record_hooks=record_hooks,
                 )
                 stats.edges_touched += 2 * n  # SV2 + SV3 over the n sampled edges
@@ -210,12 +215,15 @@ def frontier_shiloach_vishkin(
     with trace.span("cc.frontier", n=n, m2=m2) as run_sp:
 
         def sv_level(bucket, shrink_at):
-            nonlocal D, Q, hooks, s, fmask
+            nonlocal D, Q, aux, s, fmask
             with trace.span("cc.frontier.level", bucket=bucket) as sp:
-                D, Q, hooks, s, changed, fmask, level_rounds = _run_level(
-                    a, b, D, Q, s, hooks,
-                    n=n, bound=bound, shrink_at=shrink_at,
-                    hook_impl=hook_impl, record_hooks=record_hooks,
+                body = sv_round_fns(
+                    a, b, n, hook_impl=hook_impl, with_frontier=True,
+                    record_hooks=record_hooks,
+                )
+                D, Q, aux, s, changed, fmask, _, level_rounds = run_level(
+                    body, D, Q, aux, s, a.shape[0], bound=bound,
+                    shrink_at=shrink_at,
                 )
                 # SV2 + SV3 passes; SV3 exports the live mask.
                 stats.edges_touched += 2 * level_rounds * bucket
@@ -255,7 +263,7 @@ def frontier_shiloach_vishkin(
     stats.rounds = rounds_total
     out = (D, rounds_total)
     if record_hooks:
-        out = out + (hooks,)
+        out = out + (aux[0],)
     if with_stats:
         out = out + (stats,)
     return out

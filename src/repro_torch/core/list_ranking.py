@@ -137,14 +137,16 @@ def _splitter_list_rank(w_adj, spsucc, iters, impl):
     return r + w_adj[nxt]
 
 
-def _walk_fns(succ, is_stop, lanes, pack_mode):
+def _walk_fns(succ, is_stop, lanes, pack_mode, valid=None):
     """RS3 active/step functions. The store buffers have one extra row,
     index ``n``, where inactive lanes write (the drop lane); they are
-    updated in place, since the walk owns them."""
+    updated in place, since the walk owns them. ``valid`` masks padded
+    lanes inert (the sharded engine's)."""
     n = succ.shape[0]
 
     def active_fn(st):
-        return ~is_stop[st["nxt"]] & (st["nxt"] != st["cur"])
+        act = ~is_stop[st["nxt"]] & (st["nxt"] != st["cur"])
+        return act if valid is None else act & valid
 
     def step_fn(st, active):
         nxt, cur, dist = st["nxt"], st["cur"], st["dist"]
@@ -164,6 +166,14 @@ def _walk_fns(succ, is_stop, lanes, pack_mode):
         )
 
     return active_fn, step_fn
+
+
+def aos_walk_fns(succ, is_stop, lanes, valid=None):
+    """RS3's active/step functions over the AoS ``[local, owner]`` store
+    (``n + 1`` rows, the last the drop row). Shared by the single-device
+    core and the sharded engine, which passes offset global lane ids and
+    a ``valid`` mask for padded lanes, so the two walk the same way."""
+    return _walk_fns(succ, is_stop, lanes, "aos", valid)
 
 
 def _random_splitter_core(succ, splitters, *, pack_mode="aos",

@@ -36,13 +36,15 @@ reference engine's result (``tests/test_torch_serve_graph.py``).
 Per-request ``rounds`` does NOT decompose -- the union runs to its
 slowest member -- so it is reported per wave.
 
-**Engines.** The port runs on one device, so ``engine="auto"``
-resolves to ``"dense"``, as the reference's does on one device: the
-auto dispatch's Afforest policy keys on edge density, which packing
-changes. A pinned ``"frontier"`` is honoured (bit-exact). ``mesh=``,
-``engine="sharded_frontier"`` and the sharded keywords raise
-``NotImplementedError`` until ROADMAP queue 1 item 11 ports the
-sharded engines.
+**Engines.** On one rank with no mesh, ``engine="auto"`` resolves to
+``"dense"``, as the reference's does on one device: the auto dispatch's
+Afforest policy keys on edge density, which packing changes. A pinned
+``"frontier"`` is honoured (bit-exact). ``mesh=``,
+``engine="sharded_frontier"`` and the sharded keywords dispatch as in
+``repro_torch.core`` (the sharded engines of
+``repro_torch.distributed.graph``, bit-exact too); sssp and pagerank
+waves run single-device engines and reject them at ``submit``, as the
+reference does.
 
 **Device.** ``device=`` (the CUDA card by default; ``"cpu"`` only when
 the caller asks) is resolved once, by ``repro_torch.device.
@@ -207,8 +209,9 @@ class GraphServeEngine(WaveScheduler):
       that ``engine="auto"`` resolves to ``"dense"`` and the sampling
       pre-pass (``sample_rounds``) is rejected: it re-roots components
       by edge density, which packing changes. ``mesh=``,
-      ``engine="sharded_frontier"`` and the sharded keywords raise
-      ``NotImplementedError`` (ROADMAP queue 1, item 11).
+      ``engine="sharded_frontier"`` and the sharded keywords reach the
+      sharded engines; sssp and pagerank requests reject them at
+      ``submit``.
     * ``device=`` -- where waves run: the CUDA card by default, the CPU
       only when asked (``"cpu"``). Raises without a card.
     * ``max_retries=`` / ``on_failure=`` (``"quarantine"`` default,
@@ -249,11 +252,6 @@ class GraphServeEngine(WaveScheduler):
         check_choice("engine", engine, core._CC_ENGINES)
         check_choice("rank_engine", rank_engine, RANK_ENGINES)
         check_choice("kernel_impl", kernel_impl, KERNEL_IMPLS)
-        if (
-            mesh is not None or engine == "sharded_frontier"
-            or core._SHARDED_KW & engine_kwargs.keys()
-        ):
-            raise NotImplementedError(core._SHARDED_TODO)
         bad = {
             "sample_rounds", "seed", "dedup", "record_hooks", "with_stats",
         } & set(engine_kwargs)
@@ -288,10 +286,13 @@ class GraphServeEngine(WaveScheduler):
         # budget after OOM-shaped failures; see _degrade.
         self._node_budget = max_nodes
         self._edge_budget = max_edges
-        self.engine = "dense" if engine == "auto" else engine
+        if engine == "auto" and mesh is None and not core._multi_rank():
+            engine = "dense"
+        self.engine = engine
         self.rank_engine = rank_engine
         self.kernel_impl = kernel_impl
         self.num_splitters = num_splitters
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.engine_kwargs = dict(engine_kwargs)
         self.wave_records: list[WaveRecord] = []
@@ -385,6 +386,11 @@ class GraphServeEngine(WaveScheduler):
 
     def _validate_sssp(self, req: GraphRequest) -> None:
         """Normalize + validate the sssp-only request fields, loudly."""
+        if self.mesh is not None or self.engine == "sharded_frontier":
+            raise ValueError(
+                f"request {req.uid}: sssp waves run the single-device "
+                "relax engines; drop mesh= / engine='sharded_frontier'"
+            )
         extra = set(self.engine_kwargs) - {"min_bucket"}
         if extra:
             raise ValueError(
@@ -409,6 +415,12 @@ class GraphServeEngine(WaveScheduler):
 
     def _validate_pagerank(self, req: GraphRequest) -> None:
         """Normalize + validate the pagerank-only request fields."""
+        if self.mesh is not None or self.engine == "sharded_frontier":
+            raise ValueError(
+                f"request {req.uid}: pagerank waves run the single-"
+                "device dense engine; drop mesh= / "
+                "engine='sharded_frontier'"
+            )
         if self.engine_kwargs:
             raise ValueError(
                 f"request {req.uid}: {sorted(self.engine_kwargs)} are "
@@ -537,7 +549,10 @@ class GraphServeEngine(WaveScheduler):
         bucket = (stage, node_cap, edge_cap)
         new_bucket = bucket not in self._buckets
 
-        kw = dict(self.engine_kwargs, engine=self.engine, dedup=False)
+        kw = dict(
+            self.engine_kwargs, engine=self.engine, mesh=self.mesh,
+            dedup=False,
+        )
         if self.fault_plan is not None and self.fault_plan.wants_nonconverge(
             wave
         ):

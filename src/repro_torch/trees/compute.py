@@ -100,23 +100,38 @@ def tour_ranks(
     """Rank the tour's arcs: rank[j] = arcs from j to its tour's end.
 
     ``rank_engine="wylie"`` runs pointer jumping, ``"splitter"`` the
-    random-splitter engine over ``tour_splitters`` (``kernel_impl``
-    routes its RS4/RS5 phases: ``"auto"`` the CUDA kernels for tensors
-    on the card, their plain versions on the CPU). ``"auto"`` picks
-    wylie: this port runs on one device. Ranks are exact integers, the
-    same on every route. ``mesh=`` raises ``NotImplementedError``. Every
-    dispatch string is validated, including knobs the chosen branch
-    ignores."""
-    from repro_torch.core import _SHARDED_TODO
+    random-splitter engine over ``tour_splitters``: single-device, or the
+    sharded engine when a mesh is given or the process group has several
+    ranks -- ``repro_torch.core.list_rank``'s convention, including
+    ``kernel_impl`` routing RS4/RS5 (``"auto"``: the CUDA kernels for
+    tensors on the card, their plain versions on the CPU). ``"auto"``
+    picks wylie on one rank and the sharded splitter engine otherwise;
+    wylie is single-device, so it rejects ``mesh=``. Ranks are exact
+    integers, the same on every route. Every dispatch string is
+    validated, including knobs the chosen branch ignores."""
+    from repro_torch.core import _multi_rank
 
     check_choice("rank_engine", rank_engine, RANK_ENGINES)
     check_choice("kernel_impl", kernel_impl, KERNEL_IMPLS)
     check_choice("pack_mode", pack_mode, WYLIE_PACK_MODES)
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED_TODO)
-    if rank_engine in ("auto", "wylie"):
+    multi = mesh is not None or _multi_rank()
+    if rank_engine == "auto":
+        rank_engine = "splitter" if multi else "wylie"
+    if rank_engine == "wylie":
+        if mesh is not None:
+            raise ValueError(
+                "wylie_rank is single-device; drop mesh= or use "
+                "rank_engine='splitter'"
+            )
         return wylie_rank(tour.succ, pack_mode=pack_mode)
     splitters = tour_splitters(tour, num_splitters=num_splitters, seed=seed)
+    if multi:
+        from repro_torch.distributed.graph import sharded_random_splitter_rank
+
+        return sharded_random_splitter_rank(
+            tour.succ, splitters=splitters, mesh=mesh,
+            kernel_impl=kernel_impl, device=tour.succ.device,
+        )
     return random_splitter_rank(
         tour.succ, splitters=splitters, kernel_impl=kernel_impl
     )
@@ -209,7 +224,7 @@ def tree_computations(
 
     ``ranks`` reuses an existing ``tour_ranks`` result; otherwise one is
     computed with ``rank_kwargs`` (``rank_engine=``, ``kernel_impl=``,
-    ...).
+    ``mesh=``, ...).
     """
     n = tour.num_nodes
     if tour.capacity == 0 or tour.num_arcs == 0:
@@ -303,12 +318,14 @@ def tree_analytics(
     """One-shot pipeline on an arbitrary graph: CC + spanning forest,
     Euler tour, and the batched tree computations. Keywords:
 
-    * ``engine=`` -- ``"auto"`` (default), ``"frontier"``, ``"dense"``:
+    * ``engine=`` -- ``"auto"`` (default), ``"frontier"``, ``"dense"``,
+      ``"sharded_frontier"``:
       the CC engine extracting the forest (as in
       ``connected_components``, whose ``edge_hook`` kernel it runs);
       ``**cc_kwargs`` forward to it.
-    * ``rank_engine=`` -- ``"auto"`` (default, wylie on one device),
-      ``"wylie"``, ``"splitter"``: the list-ranking engine over the tour.
+    * ``rank_engine=`` -- ``"auto"`` (default: wylie on one rank, the
+      sharded splitter engine with a mesh or several ranks), ``"wylie"``,
+      ``"splitter"``: the list-ranking engine over the tour.
     * ``kernel_impl=`` -- ``"auto"`` (default), ``"torch"``, ``"cuda"``:
       the splitter engine's RS4/RS5 kernels (ignored by wylie, validated
       regardless).
@@ -321,8 +338,9 @@ def tree_analytics(
       capacity of ``2 * pad_edges_to`` unless ``pad_to`` raises it.
     * ``device=`` -- where host inputs go (the CUDA card by default);
       tensors stay on their device, and so does everything after them.
-    * ``mesh=`` raises ``NotImplementedError`` (the sharded engines are
-      not ported).
+    * ``mesh=`` -- threads to BOTH the CC engine and the ranking engine
+      (the all-sharded path end to end; ``rank_engine="auto"`` then
+      picks the sharded splitter engine).
 
     All quantities are exact int32: results are bit-identical across
     every engine combination.
@@ -350,6 +368,6 @@ def tree_analytics(
     )
     comp = tree_computations(
         tour, rank_engine=rank_engine, kernel_impl=kernel_impl,
-        num_splitters=num_splitters, seed=seed,
+        num_splitters=num_splitters, seed=seed, mesh=mesh,
     )
     return TreeAnalytics(forest=forest, tour=tour, computations=comp)

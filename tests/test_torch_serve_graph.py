@@ -652,14 +652,36 @@ def test_knobs_the_weighted_kinds_cannot_take():
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(mesh=object()), dict(engine="sharded_frontier"), dict(exchange="sparse"),
-    dict(sparse_capacity=64), dict(axis="x"),
+    dict(mesh="graph_mesh(1)"), dict(engine="sharded_frontier"),
+    dict(exchange="sparse"), dict(sparse_capacity=64), dict(axis="x"),
 ])
 def test_sharded_options_raise_naming_item_11(knobs):
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        GraphServeEngine(device=CPU, **knobs)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        serve_graphs([], device=CPU, **knobs)
+    """Each sharded option reaches the sharded engines, as in the
+    reference: cc, forest and analytics waves give the reference's
+    results and wave records (a one-rank gloo mesh against the
+    reference's one-device mesh), and sssp and pagerank requests are
+    rejected at ``submit`` by both engines."""
+    from repro.distributed.graph import graph_mesh as ref_mesh
+    from repro_torch.distributed import graph_mesh
+
+    port_kw, ref_kw = dict(knobs), dict(knobs)
+    if "mesh" in knobs:
+        port_kw["mesh"], ref_kw["mesh"] = graph_mesh(1, device=CPU), ref_mesh(1)
+    stream = _mixed_stream(graph_request_stream)
+    ref_eng, ref_done = _ref(stream, **ref_kw)
+    eng, done = _port(stream, **port_kw)
+    assert eng.engine == ref_eng.engine
+    _assert_same_results(ref_done, done)
+    _assert_same_engine(ref_eng, eng)
+    assert serve_graphs([], device=CPU, **port_kw) == []
+    z = np.zeros(0, np.int32)
+    for kind in ("sssp", "pagerank"):
+        with pytest.raises(ValueError, match="drop mesh=|not .* engine knobs"):
+            RefEngine(**ref_kw).submit(
+                RefRequest(uid=0, src=z, dst=z, num_nodes=3, kind=kind))
+        with pytest.raises(ValueError, match="drop mesh=|not .* engine knobs"):
+            GraphServeEngine(device=CPU, **port_kw).submit(
+                GraphRequest(uid=0, src=z, dst=z, num_nodes=3, kind=kind))
 
 
 def test_the_card_is_the_default_and_never_falls_back(monkeypatch):

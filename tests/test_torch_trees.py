@@ -258,12 +258,23 @@ def test_dispatch_validation_and_no_launch_on_the_cpu():
         tt.tree_computations(tour, kernel_impl="pallas")
     with pytest.raises(ValueError, match="pack_mode"):
         tt.tour_ranks(tour, pack_mode="word64")
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        tt.tour_ranks(tour, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        tcore.tree_analytics(e[:, 0], e[:, 1], n, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        tcore.serve_graphs([], mesh=object())
+    # mesh= reaches the sharded engines, as in the reference: a one-rank
+    # gloo mesh against the reference's one-device mesh.
+    from repro.distributed.graph import graph_mesh as ref_mesh
+    from repro_torch.distributed import graph_mesh
+
+    mesh, rmesh = graph_mesh(1, device="cpu"), ref_mesh(1)
+    rtour = rt.euler_tour(e[:, 0], e[:, 1], n)
+    _eq(rt.tour_ranks(rtour, mesh=rmesh, num_splitters=8),
+        tt.tour_ranks(tour, mesh=mesh, num_splitters=8))
+    with pytest.raises(ValueError, match="wylie_rank is single-device"):
+        tt.tour_ranks(tour, mesh=mesh, rank_engine="wylie")
+    want = rt.tree_analytics(e[:, 0], e[:, 1], n, mesh=rmesh)
+    got = tcore.tree_analytics(e[:, 0], e[:, 1], n, mesh=mesh, device="cpu")
+    for k in ("parent", "depth", "subtree_size"):
+        _eq(getattr(want, k), getattr(got, k))
+    _eq(want.computations.ranks, got.computations.ranks)
+    assert tcore.serve_graphs([], mesh=mesh, device="cpu") == []
     with pytest.raises(ValueError, match="pad_to"):
         tt.euler_tour(e[:, 0], e[:, 1], n, pad_to=2, device="cpu")
     with pytest.raises(ValueError, match="num_edges"):
