@@ -13,7 +13,11 @@ of which raises on failure:
    attention kernel's D = 128 instance must not spill. Then the
    ogb_products graph of the GNN phase,
    ``full_graph(2_449_029, 61_859_140, 100, 47, seed=0)``, built on the
-   host (its seconds printed): its destinations are phase 2's ids.
+   host (its seconds printed): its destinations are phase 2's ids; the
+   minibatch_lg block batch, ``sampled_minibatch(232_965, 114_615_892,
+   602, batch_nodes=1024, fanouts=[15, 10])`` (its 229M-entry CSR sorted
+   on the card, the same arrays as numpy's; seconds printed), and
+   ``molecule_batch(128)`` and ``molecule_batch(4096)``.
 2. Each graph kernel against its plain PyTorch version on the card, at
    the shapes of the main path, bit for bit: ``edge_hook``'s sv2 and sv3
    at the giant+dust graph's round-1 and round-4 states, the random
@@ -30,7 +34,12 @@ of which raises on failure:
    wider than the kernel's 128-column block, which it copies row by row:
    the molecule cell's graph readout, (nodes, 320) over its graph ids,
    and 129 and 1,433 (Cora's features) columns on a 2^18-row hub, each
-   in float32 and bf16 and each also two calls bit-equal. float32
+   in float32 and bf16 and each also two calls bit-equal; and phase 15's
+   shapes in float32, each also two calls bit-equal: on
+   molecule_batch(4096)'s ids EGNN's (m, 1), (m, 3) and (m, 64), PNA's
+   (m, 16) and (m, 32), MACE's (m, 128, 1), (m, 128, 3) and (m, 128, 5),
+   the readouts (nodes, 1) and (nodes,) over its graph ids, and on
+   minibatch_lg's ids SAGE's (m, 602) and (m, 64). float32
    within rtol 2e-5, bf16 within 2e-2, each with an atol of 2e-5 times
    the output's rms times sqrt(max degree): the two sum in different
    orders (the plain version with atomics). Two calls bit-equal at the
@@ -109,7 +118,10 @@ of which raises on failure:
    and (l) MQA (Hkv=1) at D=128; (n) a window of 2**40, past a C int;
    (m) the transposed (B, S, H, D) views that attention.py passes, whose
    output must keep q's strides and equal the call on contiguous copies
-   bit for bit; two calls at shape (a) bit-equal;
+   bit for bit; a ``q`` that requires grad refused with an error naming
+   ROADMAP queue 1, item 16 before any launch (the kernel has no
+   backward), and the same call under ``torch.no_grad()`` against the
+   plain version; two calls at shape (a) bit-equal;
    every other head_dim instance in both types; rows with no live key
    (Sq > Sk + window); and, at S=32768 (the ``prefill_32k`` length, where
    the plain version's scores would take 137 GB), the first and last
@@ -219,8 +231,35 @@ of which raises on failure:
    ``pointer_jump`` and one ``splitter_aggregate`` launch; and
    ``tree_analytics(..., mesh=mesh)`` on phase 12's molecule-batch
    forest, equal to the single-device splitter run. The process group
-   is destroyed on the way out. The script's total seconds are printed
-   at the end.
+   is destroyed on the way out.
+15. The rest of GNN and RecSys inference at full width, float32.
+   ``segment_sum`` at phase 2's new shapes: device ms, plain ms,
+   ``segment_reduce`` ms and the byte bound. Then each cell, a warm-up
+   and three timed forwards (median ms; edges/s = layers * m / t, or
+   rows/s), ``segment_sum`` launches counted from 0 in the first, peak
+   memory, and the first call's output against the same forward with
+   every segment sum an ``index_add_`` (which launches no kernel):
+   GCN and GraphSAGE (2 layers, 64 wide) on the ogb_products graph and
+   SAGE on minibatch_lg, logits within rtol 2e-3 and argmaxes as phase
+   11; PNA (2 layers, 32 wide) on both molecule batches, logits within
+   rtol 2e-3;
+   EGNN (4 x 64) and MACE (2 layers, 128 channels, l_max 2, correlation
+   3, 64 species) on both, readout, positions and energies within rtol
+   2e-3; on molecule_batch(4096) a fixed rotation of the positions leaves
+   EGNN's readout and MACE's energies within 1e-3 of their largest and
+   rotates EGNN's positions (MACE on the graph without its self-loops,
+   whose Y_l of a zero vector does not turn; the whole graph's change is
+   printed). EGNN's coordinate MLP's last layer is scaled by 1e-3 after
+   ``init_params``, as the EGNN authors initialise it. The ogb and
+   molecule(4096) cells are profiled as phase 11's. xDeepFM at full
+   width (39 fields x 10^6 rows, embed 10, CIN 200-200-200, MLP
+   400-400): ``serve_step`` on 512 and 262,144 rows of ``recsys_batch``
+   (the chunked CIN's logits against the one-shot einsum at 512 rows;
+   the bulk batch's first 512 scores against the 512-row call), and
+   ``serve_retrieval`` of one row over 10^6 candidates, top 100, against
+   float64 scores; then ``embedding_bag`` sum and mean over its table
+   (one launch each) against ``F.embedding_bag``, and both timed. The
+   script's total seconds are printed at the end.
 
 Every profile prints the host's launch calls beside the device records
 it kept, and is used only if it kept one for each (``device_share``).
@@ -233,6 +272,7 @@ result. It imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -323,6 +363,20 @@ SERVE_GRAPH_BUDGETS = (
     ("default", {}),  # 16 requests, 4,096 nodes, 16,384 edges a wave
     ("wide", {"max_requests": 1024, "max_nodes": 32768, "max_edges": 65536}),
 )
+
+# Phase 15's sizes: the rest of GNN and RecSys inference at full width.
+# molecule_batch(MOLECULE_BIG) has n = 122,880 nodes and m = 262,144 edges.
+MOLECULE_BIG = 4096
+MINIBATCH_LG = dict(n_nodes=232_965, n_edges=114_615_892, d_feat=602,
+                    batch_nodes=1024, fanouts=[15, 10], num_classes=41)
+XDEEPFM_SERVE = (("serve_p99", 512), ("serve_bulk", 262_144))
+RETRIEVAL_TOP_K = 100
+ROTATION_RTOL = 1e-3  # energies, readouts and positions under a fixed rotation
+# EGNN's coordinate MLP's last layer is scaled by this after init_params, as
+# the EGNN authors initialise it (xavier, gain 0.001): at the reference's He
+# scale the full-width model's coordinates overflow float32 by layer 4 on
+# molecule_batch's positions (a 10 A box).
+EGNN_COORD_GAIN = 1e-3
 
 # Phase 14's sizes: the sharded engine at phases 3-4's sizes, and the
 # multidev_scaling rows of BENCH_smoke.json at their smoke size.
@@ -1170,6 +1224,7 @@ def phase_attention(dev, layer0_qkv):
     Returns the largest max_abs_err and the inputs of shape (a)."""
     import torch
 
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -1237,6 +1292,24 @@ def phase_attention(dev, layer0_qkv):
     for dtype in (bf, f32):
         errs.append(run(f"rows without a live key {dtype} Sq=300 Sk=100 window=64",
                         *qkv(1, 4, 2, 300, 100, 64, dtype), window=64))
+    # No backward yet: an input that requires grad, with grad mode on,
+    # raises before any launch; under no_grad the same call runs.
+    q, k, v = (x.clone() for x in qkv(1, 4, 2, 64, 64, 128, bf))
+    q.requires_grad_()
+    before = launch_counts["flash_attention"]
+    try:
+        flash_attention(q, k, v, impl="cuda")
+    except RuntimeError as err:
+        check("ROADMAP queue 1, item 16" in str(err),
+              f"the no-backward error names item 16: {err}")
+        print(f"flash_attention: requires_grad input refused before launch: {err}")
+    else:
+        check(False, "flash_attention on a requires_grad input raises")
+    check(launch_counts["flash_attention"] == before,
+          "the refused call launched nothing")
+    with torch.no_grad():
+        errs.append(run("requires_grad q under torch.no_grad()", q, k, v))
+    del q, k, v
     # Determinism: no atomics, so two calls give the same bits.
     first = flash_attention(*shape_a, impl="cuda")
     check(torch.equal(first, flash_attention(*shape_a, impl="cuda")),
@@ -1492,12 +1565,7 @@ def max_degree(ids, n: int) -> int:
 
 def segsum_check(name, data, ids, n) -> float:
     """The kernel against its plain version on one input; returns the
-    largest |err|. Checked everywhere against ``|got - want| <= atol +
-    rtol * |want|``: rtol is the dtype's, atol ``SEGSUM_ATOL`` times the
-    output's rms times sqrt(max degree), since a sum of k rows in
-    another order differs by about sqrt(k) roundings of its size."""
-    import torch
-
+    largest |err| (``segsum_within``)."""
     from repro_torch.kernels.segment_sum import segment_sum_sorted
 
     got = segment_sum_sorted(data, ids, n, impl="cuda")
@@ -1505,19 +1573,30 @@ def segsum_check(name, data, ids, n) -> float:
     check(got.shape == want.shape and got.dtype == want.dtype == data.dtype,
           f"segment_sum {name}: {tuple(got.shape)} {got.dtype} vs "
           f"{tuple(want.shape)} {want.dtype}")
-    g, w = got.float(), want.float()
-    check(bool(torch.isfinite(g).all()), f"segment_sum {name}: finite output")
-    rtol = SEGSUM_RTOL[str(data.dtype)]
     deg = max_degree(ids, n)
+    return segsum_within(
+        f"segment_sum {name}: m={ids.shape[0]} n={n} feat={tuple(data.shape[1:])} "
+        f"{data.dtype} max_degree={deg}", got, want, deg)
+
+
+def segsum_within(label, got, want, deg: int) -> float:
+    """``|got - want| <= atol + rtol * |want|`` everywhere, ``got``
+    finite; returns the largest |err|. rtol is the dtype's, atol
+    ``SEGSUM_ATOL`` times the output's rms times sqrt(max degree), since
+    a sum of k rows in another order differs by about sqrt(k) roundings
+    of its size."""
+    import torch
+
+    g, w = got.float(), want.float()
+    check(g.shape == w.shape, f"{label}: shapes {tuple(g.shape)} vs {tuple(w.shape)}")
+    check(bool(torch.isfinite(g).all()), f"{label}: finite output")
+    rtol = SEGSUM_RTOL[str(want.dtype)]
     atol = SEGSUM_ATOL * float(w.square().mean().sqrt()) * max(deg, 1) ** 0.5
     diff = (g - w).abs()
     over = int((diff > atol + rtol * w.abs()).sum())
     err = float(diff.max()) if diff.numel() else 0.0
-    print(f"segment_sum {name}: m={ids.shape[0]} n={n} feat={tuple(data.shape[1:])} "
-          f"{data.dtype} max_degree={deg} max_abs_err={err} rtol={rtol} "
-          f"atol={atol} over_tol={over}")
-    check(over == 0, f"segment_sum {name}: kernel within tolerance of its "
-          "plain version")
+    print(f"{label} max_abs_err={err} rtol={rtol} atol={atol} over_tol={over}")
+    check(over == 0, f"{label}: within tolerance")
     return err
 
 
@@ -1678,7 +1757,6 @@ def segment_sum_times(dev, dst: np.ndarray):
     import torch
 
     from repro_torch.kernels.segment_sum import segment_sum_sorted
-    from repro_torch.kernels.segment_sum.ref import segment_sum_sorted_ref
 
     gen = torch.Generator(dev).manual_seed(4)
     ogb_ids = torch.from_numpy(dst).to(dev)
@@ -1699,37 +1777,14 @@ def segment_sum_times(dev, dst: np.ndarray):
     for name, ids, n, feat in cases:
         data = (hub_data if ids is hub_ids
                 else torch.randn((ids.shape[0], *feat), device=dev, generator=gen))
-        m, d = ids.shape[0], math.prod(feat)
-        flat = data.view(m, d)
-        lengths = torch.bincount(ids.long(), minlength=n)
-        long_ids = ids.long()
-
-        def kernel():
-            return segment_sum_sorted(data, ids, n, impl="cuda")
-
-        def plain():
-            return segment_sum_sorted_ref(data, ids, n)
-
-        ms = graph_ms(kernel, calls=10, replays=3)
-        eager_ms = cuda_ms(kernel, iters=10, warmup=2)
-        plain_ms = graph_ms(plain, calls=3, replays=3)
-        lib_ms = cuda_ms(lambda: torch.segment_reduce(flat, "sum", lengths=lengths),
-                         iters=5, warmup=1)
-        add_ms = cuda_ms(lambda: torch.zeros(n, d, device=dev).index_add_(
-            0, long_ids, flat), iters=5, warmup=1)
-        lib_err = float((torch.segment_reduce(flat, "sum", lengths=lengths)
-                         - kernel().view(n, d)).abs().max())
-        s = data.element_size()
-        nbytes = m * d * s + 4 * m + n * d * s + 4 * (n + 1)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"time segment_sum {name}: ms={ms} eager_ms={eager_ms} "
-              f"plain_ms={plain_ms} segment_reduce_ms={lib_ms} "
-              f"index_add_ms={add_ms} bound_ms={bound_ms} bytes={nbytes} "
-              f"share_of_bound={bound_ms / ms} "
-              f"gb_per_s={nbytes / ms / 1e6} "
-              f"segment_reduce_max_abs_diff={lib_err} [{card_line()}]")
+        times = time_segsum(dev, name, data, ids, n)
         if first is None:
-            first = (ms, plain_ms, eager_ms, lib_ms, bound_ms)
+            first = times
+            ms = times[0]
+
+            def kernel():
+                return segment_sum_sorted(data, ids, n, impl="cuda")
+
             search_ms = graph_ms(lambda: torch.searchsorted(
                 ids, torch.arange(n + 1, dtype=torch.int32, device=dev), out_int32=True),
                 calls=10, replays=3)
@@ -1738,10 +1793,52 @@ def segment_sum_times(dev, dst: np.ndarray):
                   f"{[(k, round(v, 4)) for k, v in passes]} busy_ms={busy_ms}; "
                   f"torch.searchsorted for the row pointers (which the tile pass "
                   f"writes) ms={search_ms} share_of_call={search_ms / ms}")
-        del data, flat, lengths, long_ids
+        del data
     del ogb_ids, pl_ids, hub_ids, hub_data
     torch.cuda.empty_cache()
     return first
+
+
+def time_segsum(dev, name, data, ids, n):
+    """``segment_sum``'s times on one input: device ms (CUDA-graph
+    replays), ms per Python call, plain ms, ``torch.segment_reduce`` and
+    ``index_add_`` ms, and the byte bound at 3.35 TB/s; printed, and
+    returned as ``(ms, plain_ms, eager_ms, segment_reduce_ms, bound_ms)``."""
+    import torch
+
+    from repro_torch.kernels.segment_sum import segment_sum_sorted
+    from repro_torch.kernels.segment_sum.ref import segment_sum_sorted_ref
+
+    m, d = ids.shape[0], math.prod(data.shape[1:])
+    flat = data.view(m, d)
+    lengths = torch.bincount(ids.long(), minlength=n)
+    long_ids = ids.long()
+
+    def kernel():
+        return segment_sum_sorted(data, ids, n, impl="cuda")
+
+    def plain():
+        return segment_sum_sorted_ref(data, ids, n)
+
+    ms = graph_ms(kernel, calls=10, replays=3)
+    eager_ms = cuda_ms(kernel, iters=10, warmup=2)
+    plain_ms = graph_ms(plain, calls=3, replays=3)
+    lib_ms = cuda_ms(lambda: torch.segment_reduce(flat, "sum", lengths=lengths),
+                     iters=5, warmup=1)
+    add_ms = cuda_ms(lambda: torch.zeros(n, d, device=dev).index_add_(
+        0, long_ids, flat), iters=5, warmup=1)
+    lib_err = float((torch.segment_reduce(flat, "sum", lengths=lengths)
+                     - kernel().view(n, d)).abs().max())
+    s = data.element_size()
+    nbytes = m * d * s + 4 * m + n * d * s + 4 * (n + 1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"time segment_sum {name}: ms={ms} eager_ms={eager_ms} "
+          f"plain_ms={plain_ms} segment_reduce_ms={lib_ms} "
+          f"index_add_ms={add_ms} bound_ms={bound_ms} bytes={nbytes} "
+          f"share_of_bound={bound_ms / ms} "
+          f"gb_per_s={nbytes / ms / 1e6} "
+          f"segment_reduce_max_abs_diff={lib_err} [{card_line()}]")
+    return ms, plain_ms, eager_ms, lib_ms, bound_ms
 
 
 def gnn_by_index_add(name, params, cfg, graph):
@@ -2845,24 +2942,12 @@ def phase_serve_graphs(dev, card: str) -> dict:
     return {"launches": totals, "rows": rows, "secs": secs}
 
 
-def random_succ(n: int, seed: int = 0) -> np.ndarray:
-    """Random linked-list succ[] with head 0 and a self-loop terminal:
-    the list input of ``benchmarks/multidev_scaling.py`` (a copy of
-    ``repro.data.graphs.random_succ``, plain numpy)."""
-    r = np.random.default_rng(seed)
-    order = (np.concatenate([[0], 1 + r.permutation(n - 1)]) if n > 1
-             else np.zeros(1, np.int64))
-    succ = np.empty(n, dtype=np.int32)
-    succ[order[:-1]] = order[1:]
-    succ[order[-1]] = order[-1]
-    return succ
-
-
 def multidev_dev1_rows(mesh) -> dict:
     """``benchmarks/multidev_scaling.py``'s derived strings for one
     device at the smoke size (n = 100), through the sharded engines on
     ``mesh``: ``{row name: derived}``."""
     from repro_torch.core.list_ranking import select_splitters
+    from repro_torch.data.graphs import random_succ
     from repro_torch.distributed import (
         cc_exchange_words_per_round,
         rank_exchange_words,
@@ -3086,6 +3171,437 @@ def phase_sharded(dev, card: str, list_single_s: float) -> dict:
             "secs": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the rest of GNN and RecSys inference at full width.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def index_add_sums():
+    """Every float segment sum of ``ops/segment.py`` through a plain
+    ``index_add_`` (float32 accumulation) in place of the kernel, for the
+    independent forward a cell is held to."""
+    import torch
+
+    from repro_torch.ops import segment
+
+    def by_index_add(data, ids, n, **_):
+        keep = torch.where((ids >= 0) & (ids < n), ids.long(), n)
+        out = torch.zeros((n + 1, *data.shape[1:]), dtype=torch.float32,
+                          device=data.device)
+        return out.index_add_(0, keep, data.float())[:n].to(data.dtype)
+
+    real = segment.segment_sum_sorted
+    segment.segment_sum_sorted = by_index_add
+    try:
+        yield
+    finally:
+        segment.segment_sum_sorted = real
+
+
+def check_close(name, got, want, rtol: float = GNN_TOL):
+    """``got`` within ``rtol`` of ``want`` elementwise, with an atol of
+    ``rtol`` times the smaller of 1 and ``want``'s rms; both finite."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+          f"{name}: finite values")
+    diff = (got.double() - want.double()).abs()
+    atol = rtol * min(1.0, float(want.double().square().mean().sqrt()))
+    over = int((diff > atol + rtol * want.double().abs()).sum())
+    scale = float(want.abs().max())
+    print(f"{name}: max_abs_diff={float(diff.max())} max_abs={scale} "
+          f"normwise_rel={float(diff.max()) / max(scale, 1e-30)} "
+          f"rms={float(want.double().square().mean().sqrt())} rtol={rtol} atol={atol} "
+          f"over_tol={over} of {want.numel()}")
+    check(over == 0, f"{name}: within rtol {rtol}, atol {atol}")
+
+
+def slice11_cell(label, fwd, graph_m, layers, want_launches, check_fn, profile,
+                 rows=None):
+    """One phase-15 cell: ``fwd()`` warmed up, then three timed calls
+    (median; launches counted from 0 in the first), peak memory, the
+    first call's output held by ``check_fn(label, got, want)`` to the
+    same forward with ``index_add_`` sums, and where ``profile`` the idle
+    share and top device kernels of one profiled call. The rate is
+    ``layers * graph_m`` edges/s, or ``rows``/s where given."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    with torch.inference_mode():
+        fwd()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        got, first = wall_s(fwd)
+        launches = launch_counts["segment_sum"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(launches == want_launches,
+              f"{label}: segment_sum launched {launches} times in one forward, "
+              f"want {want_launches}")
+        secs = [first] + [wall_s(fwd)[1] for _ in range(E2E_SAMPLES - 1)]
+        with index_add_sums():
+            want = fwd()
+        check(launch_counts["segment_sum"] == launches * E2E_SAMPLES,
+              f"{label}: the index_add_ forward launched no kernel")
+        pairs = (zip(got, want) if isinstance(got, tuple) else [(got, want)])
+        for i, (g, w) in enumerate(pairs):
+            check_fn(f"{label} output {i} vs index_add_ forward", g, w)
+        del got, want
+        idle = None
+        if profile:
+            wall_ms, device_ms, events, ranked, idle = device_share(fwd, top=8)
+            print(f"slice11 {label} profiled: wall_ms={wall_ms} device_busy_ms={device_ms} "
+                  f"device_events={events} device_idle_share={idle}")
+            for kname, ms in ranked:
+                print(f"slice11 {label} device time by kernel: {ms:.3f} ms {kname[:110]}")
+    med = median(secs)
+    rate, unit = ((rows / med, "rows_per_s") if rows is not None
+                  else (layers * graph_m / med, "edges_per_s"))
+    print(f"slice11 {label}: wall_ms={med * 1e3} samples_ms={[x * 1e3 for x in secs]} "
+          f"{unit}={rate} segment_sum_launches={launches} peak_memory_gb={peak_gb} "
+          f"[{card_line()}]")
+    return {"label": label, "secs": med, "rate": rate, "unit": unit, "peak_gb": peak_gb,
+            "idle": idle, "launches": launches}
+
+
+def slice11_graph(g: dict, dev, keys=("node_feats", "src", "dst", "graph_ids")) -> dict:
+    import torch
+
+    out = {k: torch.from_numpy(np.ascontiguousarray(g[k])).to(dev) for k in keys}
+    out["num_graphs"] = int(g["num_graphs"])
+    return out
+
+
+def fixed_rotation(dev):
+    """A fixed proper rotation (the port's ``so3._rand_rotation`` of
+    ``default_rng(11)``), float32 on ``dev``."""
+    import torch
+
+    from repro_torch.models.gnn.so3 import _rand_rotation
+
+    return torch.from_numpy(_rand_rotation(np.random.default_rng(11))).float().to(dev)
+
+
+def rel_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def geometric_rotation(label, fwd, graph, dev, egnn: bool):
+    """A fixed rotation of the positions: the readout (energies) unchanged
+    within ROTATION_RTOL of its largest value, EGNN's positions rotated
+    within ROTATION_RTOL of their largest. MACE is held on the graph
+    without its self-loop edges: the reference's Y_l of a zero vector
+    (l = 2: (0, 0, -c, 0, 0)) does not turn with the frame, so a self-loop
+    adds a part that does not rotate; its effect on the whole graph is
+    printed, not checked."""
+    import torch
+
+    rot = fixed_rotation(dev)
+    with torch.inference_mode():
+        graphs = [("with self-loops", graph)]
+        if not egnn:
+            keep = graph["src"] != graph["dst"]
+            graphs.append(("without self-loops", dict(graph, src=graph["src"][keep],
+                                                       dst=graph["dst"][keep])))
+        for what, g in graphs:
+            base = fwd(g)
+            turned = fwd(dict(g, positions=g["positions"] @ rot.T))
+            if egnn:
+                e_read = rel_err(turned[0], base[0])
+                e_pos = rel_err(turned[1], base[1] @ rot.T)
+                print(f"slice11 {label} rotation {what}: readout rel_err={e_read} "
+                      f"positions rel_err={e_pos} rtol={ROTATION_RTOL}")
+                check(e_read <= ROTATION_RTOL and e_pos <= ROTATION_RTOL,
+                      f"{label}: readout invariant, positions rotate")
+            else:
+                e = rel_err(turned, base)
+                checked = what == "without self-loops"
+                print(f"slice11 {label} rotation {what} (m={int(g['src'].shape[0])}): "
+                      f"energies rel_err={e} rtol={ROTATION_RTOL} "
+                      f"{'checked' if checked else 'not checked'}")
+                check(not checked or e <= ROTATION_RTOL, f"{label}: energies invariant")
+
+
+def slice11_gnn_cells(dev, ogb: dict, minibatch: dict, molecules: dict) -> list:
+    """Phase 15's GNN cells: GCN and SAGE on ogb_products, SAGE on
+    minibatch_lg, and PNA, EGNN and MACE on molecule_batch(128) and
+    molecule_batch(4096)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_family import GNN_SHAPES
+    from repro_torch.models.gnn import extra
+
+    gen = torch.Generator(dev)
+    cells = []
+    graph = slice11_graph(ogb, dev)
+    m = int(graph["src"].shape[0])
+    for name, cfg_cls, init, fwd, per_layer in (
+            ("gcn", extra.GCNConfig, extra.gcn_init, extra.gcn_forward, 1),
+            ("sage", extra.SAGEConfig, extra.sage_init, extra.sage_forward, 1)):
+        cfg = cfg_cls(in_dim=GNN_D, num_classes=GNN_CLASSES)
+        params = init(cfg, generator=gen.manual_seed(0), device=dev)
+        cells.append(slice11_cell(
+            f"{name} {GNN_SHAPE}", lambda: fwd(params, cfg, graph), m, cfg.num_layers,
+            per_layer * cfg.num_layers, check_logits, profile=True))
+        del params
+        torch.cuda.empty_cache()
+    del graph
+    graph = slice11_graph(minibatch, dev)
+    cfg = extra.SAGEConfig(in_dim=MINIBATCH_LG["d_feat"],
+                           num_classes=MINIBATCH_LG["num_classes"])
+    params = extra.sage_init(cfg, generator=gen.manual_seed(0), device=dev)
+    cells.append(slice11_cell(
+        "sage minibatch_lg", lambda: extra.sage_forward(params, cfg, graph),
+        int(graph["src"].shape[0]), cfg.num_layers, cfg.num_layers, check_logits,
+        profile=False))
+    del graph, params
+    for batch, mol in molecules.items():
+        graph = slice11_graph(mol, dev, ("node_feats", "src", "dst", "graph_ids",
+                                         "positions", "species"))
+        m = int(graph["src"].shape[0])
+        big = batch == MOLECULE_BIG
+        cfg = extra.PNAConfig(in_dim=mol["node_feats"].shape[1],
+                              num_classes=max(GNN_SHAPES["molecule"]["classes"], 2))
+        params = extra.pna_init(cfg, generator=gen.manual_seed(0), device=dev)
+        cells.append(slice11_cell(
+            f"pna molecule({batch})", lambda: extra.pna_forward(params, cfg, graph), m,
+            cfg.num_layers, 2 * cfg.num_layers, check_close, profile=big))
+        arch = get_arch("egnn")
+        cfg = arch.config_for("molecule")
+        params = arch.module.init_params(cfg, generator=gen.manual_seed(0), device=dev)
+        for layer in params["layers"]:  # the EGNN authors' init of this layer
+            layer["coord_mlp"][-1]["w"].mul_(EGNN_COORD_GAIN)
+        cells.append(slice11_cell(
+            f"egnn molecule({batch})", lambda: arch.module.forward(params, cfg, graph),
+            m, cfg.num_layers, 2 + 2 * cfg.num_layers, check_close, profile=big))
+        if big:
+            geometric_rotation(f"egnn molecule({batch})",
+                               lambda g: arch.module.forward(params, cfg, g), graph, dev,
+                               egnn=True)
+        arch = get_arch("mace")
+        cfg = arch.config_for("molecule")
+        params = arch.module.init_params(cfg, generator=gen.manual_seed(0), device=dev)
+        cells.append(slice11_cell(
+            f"mace molecule({batch})", lambda: arch.module.forward(params, cfg, graph),
+            m, cfg.num_layers, (cfg.l_max + 1) * cfg.num_layers + 1, check_close,
+            profile=big))
+        if big:
+            geometric_rotation(f"mace molecule({batch})",
+                               lambda g: arch.module.forward(params, cfg, g), graph, dev,
+                               egnn=False)
+        del graph, params
+        torch.cuda.empty_cache()
+    return cells
+
+
+def xdeepfm_one_shot(params, cfg, batch):
+    """xDeepFM's logits with the reference's one-shot CIN einsum in place
+    of the chunked layers (the (B, H, m, D) products made at once)."""
+    import torch
+
+    from repro_torch.models.recsys import xdeepfm
+
+    orig = xdeepfm.cin_layer
+    xdeepfm.cin_layer = lambda xk, x0, w, **_: torch.einsum("bhd,bmd,ohm->bod", xk, x0, w)
+    try:
+        return xdeepfm.forward(params, cfg, batch)
+    finally:
+        xdeepfm.cin_layer = orig
+
+
+def retrieval_f64(params, cfg, batch):
+    """``serve_retrieval``'s scores computed in float64 from the same
+    parameters."""
+    import torch
+
+    from repro_torch.models.recsys import xdeepfm
+
+    rows = xdeepfm._rows(params, cfg, batch)
+    emb = params["table"].index_select(0, rows.reshape(-1)).double().reshape(1, -1)
+    h = emb
+    for layer in params["mlp"]:
+        h = torch.relu(h @ layer["w"].double() + layer["b"].double())
+    user = h @ params["retrieval_proj"].double()
+    return (user @ params["cand_embed"].double().T)[0]
+
+
+def slice11_recsys(dev) -> list:
+    """Phase 15's RecSys cells: xDeepFM ``serve_step`` at 512 and 262,144
+    rows and ``serve_retrieval`` at one row over 10^6 candidates, and
+    ``embedding_bag`` (sum, mean) over the model's table."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import recsys_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.recsys import xdeepfm
+    from repro_torch.ops.embedding_bag import embedding_bag
+
+    cfg = get_arch("xdeepfm").config
+    t0 = time.perf_counter()
+    params = xdeepfm.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                                 device=dev)
+    torch.cuda.synchronize()
+    print(f"xdeepfm: params={sum(p.numel() for p in params.parameters())} "
+          f"init_s={time.perf_counter() - t0} memory_gb={torch.cuda.memory_allocated() / 1e9}")
+    cells, scores = [], {}
+    for shape, rows in XDEEPFM_SERVE:
+        t0 = time.perf_counter()
+        batch = {"sparse_ids": torch.from_numpy(recsys_batch(
+            rows, cfg.n_fields, cfg.vocab_per_field, seed=0)["sparse_ids"]).to(dev)}
+        print(f"xdeepfm {shape}: recsys_batch({rows}) host_s={time.perf_counter() - t0}")
+        with torch.inference_mode():
+            xdeepfm.serve_step(params, cfg, batch)  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            out, first = wall_s(lambda: xdeepfm.serve_step(params, cfg, batch))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            secs = [first] + [wall_s(lambda: xdeepfm.serve_step(params, cfg, batch))[1]
+                              for _ in range(E2E_SAMPLES - 1)]
+            check(bool(((out >= 0) & (out <= 1)).all()), f"xdeepfm {shape}: scores in [0, 1]")
+            if rows == XDEEPFM_SERVE[0][1]:
+                check_close(f"xdeepfm {shape} chunked CIN vs one-shot einsum logits",
+                            xdeepfm.forward(params, cfg, batch),
+                            xdeepfm_one_shot(params, cfg, batch))
+            scores[shape] = out
+        med = median(secs)
+        print(f"slice11 xdeepfm {shape}: rows={rows} wall_ms={med * 1e3} "
+              f"samples_ms={[x * 1e3 for x in secs]} rows_per_s={rows / med} "
+              f"peak_memory_gb={peak_gb} [{card_line()}]")
+        cells.append({"label": f"xdeepfm {shape}", "secs": med, "rate": rows / med,
+                      "unit": "rows_per_s", "peak_gb": peak_gb, "idle": None, "launches": 0})
+    # The bulk batch's first 512 rows are the p99 batch (one KISS draw
+    # order): the same scores through other chunks.
+    small = XDEEPFM_SERVE[0][1]
+    check_close("xdeepfm serve_bulk rows 0..511 vs serve_p99",
+                scores["serve_bulk"][:small], scores["serve_p99"])
+    del scores
+    one = {"sparse_ids": torch.from_numpy(recsys_batch(
+        1, cfg.n_fields, cfg.vocab_per_field, seed=1)["sparse_ids"]).to(dev)}
+    with torch.inference_mode():
+        xdeepfm.serve_retrieval(params, cfg, one, top_k=RETRIEVAL_TOP_K)
+        torch.cuda.reset_peak_memory_stats()
+        (sc, (vals, ids)), first = wall_s(
+            lambda: xdeepfm.serve_retrieval(params, cfg, one, top_k=RETRIEVAL_TOP_K))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        secs = [first] + [wall_s(lambda: xdeepfm.serve_retrieval(
+            params, cfg, one, top_k=RETRIEVAL_TOP_K))[1] for _ in range(E2E_SAMPLES - 1)]
+        s64 = retrieval_f64(params, cfg, one)
+        check_close("xdeepfm retrieval scores vs float64", sc.double(), s64)
+        ranked = torch.sort(s64, descending=True).values
+        gap = float(ranked[RETRIEVAL_TOP_K - 1] - ranked[RETRIEVAL_TOP_K])
+        err = float((sc.double() - s64).abs().max())
+        same = set(ids.tolist()) == set(torch.topk(s64, RETRIEVAL_TOP_K).indices.tolist())
+        print(f"xdeepfm retrieval top {RETRIEVAL_TOP_K}: k-th minus (k+1)-th float64 "
+              f"score={gap} max float32 score error={err} same ids={same}")
+        check(same or gap <= 2 * err, "xdeepfm retrieval: top-k ids equal float64's "
+              "wherever the k-th and (k+1)-th scores stand apart")
+    med = median(secs)
+    print(f"slice11 xdeepfm retrieval_cand: candidates={cfg.n_candidates} wall_ms={med * 1e3} "
+          f"samples_ms={[x * 1e3 for x in secs]} candidates_per_s={cfg.n_candidates / med} "
+          f"peak_memory_gb={peak_gb} [{card_line()}]")
+    cells.append({"label": "xdeepfm retrieval_cand", "secs": med,
+                  "rate": cfg.n_candidates / med, "unit": "candidates_per_s",
+                  "peak_gb": peak_gb, "idle": None, "launches": 0})
+    # embedding_bag over the table: each p99 row one bag of its 39 ids.
+    ids = xdeepfm._rows(params, cfg, {"sparse_ids": torch.from_numpy(recsys_batch(
+        small, cfg.n_fields, cfg.vocab_per_field, seed=0)["sparse_ids"]).to(dev)})
+    flat = ids.reshape(-1)
+    bags = torch.arange(small, device=dev, dtype=torch.int32).repeat_interleave(cfg.n_fields)
+    offsets = torch.arange(0, flat.numel(), cfg.n_fields, device=dev)
+    launched = 0
+    for mode in ("sum", "mean"):
+        with torch.inference_mode():
+            reset_launch_counts()
+            got = embedding_bag(params["table"], flat, bags, small, mode=mode,
+                                indices_are_sorted=True)
+            launched += launch_counts["segment_sum"]
+            check(launch_counts["segment_sum"] == 1,
+                  f"embedding_bag {mode}: one segment_sum launch")
+            want = F.embedding_bag(flat, params["table"], offsets, mode=mode)
+            err = segsum_within(f"embedding_bag {mode} (m={flat.numel()}, "
+                                f"{cfg.embed_dim}) vs F.embedding_bag:", got, want,
+                                cfg.n_fields)
+            ms = cuda_ms(lambda: embedding_bag(params["table"], flat, bags, small,
+                                               mode=mode, indices_are_sorted=True))
+            lib_ms = cuda_ms(lambda: F.embedding_bag(flat, params["table"], offsets,
+                                                     mode=mode))
+        print(f"time embedding_bag {mode} bags={small} x {cfg.n_fields}: ms={ms} "
+              f"F.embedding_bag_ms={lib_ms} max_abs_err={err} [{card_line()}]")
+    cells.append({"label": "embedding_bag sum+mean (checks)", "secs": None, "rate": None,
+                  "unit": None, "peak_gb": None, "idle": None, "launches": launched})
+    del params
+    torch.cuda.empty_cache()
+    return cells
+
+
+def slice11_segsum_cases(dev, minibatch: dict, molecule: dict) -> list:
+    """``(name, ids, n, feat)`` of the segment sums this slice's models
+    make at shapes phases 2 and 5 do not cover: EGNN, MACE and PNA on
+    molecule_batch(4096), the graph readouts over its graph ids, and
+    SAGE on minibatch_lg."""
+    import torch
+
+    mol_ids = torch.from_numpy(molecule["dst"]).to(dev)
+    gids = torch.from_numpy(molecule["graph_ids"]).to(dev)
+    mb_ids = torch.from_numpy(minibatch["dst"]).to(dev)
+    n_mol, n_mb = len(molecule["graph_ids"]), len(minibatch["graph_ids"])
+    mol = f"molecule({MOLECULE_BIG})"
+    return [
+        (f"{mol} egnn degree (m, 1)", mol_ids, n_mol, (1,)),
+        (f"{mol} egnn coordinates (m, 3)", mol_ids, n_mol, (3,)),
+        (f"{mol} egnn messages (m, 64)", mol_ids, n_mol, (64,)),
+        (f"{mol} pna layer 1 sums (m, 16)", mol_ids, n_mol, (16,)),
+        (f"{mol} pna layer 2 sums (m, 32)", mol_ids, n_mol, (32,)),
+        (f"{mol} mace A l=0 (m, 128, 1)", mol_ids, n_mol, (128, 1)),
+        (f"{mol} mace A l=1 (m, 128, 3)", mol_ids, n_mol, (128, 3)),
+        (f"{mol} mace A l=2 (m, 128, 5)", mol_ids, n_mol, (128, 5)),
+        (f"{mol} egnn readout (nodes, 1) over graph ids", gids, MOLECULE_BIG, (1,)),
+        (f"{mol} mace energy readout (nodes,) over graph ids", gids, MOLECULE_BIG, ()),
+        ("minibatch_lg sage layer 1 (m, 602)", mb_ids, n_mb, (MINIBATCH_LG["d_feat"],)),
+        ("minibatch_lg sage layer 2 (m, 64)", mb_ids, n_mb, (64,)),
+    ]
+
+
+def phase_segment_sum_slice11(dev, cases) -> None:
+    """Phase 2, ``segment_sum`` at this slice's shapes: the kernel against
+    its plain version (float32, rtol 2e-5) and two calls bit-equal."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(5)
+    for name, ids, n, feat in cases:
+        data = torch.randn((ids.shape[0], *feat), device=dev, generator=gen)
+        segsum_check(name, data, ids, n)
+        segsum_bit_equal(name, data, ids, n)
+        del data
+
+
+def phase_slice11(dev, ogb: dict, minibatch: dict, molecules: dict, cases) -> dict:
+    """Phase 15: ``segment_sum``'s times at this slice's shapes, then the
+    GNN and RecSys cells. Returns the cells, the segment_sum times and
+    the phase's seconds."""
+    import torch
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(6)
+    times = []
+    for name, ids, n, feat in cases:
+        data = torch.randn((ids.shape[0], *feat), device=dev, generator=gen)
+        times.append((name, time_segsum(dev, name, data, ids, n)))
+        del data
+    torch.cuda.empty_cache()
+    cells = slice11_gnn_cells(dev, ogb, minibatch, molecules)
+    cells += slice11_recsys(dev)
+    secs = time.perf_counter() - t_phase
+    print(f"phase 15 gnn and recsys inference: s={secs}")
+    return {"cells": cells, "times": times, "secs": secs}
+
+
 def main() -> int:
     import torch
 
@@ -3095,7 +3611,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import AUTO_SAMPLE_ROUNDS
-    from repro_torch.data.graphs import full_graph
+    from repro_torch.data.graphs import full_graph, molecule_batch, sampled_minibatch
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
@@ -3123,6 +3639,13 @@ def main() -> int:
     ogb = full_graph(GNN_N, GNN_M, GNN_D, GNN_CLASSES, seed=0)
     print(f"gnn graph full_graph({GNN_N}, {GNN_M}, {GNN_D}, {GNN_CLASSES}, "
           f"seed=0): host_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    minibatch = sampled_minibatch(**MINIBATCH_LG, sort_device=dev)
+    print(f"gnn graph sampled_minibatch({MINIBATCH_LG}) (CSR sorted on the card): "
+          f"n={len(minibatch['graph_ids'])} m={len(minibatch['src'])} "
+          f"host_s={time.perf_counter() - t0}")
+    molecules = {b: molecule_batch(b) for b in (MOLECULE_BATCH, MOLECULE_BIG)}
+    slice11_cases = slice11_segsum_cases(dev, minibatch, molecules[MOLECULE_BIG])
 
     graphs = cc_graphs()
     (_, giant, _), (_, rand, _), (_, dense, _) = graphs
@@ -3142,6 +3665,7 @@ def main() -> int:
     errs["ordered_fold"], of_inputs = phase_ordered_fold(dev, rand, CC_RANDOM_N,
                                                          sssp_w)
     errs["segment_sum"] = phase_segment_sum(dev, ogb["dst"])
+    phase_segment_sum_slice11(dev, slice11_cases)
     phase_segment_ops(dev)
 
     # Phases 3 and 4: the main path, launches counted from 0 in each run.
@@ -3186,7 +3710,6 @@ def main() -> int:
 
     # Phase 11: GNN inference, launches counted from 0 in each cell.
     gnn = phase_gnn(dev, ogb)
-    del ogb
     launches["segment_sum"] = sum(cell[-1] for cell in gnn.values())
 
     # Phase 12: graph analytics, launches counted from 0 in each checked run.
@@ -3203,6 +3726,12 @@ def main() -> int:
     sharded = phase_sharded(dev, card, list_secs)
     for name, count in sharded["launches"].items():
         launches[name] = launches.get(name, 0) + count
+
+    # Phase 15: the rest of GNN and RecSys inference, launches counted
+    # from 0 in each cell.
+    slice11 = phase_slice11(dev, ogb, minibatch, molecules, slice11_cases)
+    del ogb, minibatch, molecules, slice11_cases
+    launches["segment_sum"] += sum(cell["launches"] for cell in slice11["cells"])
     errs["flash_attention"] = lm["max_abs_err"]
     records = []
     for name, (ms, plain_ms, eager_ms, nbytes) in times.items():
@@ -3318,6 +3847,18 @@ def main() -> int:
         print(f"e2e sharded {label} (world size 1, NCCL): wall_s={secs} "
               f"single_device_s={single} [{card}]")
     print(f"e2e sharded phase_s={sharded['secs']} [{card}]")
+    for name, (ms, plain_ms, _, lib_ms, bound_ms) in slice11["times"]:
+        print(f"time segment_sum slice 11 {name}: ms={ms} plain_ms={plain_ms} "
+              f"segment_reduce_ms={lib_ms} bound_ms={bound_ms} "
+              f"share_of_bound={bound_ms / ms} [{card}]")
+    for cell in slice11["cells"]:
+        if cell["secs"] is None:
+            continue
+        print(f"e2e {cell['label']}: wall_ms={cell['secs'] * 1e3} "
+              f"{cell['unit']}={cell['rate']} peak_memory_gb={cell['peak_gb']} "
+              f"segment_sum_launches={cell['launches']} device_idle_share="
+              f"{'not profiled' if cell['idle'] is None else cell['idle']} [{card}]")
+    print(f"e2e slice 11 phase_s={slice11['secs']} [{card}]")
     print(f"chip_smoke total_s={time.perf_counter() - start}")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))

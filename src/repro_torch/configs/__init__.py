@@ -3,13 +3,15 @@ of ``repro.configs``.
 
 The three dense GQA/MQA/MHA language models are ported; each returns an
 ``Arch`` with the full-width ``config`` and the small ``smoke_config``
-of the reference. The GNNs gin-tu and gat-cora return a ``GNNArch``
-(``configs/gnn_family.py``), whose ``config_for(shape)`` sizes the
-model for one of ``GNN_SHAPES``; their forwards aggregate with the
-``segment_sum`` kernel. The reference's dry-run plumbing
-(``LMArch.build``, ``GNNArch.build``, ``DryRunSpec``, the mesh shapes)
-is launch work and waits for ROADMAP queue 1, item 17. The other names
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+of the reference. The GNNs gin-tu, gat-cora, egnn and mace return a
+``GNNArch`` (``configs/gnn_family.py``), whose ``config_for(shape)``
+sizes the model for one of ``GNN_SHAPES``; their forwards aggregate
+with the ``segment_sum`` kernel. xdeepfm returns a ``RecsysArch``
+(``configs/recsys_family.py``). The reference's dry-run plumbing
+(``LMArch.build``, ``GNNArch.build``, ``RecsysArch.build``,
+``DryRunSpec``, the mesh shapes) is launch work and waits for ROADMAP
+queue 1, item 17. The MoE names raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -24,15 +26,15 @@ _ARCH_MODULES = {
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "gat-cora": "repro_torch.configs.gat_cora",
     "gin-tu": "repro_torch.configs.gin_tu",
+    "egnn": "repro_torch.configs.egnn",
+    "mace": "repro_torch.configs.mace",
+    "xdeepfm": "repro_torch.configs.xdeepfm",
 }
 
 # Registered in the reference, not ported yet: name -> ROADMAP item.
 _NOT_PORTED = {
     "deepseek-v3-671b": "queue 1, item 15 (MoE and MLA)",
     "mixtral-8x7b": "queue 1, item 15 (MoE)",
-    "egnn": "queue 1, item 13 (GNN models)",
-    "mace": "queue 1, item 13 (GNN models)",
-    "xdeepfm": "queue 1, item 14 (RecSys)",
 }
 
 ARCH_NAMES = [
@@ -52,7 +54,8 @@ class Arch:
 
 
 def get_arch(name: str):
-    """The ``Arch`` of a language model or the ``GNNArch`` of a GNN."""
+    """The ``Arch`` of a language model, the ``GNNArch`` of a GNN or the
+    ``RecsysArch`` of xdeepfm."""
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to repro_torch yet "

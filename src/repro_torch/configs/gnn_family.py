@@ -1,5 +1,5 @@
-"""The GNN family of the port's registry (gin-tu, gat-cora): the shape
-table and ``GNNArch`` of ``repro/configs/gnn_family.py``.
+"""The GNN family of the port's registry (gin-tu, gat-cora, egnn, mace):
+the shape table and ``GNNArch`` of ``repro/configs/gnn_family.py``.
 
 Shapes (per assignment):
   full_graph_sm   n=2,708    m=10,556       d_feat=1,433  (full-batch, Cora)
@@ -9,9 +9,9 @@ Shapes (per assignment):
 
 The table is copied, not imported: the reference module imports jax.
 ``GNNArch.build`` (the dry-run spec, sharding and AdamW) is launch and
-training work and waits for ROADMAP queue 1, items 16 and 17. The
-reference's ``geometric`` flag (positions and species, energy-style
-graph readout) comes with EGNN and MACE, queue 1, item 13.
+training work and waits for ROADMAP queue 1, items 16 and 17. A
+``geometric`` architecture (EGNN, MACE) reads positions and species and
+reads out one energy-style float a graph on every shape.
 """
 from __future__ import annotations
 
@@ -42,6 +42,8 @@ class GNNArch:
     module: Any
     config: Any
     smoke_config: Any
+    geometric: bool = False  # needs positions/species
+    family: str = "gnn"
 
     def shapes(self):
         return list(GNN_SHAPES)
@@ -59,10 +61,15 @@ class GNNArch:
         if hasattr(cfg, "num_classes"):
             kw["num_classes"] = max(info["classes"], 2)
         if hasattr(cfg, "readout"):
-            kw["readout"] = "graph" if shape == "molecule" else "node"
+            if self.geometric:
+                kw["readout"] = "graph"  # energy-style regression
+            else:
+                kw["readout"] = "graph" if shape == "molecule" else "node"
         return dataclasses.replace(cfg, **kw)
 
     def label_kind(self, shape: str) -> str:
+        if self.geometric:
+            return "graph_float"
         cfg = self.config_for(shape)
         if getattr(cfg, "readout", "node") == "graph":
             return "graph_int"

@@ -1,6 +1,7 @@
 """Graph datasets of the port: ``full_graph``, ``molecule_batch``,
-``random_tree``, ``random_tree_forest`` and ``graph_request_stream``,
-the port's copies of ``repro/data/graphs.py``.
+``sampled_minibatch``, ``random_tree``, ``random_tree_forest``,
+``graph_request_stream`` and ``random_succ``, the port's copies of
+``repro/data/graphs.py``.
 
 They run on the port's KISS (``ops/kiss.py``), which is bit-identical
 to the reference's, so the same seed gives both packages the same
@@ -9,14 +10,14 @@ arrays (``tests/test_torch_gnn.py``, ``tests/test_torch_trees.py`` and
 GNN graphs' edges are returned SORTED BY DESTINATION (stable), so a GNN
 forward sums every aggregation with the ``segment_sum`` kernel without sorting
 again. Everything is numpy on the host; ``forward`` moves the arrays
-to its parameters' device. ``sampled_minibatch`` needs the neighbor
-sampler and waits for it (ROADMAP queue 1, item 12).
+to its parameters' device.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.ops.kiss import KissRng
+from repro_torch.ops.kiss import KissRng, random_graph
+from repro_torch.ops.neighbor_sampler import NeighborSampler, edges_to_csr
 
 
 def _sort_by_dst(src: np.ndarray, dst: np.ndarray):
@@ -92,6 +93,72 @@ def molecule_batch(
             np.arange(batch, dtype=np.int32), nodes_per_graph
         ),
         "num_graphs": batch,
+    }
+
+
+def sampled_minibatch(
+    n_nodes: int,
+    n_edges: int,
+    d_feat: int,
+    batch_nodes: int,
+    fanouts: list[int],
+    num_classes: int = 41,
+    seed: int = 0,
+    *,
+    sort_device=None,
+) -> dict:
+    """minibatch_lg: a real neighbor-sampled block batch (Reddit-scale).
+
+    The hops' sampled edges over the union of their frontiers, relabelled
+    to local ids and sorted by destination, plus the seed nodes' labels
+    (every other node's label is -1). ``sort_device`` is where
+    ``edges_to_csr`` sorts the base graph (default: the CPU); the arrays
+    are the same either way.
+    """
+    base_edges = random_graph(n_nodes, 2 * n_edges / (n_nodes * (n_nodes - 1)), seed)
+    indptr, indices = edges_to_csr(base_edges, n_nodes, device=sort_device)
+    del base_edges
+    sampler = NeighborSampler(indptr, indices, seed=seed + 1)
+    rng = KissRng(seed + 2, 4096)
+    seeds = rng.uniform_ints((batch_nodes,), n_nodes).astype(np.int64)
+    blocks = sampler.sample_multihop(seeds, fanouts)
+
+    # One local graph over every frontier node.
+    all_nodes = np.concatenate(
+        [blocks[0].dst_nodes] + [b.src_nodes for b in blocks]
+    )
+    uniq, inv = np.unique(all_nodes, return_inverse=True)
+    out_src, out_dst = [], []
+    cursor = len(blocks[0].dst_nodes)
+    frontier_local = inv[:cursor]
+    prev_local = frontier_local
+    for b in blocks:
+        src_local = inv[cursor : cursor + len(b.src_nodes)]
+        cursor += len(b.src_nodes)
+        out_src.append(src_local.astype(np.int32))
+        out_dst.append(prev_local[b.dst_index].astype(np.int32))
+        prev_local = src_local
+    src = np.concatenate(out_src)
+    dst = np.concatenate(out_dst)
+    order = np.argsort(dst, kind="stable")
+    feats = (
+        KissRng(seed + 3, 4096)
+        .uniform_ints((len(uniq), d_feat), 1000)
+        .astype(np.float32)
+        / 500.0
+        - 1.0
+    )
+    labels = np.full(len(uniq), -1, np.int32)
+    labels[frontier_local] = rng.uniform_ints(
+        (batch_nodes,), num_classes
+    ).astype(np.int32)
+    return {
+        "node_feats": feats,
+        "src": src[order].astype(np.int32),
+        "dst": dst[order].astype(np.int32),
+        "labels": labels,
+        "graph_ids": np.zeros(len(uniq), np.int32),
+        "num_graphs": 1,
     }
 
 
@@ -194,3 +261,22 @@ def graph_request_stream(
                 )
         out.append(entry)
     return out
+
+
+def random_succ(n: int, seed: int = 0) -> np.ndarray:
+    """Random linked-list succ[] with head 0 and self-loop terminal.
+
+    Plain numpy (no KISS): the list-ranking input of the tests and of
+    ``benchmarks/multidev_scaling.py``, not one of the paper's graph
+    distributions.
+    """
+    r = np.random.default_rng(seed)
+    order = (
+        np.concatenate([[0], 1 + r.permutation(n - 1)])
+        if n > 1
+        else np.zeros(1, np.int64)
+    )
+    succ = np.empty(n, dtype=np.int32)
+    succ[order[:-1]] = order[1:]
+    succ[order[-1]] = order[-1]
+    return succ

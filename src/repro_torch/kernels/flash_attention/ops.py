@@ -166,7 +166,12 @@ def flash_attention(
     """Attention of ``q`` over ``k``/``v``; returns ``(B, Hq, Sq, D)`` in
     ``q``'s dtype (for bf16 with ``q``'s strides where ``q`` is dense).
     ``window=w`` keeps a score iff ``0 <= qpos - kpos < w`` with
-    ``causal``, iff ``qpos - kpos < w`` without."""
+    ``causal``, iff ``qpos - kpos < w`` without.
+
+    The plain version (CPU tensors) carries autograd. The kernel has no
+    backward yet: on its route a ``q``, ``k`` or ``v`` that requires
+    grad, with grad mode on, raises before anything is built or
+    launched (the launch would cut the autograd graph)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             "flash_attention takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D); "
@@ -183,6 +188,12 @@ def flash_attention(
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if resolve_impl(impl, q) == "torch":
         return attention_ref(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention's kernel has no backward yet (ROADMAP queue 1, "
+            "item 16): call it under torch.no_grad() or on tensors that do "
+            "not require grad"
+        )
     from repro_torch.kernels.build import function
 
     check_kernel_inputs(q, k, v)

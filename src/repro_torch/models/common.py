@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -113,3 +114,17 @@ def activation_fn(name: str):
 
 def count_params(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+def input_tensor(inputs: dict, key: str, device: torch.device) -> torch.Tensor:
+    """``inputs[key]`` as a tensor on ``device``: a numpy array is copied
+    there; a tensor elsewhere raises."""
+    x = inputs[key]
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(
+                f"inputs[{key!r}] is on {x.device} but the parameters are on "
+                f"{device}; move it there first"
+            )
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)

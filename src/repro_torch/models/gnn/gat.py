@@ -17,8 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import lecun_init
-from repro_torch.models.gnn.graph import dst_sorted_edges, graph_tensor
+from repro_torch.models.common import input_tensor, lecun_init
+from repro_torch.models.gnn.graph import dst_sorted_edges
 from repro_torch.ops.segment import segment_softmax_dist, segment_sum
 
 
@@ -122,7 +122,7 @@ def forward(params: GAT, cfg: GATConfig, graph: dict) -> torch.Tensor:
     """graph: ``node_feats`` (n, d), ``src``/``dst`` (m,). Returns
     logits (n, num_classes) on the parameters' device."""
     dev = params.layers[0].w.weight.device
-    h = graph_tensor(graph, "node_feats", dev)
+    h = input_tensor(graph, "node_feats", dev)
     n = h.shape[0]
     src, dst = dst_sorted_edges(graph, dev)
     for i, (layer, (_d_in, heads, d_out)) in enumerate(

@@ -18,8 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import he_init, layer_norm
-from repro_torch.models.gnn.graph import dst_sorted_edges, graph_tensor, is_sorted
+from repro_torch.models.common import he_init, input_tensor, layer_norm
+from repro_torch.models.gnn.graph import dst_sorted_edges, is_sorted
 from repro_torch.ops.segment import segment_sum
 
 
@@ -101,7 +101,7 @@ def forward(params: GIN, cfg: GINConfig, graph: dict) -> torch.Tensor:
     (n, classes) for the node readout, (num_graphs, classes) for the
     graph readout, on the parameters' device."""
     dev = params.head.weight.device
-    h = graph_tensor(graph, "node_feats", dev)
+    h = input_tensor(graph, "node_feats", dev)
     n = h.shape[0]
     src, dst = dst_sorted_edges(graph, dev)
     reps = []
@@ -115,7 +115,7 @@ def forward(params: GIN, cfg: GINConfig, graph: dict) -> torch.Tensor:
         reps.append(h)
     hcat = torch.cat(reps, dim=-1)
     if cfg.readout == "graph":
-        gid = graph_tensor(graph, "graph_ids", dev)
+        gid = input_tensor(graph, "graph_ids", dev)
         pooled = segment_sum(hcat, gid, int(graph["num_graphs"]),
                              indices_are_sorted=is_sorted(gid))
         return params.head(pooled)

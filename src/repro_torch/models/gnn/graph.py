@@ -12,24 +12,10 @@ not, and then runs every aggregation with ``indices_are_sorted=True``.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from repro_torch.models.common import input_tensor
 from repro_torch.ops.scatter_gather import sort_edges_by_dst
-
-
-def graph_tensor(graph: dict, key: str, device: torch.device) -> torch.Tensor:
-    """``graph[key]`` as a tensor on ``device``: a numpy array is copied
-    there; a tensor elsewhere raises."""
-    x = graph[key]
-    if isinstance(x, torch.Tensor):
-        if x.device != device:
-            raise ValueError(
-                f"graph[{key!r}] is on {x.device} but the parameters are on "
-                f"{device}; move it there first"
-            )
-        return x
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
 def is_sorted(ids: torch.Tensor) -> bool:
@@ -40,8 +26,8 @@ def is_sorted(ids: torch.Tensor) -> bool:
 def dst_sorted_edges(graph: dict, device: torch.device):
     """``(src, dst)`` of ``graph`` on ``device``, sorted by ``dst``: as
     given when they already are, else stably sorted once."""
-    src = graph_tensor(graph, "src", device)
-    dst = graph_tensor(graph, "dst", device)
+    src = input_tensor(graph, "src", device)
+    dst = input_tensor(graph, "dst", device)
     if is_sorted(dst):
         return src, dst
     src, dst, _ = sort_edges_by_dst(src, dst)

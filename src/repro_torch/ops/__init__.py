@@ -1,1 +1,4 @@
-"""Input generators of the port (numpy, bit-identical to ``repro.ops.kiss``)."""
+"""Ops substrate of the port: KISS and the paper's input generators
+(numpy, bit-identical to ``repro.ops.kiss``), the neighbor sampler,
+segment reductions, gathers and scatters, embedding bags and the sorted
+dispatch."""

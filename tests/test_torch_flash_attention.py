@@ -221,3 +221,45 @@ def test_kernel_validation_raises_where_it_did():
         check_kernel_inputs(wide, k.float()[:, :1], k.float()[:, :1])
     with pytest.raises(ValueError, match="same batch and head_dim"):
         flash_attention(q, k[..., :32], k[..., :32])
+
+
+class _Built(Exception):
+    """Raised by the patched ``build.function``: the wrapper got as far
+    as building its kernel."""
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_kernel_route_refuses_inputs_that_require_grad(monkeypatch, which):
+    # The CUDA route (forced by the patch) on an input that requires
+    # grad raises naming item 16, before any build or launch; under
+    # no_grad the same call goes on to the build.
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
+
+    monkeypatch.setattr(ops, "resolve_impl", lambda impl, x: "cuda")
+    built = []
+
+    def fake_function(*args, **kwargs):
+        built.append(args)
+        raise _Built
+
+    monkeypatch.setattr(build, "function", fake_function)
+    _, (q, k, v) = _qkv(0, 1, 4, 2, 16, 16, 16, "float32")
+    inputs = {"q": q, "k": k, "v": v}
+    inputs[which] = inputs[which].clone().requires_grad_()
+    before = dict(launch_counts)
+    with pytest.raises(RuntimeError, match="ROADMAP queue 1, item 16"):
+        flash_attention(inputs["q"], inputs["k"], inputs["v"])
+    assert built == [] and dict(launch_counts) == before
+    with torch.no_grad(), pytest.raises(_Built):
+        flash_attention(inputs["q"], inputs["k"], inputs["v"])
+    assert len(built) == 1 and dict(launch_counts) == before
+
+
+def test_plain_route_keeps_autograd():
+    _, (q, k, v) = _qkv(1, 1, 4, 2, 16, 16, 16, "float32")
+    q.requires_grad_()
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())

@@ -36,9 +36,17 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         env=env, cwd=ROOT, check=True, timeout=120,
     ).stdout)
     assert len(out["names"]) >= 20, "walked too few modules"
-    # the walk reaches every subpackage, the sharded graph engine too
-    assert {"repro_torch.distributed", "repro_torch.distributed.graph"} <= set(
-        out["names"])
+    # the walk reaches every subpackage, the sharded graph engine and the
+    # GNN, sampler and RecSys modules too
+    assert {"repro_torch.distributed", "repro_torch.distributed.graph",
+            "repro_torch.ops.neighbor_sampler", "repro_torch.ops.embedding_bag",
+            "repro_torch.data.recsys", "repro_torch.models.tree",
+            "repro_torch.models.gnn.extra", "repro_torch.models.gnn.so3",
+            "repro_torch.models.gnn.egnn", "repro_torch.models.gnn.mace",
+            "repro_torch.models.recsys.xdeepfm", "repro_torch.models.recsys.convert",
+            "repro_torch.configs.egnn", "repro_torch.configs.mace",
+            "repro_torch.configs.recsys_family", "repro_torch.configs.xdeepfm",
+            } <= set(out["names"])
     assert out["bad"] == []
 
 
