@@ -10,7 +10,8 @@ of which raises on failure:
    version, and the six CUDA kernels built from ``kernels/csrc`` (one
    ``nvcc`` per source, all at once; the build's seconds printed) with
    ``-Xptxas -v``'s registers, shared memory and spills; the bf16
-   attention kernel's D = 128 instance must not spill. Then the
+   attention kernel's D = 128 and MLA (D, Dv) = (192, 128) instances
+   must not spill. Then the
    ogb_products graph of the GNN phase,
    ``full_graph(2_449_029, 61_859_140, 100, 47, seed=0)``, built on the
    host (its seconds printed): its destinations are phase 2's ids; the
@@ -48,7 +49,10 @@ of which raises on failure:
    and sentinel ids. ``ops/segment.py``'s ``segment_sum``,
    ``segment_mean`` and ``segment_softmax`` on sorted int64 ids with a
    negative id and ids past int32: ``[2, 0, 0, 7, 0]``, its mean, and
-   the plain path's softmax, through three kernel launches.
+   the plain path's softmax, through three kernel launches. The MoE
+   combines' shapes in bf16: mixtral's (16,384 x 4096), 2 rows a token,
+   and deepseek-v3's (32,768 x 7168), 8 rows a token, each within 2e-2
+   and two calls bit-equal.
    ``ordered_fold`` against its plain version, bit for bit: PageRank's
    degrees (also against ``np.add.at``) and first mass step on phase 12's
    graph, the mass step in both forms (generic, on ``dmp * (out[a] * w2)``
@@ -125,7 +129,13 @@ of which raises on failure:
    every other head_dim instance in both types; rows with no live key
    (Sq > Sk + window); and, at S=32768 (the ``prefill_32k`` length, where
    the plain version's scores would take 137 GB), the first and last
-   256 rows against ``attention_ref`` on those rows alone.
+   256 rows against ``attention_ref`` on those rows alone. (o) MLA's
+   (D, Dv) = (192, 128) instance at deepseek-v3's prefill shape (B=1,
+   H=128, S=4096, causal) on the model's layout (q, k from ``torch.cat``,
+   v a strided view of the latent's expansion), heads 0-15 and 112-127
+   against ``attention_ref`` on those heads (Hq = Hkv), bit-equal to the
+   call on contiguous copies and to a second call; (p) MLA at a ragged
+   S=1000, causal and not.
 7. Prefill at full width: qwen3-4b's ``CONFIG`` in bf16 from
    ``init_params`` with a seeded CUDA generator, ``forward`` on (2, 4096)
    tokens from ``np.random.default_rng(0)``: a warm-up, then three
@@ -258,7 +268,34 @@ of which raises on failure:
    the bulk batch's first 512 scores against the 512-row call), and
    ``serve_retrieval`` of one row over 10^6 candidates, top 100, against
    float64 scores; then ``embedding_bag`` sum and mean over its table
-   (one launch each) against ``F.embedding_bag``, and both timed. The
+   (one launch each) against ``F.embedding_bag``, and both timed.
+16. MoE, MLA and the MTP head at published widths, depth cut (printed
+   with each line): first the kernels' times at the new shapes --
+   ``flash_attention`` at MLA's prefill shape beside its plain version,
+   SDPA where a backend takes Dv != D (named), its FLOP bound (2 (D +
+   Dv) per live pair at 989 TFLOP/s) and the ``torch.cat`` that writes
+   the shared rope key into every head; at mixtral's windowed prefill
+   (S=8192, w=4096); ``segment_sum`` at both combines beside
+   ``segment_reduce`` and the byte bound; and the sorted-vs-unsorted
+   dispatch A/B at deepseek-v3's T=4096, k=8, E=256 (the same buffer;
+   printed, no claim). Then mixtral-8x7b (4 of 32 layers, 12.1 GB of
+   weights) and deepseek-v3 (its 3 dense layers, 1 of 58 MoE layers and
+   the MTP layer, 31.4 GB), each from ``init_params`` with a seeded CUDA
+   generator and freed before the next: every MoE layer against a
+   float32 per-expert oracle on its input in a forward of the prefill
+   tokens (each token's row within 3e-2 in norm); ``forward`` on
+   ``lm_batch`` tokens at B=1, S=8192 (twice mixtral's window) and
+   S=4096: a warm-up, then three timed calls (median ms, tokens/s),
+   ``flash_attention`` once a layer and ``segment_sum`` once an MoE layer
+   in the first, peak memory, the idle share of one profiled call;
+   deepseek-v3's ``_mtp_logits`` once (one launch, finite logits);
+   prefill against decode at every position of a 64-token prefix by
+   phase 8's margin rule, with a capacity of every token (capacity
+   factor max(8, E/k)) so neither drops one; and ``ServeEngine`` with 8
+   slots of 8192 rows (mixtral's 4096-row ring) and of 4096 rows on 16
+   ``lm_batch`` prompts of 16-128 tokens at the published capacity
+   factor 1.25, 32 new tokens each, as phase 9 (no re-scoring: a decode
+   step's tokens compete for experts as a prefill's do not). The
    script's total seconds are printed at the end.
 
 Every profile prints the host's launch calls beside the device records
@@ -273,6 +310,7 @@ result. It imports nothing of JAX or of the ``repro`` package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -382,6 +420,25 @@ EGNN_COORD_GAIN = 1e-3
 # multidev_scaling rows of BENCH_smoke.json at their smoke size.
 SHARDED_DEV1_N = 100
 
+# Phase 16's sizes: mixtral-8x7b and deepseek-v3 at their published widths,
+# depth cut to what one card holds with the phase's activations: (arch,
+# layers kept, prefill S at B = 1, serving max_len). mixtral keeps 4 of 32
+# layers (12.1 GB of bf16 weights), its prefill twice its 4,096 window;
+# deepseek-v3 keeps its 3 dense layers, 1 of its 58 MoE layers and the MTP
+# layer (31.4 GB).
+MOE_CELLS = (("mixtral-8x7b", 4, 8192, 8192), ("deepseek-v3-671b", 4, 4096, 4096))
+MOE_SERVE_SLOTS, MOE_SERVE_REQUESTS = 8, 16
+MOE_CONSISTENCY_S = 64  # prefix held to the decode at every position
+MLA_HEADS, MLA_S, MLA_RAGGED_S = 128, 4096, 1000  # deepseek-v3's prefill attention
+MLA_CHECK_HEADS = 16  # heads of each end held to attention_ref at S = 4096
+# (T, top_k, d) of each MoE combine: T * top_k rows, top_k a token.
+MOE_COMBINES = (("mixtral-8x7b", 8192, 2, 4096), ("deepseek-v3-671b", 4096, 8, 7168))
+# bf16 MoE layer against the float32 oracle: each token's output row within
+# MOE_TOL of the oracle's row in norm. A wrong expert, gate, token or drop
+# moves a row by about its own size; bf16's roundings move it by ~0.5%, with
+# a heavy tail elementwise (a few of 33.5M elements past 3e-2 x rms, printed).
+MOE_TOL = 3e-2
+
 # The LM phases' sizes.
 LM_ARCH = "qwen3-4b"
 PREFILL_B, PREFILL_S = 2, 4096
@@ -398,7 +455,10 @@ MARGIN = 0.1  # top-2 logit gap above which two argmaxes must agree
 # positions; 0.094 at the last ones).
 CONSISTENCY_MAX_DIFF = 0.25
 ATTN_TOL = {"torch.bfloat16": 3e-2, "torch.float32": 2e-3}
-ATTN_ENTRY = "attn_tc_kernelILi128E"  # the bf16 kernel's D = 128 instance
+# The bf16 kernel's instances that must not spill: D = 128 (qwen3's and
+# mixtral's prefill) and MLA's (D, Dv) = (192, 128) (deepseek-v3's).
+ATTN_ENTRIES = {"D=128": "attn_tc_kernelILi128ELi128EE",
+                "MLA D=192 Dv=128": "attn_tc_kernelILi192ELi128EE"}
 # (B, S, causal) of phase 10's sweep at Hq=32, Hkv=8, D=128: B * S tokens
 # near shape (a)'s, from short rows to long.
 ATTN_SWEEP = ((8, 1024, True), (4, 2048, True), (2, 4096, False), (1, 8192, True),
@@ -1162,34 +1222,37 @@ def phase_segment_ops(dev) -> None:
 
 
 def check_attention_build() -> None:
-    """The ptxas report of the bf16 attention kernel at D = 128 (the
-    prefill's instance): printed, and no spill allowed."""
+    """The ptxas report of the bf16 attention kernel's prefill instances
+    (``ATTN_ENTRIES``): printed, and no spill allowed."""
     from repro_torch.kernels import build
 
-    entries = {e: v for e, v in build.ptxas_kernels("flash_attention").items()
-               if ATTN_ENTRY in e}
-    check(len(entries) == 1, f"one {ATTN_ENTRY} entry in the ptxas report")
-    (entry, info), = entries.items()
-    print(f"ptxas flash_attention bf16 D=128 ({entry}): {info}")
-    check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
-          f"no spill in the bf16 D=128 attention kernel: {info}")
+    report = build.ptxas_kernels("flash_attention")
+    for label, name in ATTN_ENTRIES.items():
+        entries = {e: v for e, v in report.items() if name in e}
+        check(len(entries) == 1, f"one {name} entry in the ptxas report")
+        (entry, info), = entries.items()
+        print(f"ptxas flash_attention bf16 {label} ({entry}): {info}")
+        check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+              f"no spill in the bf16 {label} attention kernel: {info}")
 
 
 def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
     """The (query, key) pairs that ``attention_ref`` keeps: the work an
-    attention call must do, 4 * D FLOPs per pair (two products)."""
+    attention call must do, 2 * (D + Dv) FLOPs per pair (two products)."""
     q = np.arange(sq, dtype=np.int64)
     hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1, np.int64)
     lo = np.zeros(sq, np.int64) if window is None else np.maximum(q - window + 1, 0)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def attention_bound_ms(b, hq, hkv, sq, sk, d, causal, window, itemsize):
-    """``(bound_ms, flops, bytes)``: the larger of the FLOPs over the bf16
-    tensor-core peak and the bytes (q, k, v read once, the output
-    written once) over the HBM rate."""
-    flops = 4 * d * b * hq * live_pairs(sq, sk, causal, window)
-    nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk)
+def attention_bound_ms(b, hq, hkv, sq, sk, d, causal, window, itemsize, dv=None):
+    """``(bound_ms, flops, bytes)``: the larger of the FLOPs (Q K^T over
+    the query/key head dim ``d``, P V over the value head dim ``dv``,
+    ``d`` unless given) over the bf16 tensor-core peak and the bytes (q,
+    k, v read once, the output written once) over the HBM rate."""
+    dv = d if dv is None else dv
+    flops = 2 * (d + dv) * b * hq * live_pairs(sq, sk, causal, window)
+    nbytes = itemsize * (d + dv) * (b * hq * sq + b * hkv * sk)
     return (max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
             flops, nbytes)
 
@@ -1429,10 +1492,13 @@ def phase_consistency(params, cfg, tokens):
 
 
 def phase_serving(params, cfg, slots: int, max_len: int, n_requests: int,
-                  profile: bool):
+                  profile: bool, *, label: str = LM_ARCH, prompts=None,
+                  rescore: bool = True):
     """Phase 9: the LM engine at full width with ``slots`` slots of
-    ``max_len`` rows on ``n_requests`` requests (two waves). Returns the
-    report values; the idle share only where ``profile``."""
+    ``max_len`` rows on ``n_requests`` requests (two waves), on
+    ``prompts`` or random ones of 16-128 tokens. Where ``rescore``, the
+    first request is re-scored by ``forward``. Returns the report values;
+    the idle share only where ``profile``."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1440,8 +1506,10 @@ def phase_serving(params, cfg, slots: int, max_len: int, n_requests: int,
     from repro_torch.serve import Request, ServeEngine
 
     rng = np.random.default_rng(0)
-    lengths = rng.integers(16, 129, n_requests)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    if prompts is None:
+        lengths = rng.integers(16, 129, n_requests)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    lengths = np.asarray([len(p) for p in prompts])
     eng = ServeEngine(params, cfg, num_slots=slots, max_len=max_len)
     for uid, prompt in enumerate(prompts):
         eng.submit(Request(uid=uid, prompt=list(prompt), max_new_tokens=SERVE_NEW))
@@ -1459,22 +1527,23 @@ def phase_serving(params, cfg, slots: int, max_len: int, n_requests: int,
     check(all(len(r.output) == SERVE_NEW and r.done for r in done),
           f"{SERVE_NEW} tokens for every request")
     steps = snap["serve.lm.steps"]
-    cell = f"serve {LM_ARCH} slots={slots} max_len={max_len} requests={n_requests}"
+    cell = f"serve {label} slots={slots} max_len={max_len} requests={n_requests}"
     print(f"{cell} prompt_lengths={lengths.tolist()} "
           f"new_tokens={SERVE_NEW}: wall_s={secs} waves={eng.waves} "
           f"steps={steps} decode_tokens={tokens} decode_tokens_per_s={tokens / secs} "
           f"ms_per_step={secs * 1e3 / steps} peak_memory_gb={peak_gb} "
           f"launches={counts}")
     # Re-score the first request with forward (teacher-forced).
-    r = min(done, key=lambda x: x.uid)
-    seq = r.prompt + r.output
-    with torch.inference_mode():
-        logits = forward(params, cfg, np.asarray([seq]))[0]
-    p = len(r.prompt)
-    rows = logits[p - 1:p - 1 + len(r.output)]
-    margin_agreement(rows, torch.nn.functional.one_hot(
-        torch.tensor(r.output, device=rows.device), rows.shape[-1]).float(),
-        f"{cell}: request {r.uid} re-scored by forward")
+    if rescore:
+        r = min(done, key=lambda x: x.uid)
+        seq = r.prompt + r.output
+        with torch.inference_mode():
+            logits = forward(params, cfg, np.asarray([seq]))[0]
+        p = len(r.prompt)
+        rows = logits[p - 1:p - 1 + len(r.output)]
+        margin_agreement(rows, torch.nn.functional.one_hot(
+            torch.tensor(r.output, device=rows.device), rows.shape[-1]).float(),
+            f"{cell}: request {r.uid} re-scored by forward")
     idle = None
     if profile:
         # The idle share of a short run of the same engine, one wave.
@@ -1825,7 +1894,7 @@ def time_segsum(dev, name, data, ids, n):
     plain_ms = graph_ms(plain, calls=3, replays=3)
     lib_ms = cuda_ms(lambda: torch.segment_reduce(flat, "sum", lengths=lengths),
                      iters=5, warmup=1)
-    add_ms = cuda_ms(lambda: torch.zeros(n, d, device=dev).index_add_(
+    add_ms = cuda_ms(lambda: torch.zeros(n, d, device=dev, dtype=data.dtype).index_add_(
         0, long_ids, flat), iters=5, warmup=1)
     lib_err = float((torch.segment_reduce(flat, "sum", lengths=lengths)
                      - kernel().view(n, d)).abs().max())
@@ -2031,6 +2100,7 @@ def phase_lm(dev) -> dict:
             positions[None].expand(PREFILL_B, PREFILL_S))
     max_err, shape_a = phase_attention(dev, layer0_qkv)
     del layer0_qkv
+    mla_err = phase_attention_mla(dev)
     counts, prefill_s, tps, peak_gb, idle = phase_prefill(
         params, cfg, tokens, wall_s)
     phase_consistency(params, cfg, tokens[:, :CONSISTENCY_S])
@@ -2038,7 +2108,7 @@ def phase_lm(dev) -> dict:
     del params
     torch.cuda.empty_cache()
     return {
-        "counts": counts, "max_abs_err": max_err,
+        "counts": counts, "max_abs_err": max_err, "mla_err": mla_err,
         "prefill_s": prefill_s, "prefill_tps": tps, "prefill_peak_gb": peak_gb,
         "prefill_idle": idle, "serving": serving,
         "times": attention_times(shape_a, dev),
@@ -3602,6 +3672,472 @@ def phase_slice11(dev, ogb: dict, minibatch: dict, molecules: dict, cases) -> di
     return {"cells": cells, "times": times, "secs": secs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: MoE, MLA and the MTP head (mixtral-8x7b, deepseek-v3)
+# ---------------------------------------------------------------------------
+
+
+def rows_within(label, got, want, tol: float) -> float:
+    """Each row of ``got`` within ``tol`` of ``want``'s in norm:
+    ``||got_i - want_i|| <= tol * ||want_i||``, ``got`` finite. Prints the
+    worst row's ratio, the normwise error and, beside, how many elements
+    pass ``|got - want| > tol * rms(want) + tol * |want|``; returns the
+    largest |err|."""
+    import torch
+
+    g, w = got.float(), want.float()
+    check(g.shape == w.shape, f"{label}: shapes {tuple(g.shape)} vs {tuple(w.shape)}")
+    check(bool(torch.isfinite(g).all()), f"{label}: finite output")
+    diff = g - w
+    ratio = diff.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+    rms = float(w.square().mean().sqrt())
+    elem_over = int((diff.abs() > tol * rms + tol * w.abs()).sum())
+    err = float(diff.abs().max())
+    print(f"{label}: worst_row_rel_err={float(ratio.max())} "
+          f"normwise_rel_err={float(diff.norm() / w.norm())} max_abs_err={err} "
+          f"mean_abs_err={float(diff.abs().mean())} rms_want={rms} tol={tol} "
+          f"elements_past_{tol}_x_(rms+|want|)={elem_over} of {w.numel()}")
+    check(float(ratio.max()) <= tol, f"{label}: every row within {tol} in norm")
+    return err
+
+
+def mla_qkv(dev, gen, s: int, heads: int = MLA_HEADS):
+    """MLA's prefill operands as ``attention.py::mla_attention`` hands
+    them to the kernel: q and k (B, S, H, 192) from ``torch.cat``,
+    transposed; v the last 128 columns of the (B, S, H, 256) expansion of
+    the latent, transposed (a strided view the kernel reads in place)."""
+    import torch
+
+    bf = torch.bfloat16
+    q = torch.randn(1, s, heads, 192, device=dev, generator=gen).to(bf)
+    k = torch.randn(1, s, heads, 192, device=dev, generator=gen).to(bf)
+    kv = torch.randn(1, s, heads, 256, device=dev, generator=gen).to(bf)
+    return q.transpose(1, 2), k.transpose(1, 2), kv[..., 128:].transpose(1, 2)
+
+
+def phase_attention_mla(dev) -> float:
+    """Phase 6, MLA: the kernel's (D, Dv) = (192, 128) instance against
+    ``attention_ref`` on the model's layout, at deepseek-v3's prefill
+    shape (heads 0-15 and 112-127: Hq = Hkv, so a slice of heads is the
+    same attention) and at a ragged S; the views bit-equal to contiguous
+    copies. Returns the largest max_abs_err."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(dev).manual_seed(16)
+    bf = str(torch.bfloat16)
+    q, k, v = mla_qkv(dev, gen, MLA_S)
+    out = flash_attention(q, k, v, impl="cuda")
+    check(tuple(out.shape) == (1, MLA_HEADS, MLA_S, 128) and out.transpose(1, 2).is_contiguous(),
+          f"(o) MLA output (1, H, S, 128) laid out as q: {tuple(out.shape)} {out.stride()}")
+    errs = []
+    n = MLA_CHECK_HEADS
+    for heads in (slice(0, n), slice(MLA_HEADS - n, MLA_HEADS)):
+        errs.append(attn_err(out[:, heads], attention_ref(q[:, heads], k[:, heads], v[:, heads]),
+                             bf, f"(o) MLA B=1 H={MLA_HEADS} S={MLA_S} D=192 Dv=128 causal, "
+                             f"heads {heads.start}-{heads.stop - 1}"))
+    dense = flash_attention(*(x.contiguous() for x in (q, k, v)), impl="cuda")
+    check(torch.equal(out, dense), "(o) MLA views and contiguous copies give the same bits")
+    check(torch.equal(out, flash_attention(q, k, v, impl="cuda")),
+          "(o) MLA two calls bit-equal")
+    print("flash_attention (o) MLA: views bit-equal to contiguous copies; two calls bit-equal")
+    del q, k, v, out, dense
+    q, k, v = mla_qkv(dev, gen, MLA_RAGGED_S)
+    for causal in (True, False):
+        errs.append(attn_err(flash_attention(q, k, v, causal=causal, impl="cuda"),
+                             attention_ref(q, k, v, causal=causal), bf,
+                             f"(p) MLA ragged S={MLA_RAGGED_S} D=192 Dv=128 causal={causal}"))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def combine_ids(dev, t: int, k: int):
+    """The MoE combine's token ids: ``k`` rows a token, token-major."""
+    import torch
+
+    return torch.arange(t, dtype=torch.int32, device=dev).repeat_interleave(k)
+
+
+def phase_segment_sum_moe(dev) -> float:
+    """Phase 2, ``segment_sum`` at the MoE combines' shapes (bf16, ``top_k``
+    rows a token): within phase 2's bf16 tolerance of its plain version,
+    and two calls bit-equal. Returns the largest max_abs_err."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(17)
+    errs = []
+    for name, t, k, d in MOE_COMBINES:
+        ids = combine_ids(dev, t, k)
+        data = torch.randn(t * k, d, device=dev, generator=gen).to(torch.bfloat16)
+        label = f"{name} MoE combine ({t * k}, {d}) bf16, {k} rows a token"
+        errs.append(segsum_check(label, data, ids, t))
+        segsum_bit_equal(label, data, ids, t)
+        del data, ids
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def sdpa_backend(q, k, v):
+    """The first of PyTorch's SDPA backends (flash, cuDNN, efficient) that
+    takes these inputs, or None."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            torch.cuda.synchronize()
+            return backend
+        except RuntimeError as err:
+            print(f"sdpa backend {backend.name} refuses (D, Dv) = "
+                  f"({q.shape[-1]}, {v.shape[-1]}): {str(err).splitlines()[0][:160]}")
+    return None
+
+
+def moe_kernel_times(dev, card: str) -> dict:
+    """Phase 16's kernel times, before the models load: ``flash_attention``
+    at MLA's prefill shape (device ms, ms per Python call, the plain
+    version's, SDPA's where a backend takes Dv != D, the FLOP bound) with
+    the ``torch.cat`` that writes the shared rope key into each head's
+    key beside it; at mixtral's windowed prefill; ``segment_sum`` at each
+    combine shape; and the sorted-vs-unsorted dispatch A/B at
+    deepseek-v3's T = 4096, k = 8, E = 256."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.transformer import moe
+
+    gen = torch.Generator(dev).manual_seed(18)
+    out = {}
+    q, k, v = mla_qkv(dev, gen, MLA_S)
+    bound, flops, nbytes = attention_bound_ms(1, MLA_HEADS, MLA_HEADS, MLA_S, MLA_S, 192,
+                                              True, None, 2, dv=128)
+    ms = graph_ms(lambda: flash_attention(q, k, v, impl="cuda"))
+    eager = cuda_ms(lambda: flash_attention(q, k, v, impl="cuda"), iters=20)
+    plain = cuda_ms(lambda: attention_ref(q, k, v), iters=2, warmup=1)
+    backend = sdpa_backend(q, k, v)
+    sdpa_ms = None
+    if backend is not None:
+        def sdpa():
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        sdpa_ms = graph_ms(sdpa)
+        sdpa_err = float((sdpa().float() - flash_attention(q, k, v, impl="cuda").float())
+                         .abs().max())
+        print(f"sdpa {backend.name} at (D, Dv) = (192, 128): max |sdpa - kernel| = {sdpa_err}")
+    k_nope = torch.randn(1, MLA_S, MLA_HEADS, 128, device=dev, generator=gen).to(torch.bfloat16)
+    k_rope = torch.randn(1, MLA_S, 64, device=dev, generator=gen).to(torch.bfloat16)
+    cat_ms = graph_ms(lambda: torch.cat(
+        [k_nope, k_rope[:, :, None, :].expand(1, MLA_S, MLA_HEADS, 64)], dim=-1))
+    print(f"time flash_attention MLA B=1 H={MLA_HEADS} S={MLA_S} D=192 Dv=128 bf16 causal: "
+          f"ms={ms} eager_ms={eager} plain_ms={plain} "
+          f"sdpa_ms={sdpa_ms} ({'no backend' if backend is None else backend.name}) "
+          f"bound_ms={bound} flops={flops} bytes={nbytes} share_of_bound={bound / ms} "
+          f"tflops={flops / ms / 1e9}; the k_rope broadcast copy (torch.cat into "
+          f"(1, S, H, 192)) ms={cat_ms} [{card}]")
+    out["mla"] = (ms, plain, eager, sdpa_ms, bound)
+    del q, k, v, k_nope, k_rope
+    torch.cuda.empty_cache()
+    mix = get_arch("mixtral-8x7b").config
+    s, w = MOE_CELLS[0][2], mix.sliding_window
+    qs, ks, vs = (torch.randn(1, h, s, mix.head_dim, device=dev, generator=gen)
+                  .to(torch.bfloat16) for h in (mix.num_heads, mix.num_kv_heads,
+                                                mix.num_kv_heads))
+    wbound, wflops, _ = attention_bound_ms(1, mix.num_heads, mix.num_kv_heads, s, s,
+                                           mix.head_dim, True, w, 2)
+    wms = graph_ms(lambda: flash_attention(qs, ks, vs, window=w, impl="cuda"))
+    print(f"time flash_attention mixtral B=1 Hq={mix.num_heads} Hkv={mix.num_kv_heads} "
+          f"S={s} D={mix.head_dim} window={w} bf16 causal: ms={wms} bound_ms={wbound} "
+          f"share_of_bound={wbound / wms} tflops={wflops / wms / 1e9} [{card}]")
+    del qs, ks, vs
+    for name, t, k_, d in MOE_COMBINES:
+        ids = combine_ids(dev, t, k_)
+        data = torch.randn(t * k_, d, device=dev, generator=gen).to(torch.bfloat16)
+        out[name] = time_segsum(dev, f"{name} MoE combine ({t * k_}, {d}) bf16, "
+                                     f"{k_} rows a token", data, ids, t)
+        del data, ids
+    torch.cuda.empty_cache()
+    # The dispatch A/B: the same buffers by the sort and by the one-hot
+    # cumulative sum (the paper's coalescing guideline); printed, no claim.
+    cfg = get_arch("deepseek-v3-671b").config
+    m, t = cfg.moe, MOE_COMBINES[1][1]
+    tokens = torch.randn(t, cfg.d_model, device=dev, generator=gen).to(torch.bfloat16)
+    router = torch.randn(cfg.d_model, m.num_experts, device=dev, generator=gen) \
+        * cfg.d_model ** -0.5
+    gates, eidx = moe._route(tokens, router, m)
+    cap = moe._capacity(t, m, m.num_experts)
+    times, bufs = {}, {}
+    for dispatch in ("sorted_ep", "unsorted"):
+        md = dataclasses.replace(m, dispatch=dispatch)
+        bufs[dispatch] = moe._dispatch(tokens, gates, eidx, md, m.num_experts, cap)[0]
+        times[dispatch] = cuda_ms(lambda: moe._dispatch(tokens, gates, eidx, md,
+                                                        m.num_experts, cap), iters=20)
+    check(torch.equal(bufs["sorted_ep"], bufs["unsorted"]),
+          "the sorted and unsorted dispatches build the same buffer")
+    print(f"dispatch A/B deepseek-v3 T={t} k={m.top_k} E={m.num_experts} capacity={cap} "
+          f"d={cfg.d_model} bf16: sorted_ep_ms={times['sorted_ep']} "
+          f"unsorted_ms={times['unsorted']} (events around Python calls; the same "
+          f"buffer) [{card}]")
+    del tokens, router, gates, eidx, bufs
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_oracle(p, cfg, x):
+    """An MoE layer computed independently of the port's dispatch, expert
+    and combine code: for each expert a float32 loop over the first
+    ``capacity`` tokens, in token order, that chose it (routing from the
+    port's float32 ``_route``, the same product), the expert's SwiGLU in
+    float32 on float32 copies of its weights, gates applied, summed per
+    token with ``index_add_``; the shared expert added in float32.
+    x: (T, d); returns (T, d) float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.transformer import moe
+
+    m = cfg.moe
+    t = x.shape[0]
+    gates, eidx = moe._route(x, p.router, m)
+    cap = moe._capacity(t, m, m.num_experts)
+    xf = x.float()
+    out = torch.zeros(t, x.shape[1], device=x.device)
+    kept = 0
+    for e in range(m.num_experts):
+        tok, slot = (eidx == e).nonzero(as_tuple=True)  # token order
+        tok, slot = tok[:cap], slot[:cap]
+        kept += tok.numel()
+        xe = xf[tok]
+        h = F.silu(xe @ p.w_gate[e].float()) * (xe @ p.w_up[e].float())
+        out.index_add_(0, tok, (h @ p.w_down[e].float()) * gates[tok, slot, None])
+    if m.num_shared_experts:
+        h = F.silu(xf @ p.w_gate_shared.float()) * (xf @ p.w_up_shared.float())
+        out += h @ p.w_down_shared.float()
+    return out, kept, cap
+
+
+def check_moe_layers(params, cfg, tokens) -> None:
+    """Each MoE layer of ``params`` against ``moe_oracle`` on the input
+    it gets in a forward of ``tokens`` (the trunk run layer by layer)."""
+    import torch
+
+    from repro_torch.models.common import activation_fn, rms_norm
+    from repro_torch.models.transformer import model, moe
+
+    act = activation_fn(cfg.activation)
+    with torch.inference_mode():
+        x = model.embed_lookup(params, cfg, model.as_tokens(params, tokens))
+        b, s = tokens.shape
+        positions = model._positions(b, s, x.device)
+        for group, i, layer in params.layers():
+            if layer.moe is None:
+                x = model._layer_fwd(layer, cfg, x, positions)
+                continue
+            h = x + model._attn(layer.attn, cfg, rms_norm(x, layer.ln1), positions)
+            hn = rms_norm(h, layer.ln2)
+            got = moe.moe_ffn(layer.moe, cfg, hn, act)
+            want, kept, cap = moe_oracle(layer.moe, cfg, hn.reshape(b * s, -1))
+            rows_within(f"{cfg.name} {group} layer {i} MoE (T={b * s}, capacity {cap}, "
+                       f"{b * s * cfg.moe.top_k - kept} copies dropped) against the "
+                       f"float32 oracle", got.reshape(b * s, -1), want, MOE_TOL)
+            x = h + got
+            del want
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Record each call of the MoE router (``moe._route``): the chosen
+    experts (T, k) and the gap between the k-th and (k+1)-th probability
+    of each token."""
+    import torch
+
+    from repro_torch.models.transformer import moe
+
+    calls = []
+    route = moe._route
+
+    def record(tokens, router, m):
+        gates, eidx = route(tokens, router, m)
+        probs = torch.softmax(tokens.float() @ router, dim=-1)
+        top = probs.topk(m.top_k + 1, dim=-1).values
+        calls.append((eidx.sort(-1).values, top[:, -2] - top[:, -1]))
+        return gates, eidx
+
+    moe._route = record
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def moe_consistency(params, cfg, tokens) -> float:
+    """Phase 16's prefill against decode (B = 1): ``forward``'s logits and
+    the decode loop's at every position, each MoE layer's routing recorded
+    in both. bf16 activations differ between the two paths by a rounding,
+    so a token whose k-th and (k+1)-th router probabilities nearly tie can
+    take another expert in one of them (a routing flip): such tokens are
+    counted, each must have had a gap below 1e-2 at its first flip, and
+    the margin rule holds at every other position. Returns the largest
+    |logit difference| over the positions without a flip."""
+    import torch
+
+    from repro_torch.models.transformer import forward, init_kv_cache, serve_step
+
+    b, s = tokens.shape
+    n_moe = cfg.num_moe_layers()
+    with torch.inference_mode():
+        with recorded_routes() as fwd_routes:
+            full = forward(params, cfg, tokens)[0]
+        tok = torch.from_numpy(np.ascontiguousarray(tokens)).to(full.device)
+        cache = init_kv_cache(cfg, b, s, device=full.device)
+        dec = torch.empty_like(full)
+        with recorded_routes() as dec_routes:
+            for i in range(s):
+                logits, cache = serve_step(params, cfg, cache, tok[:, i:i + 1], i)
+                dec[i] = logits[0, 0]
+        del cache
+    flipped = torch.zeros(s, dtype=torch.bool, device=full.device)
+    gaps = []
+    for layer in range(n_moe):
+        fwd_e, fwd_gap = fwd_routes[layer]
+        dec_e = torch.cat([dec_routes[i * n_moe + layer][0] for i in range(s)])
+        dec_gap = torch.cat([dec_routes[i * n_moe + layer][1] for i in range(s)])
+        flip = (fwd_e != dec_e).any(-1)
+        # A token's first flip is a near-tie; past it the token's hidden
+        # state differs, and its later layers may route apart freely.
+        gaps += torch.minimum(fwd_gap, dec_gap)[flip & ~flipped].tolist()
+        flipped |= flip
+    keep = ~flipped
+    diff = (full - dec).abs()
+    max_diff = float(diff[keep].max())
+    print(f"prefill vs decode {cfg.name} B={b} S={s}, every position: routing flips at "
+          f"{int(flipped.sum())} positions {flipped.nonzero().flatten().tolist()} with router "
+          f"gaps at the first flip {[round(g, 6) for g in gaps]}; elsewhere max_abs_diff={max_diff} "
+          f"mean_abs_diff={float(diff[keep].mean())}; at the flips max_abs_diff="
+          f"{float(diff[flipped].max()) if flipped.any() else 0.0}")
+    check(all(g < 1e-2 for g in gaps), f"{cfg.name}: every routing flip is a near-tie")
+    margin_agreement(dec[keep], full[keep], f"prefill vs decode {cfg.name}, positions "
+                     f"without a routing flip")
+    return max_diff
+
+
+def moe_prompts(cfg):
+    """``MOE_SERVE_REQUESTS`` prompts of 16-128 tokens from ``lm_batch``."""
+    from repro_torch.data.lm import lm_batch
+
+    lengths = np.random.default_rng(0).integers(16, 129, MOE_SERVE_REQUESTS)
+    toks = lm_batch(MOE_SERVE_REQUESTS, 128, cfg.vocab_size, seed=1)["tokens"]
+    return [toks[i, :n].tolist() for i, n in enumerate(lengths)]
+
+
+def moe_cell(dev, name: str, layers: int, prefill_s: int, serve_len: int, card: str) -> dict:
+    """One model of phase 16 at its published width, ``layers`` deep:
+    init, each MoE layer against the oracle, the prefill (launches counted
+    from 0, timed, peak memory, idle share), the MTP head where the model
+    has one, prefill against decode on a prefix with no token dropped,
+    and ``ServeEngine`` on ``lm_batch`` prompts. Returns the report."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import forward, hidden_states, init_params
+    from repro_torch.models.transformer.model import _mtp_logits
+
+    full = get_arch(name).config
+    cfg = dataclasses.replace(full, num_layers=layers)
+    cut = (f"{name} at full width, {cfg.num_dense_layers_effective()} dense + "
+           f"{cfg.num_moe_layers()} MoE of {full.num_dense_layers_effective()} + "
+           f"{full.num_moe_layers()} layers" + (", the MTP layer" if cfg.mtp_depth else ""))
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"model {cut}: params={n_params} dtype={cfg.dtype} "
+          f"init_s={time.perf_counter() - t0} memory_gb={torch.cuda.memory_allocated() / 1e9}")
+    tokens = lm_batch(1, prefill_s, cfg.vocab_size, seed=0)["tokens"]
+    check_moe_layers(params, cfg, tokens)
+    rep = {"label": cut}
+    with torch.inference_mode():
+        forward(params, cfg, tokens)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        logits, first = wall_s(lambda: forward(params, cfg, tokens))
+        counts = dict(launch_counts)
+        rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(counts["flash_attention"] == layers,
+              f"{name}: flash_attention launched {counts['flash_attention']} times in a "
+              f"forward of {layers} layers")
+        check(counts["segment_sum"] == cfg.num_moe_layers(),
+              f"{name}: segment_sum launched {counts['segment_sum']} times in a forward "
+              f"of {cfg.num_moe_layers()} MoE layers (the combine)")
+        check(tuple(logits.shape) == (1, prefill_s, cfg.vocab_size)
+              and logits.dtype == torch.float32 and bool(torch.isfinite(logits).all()),
+              f"{name}: finite float32 logits (1, S, V)")
+        del logits
+        secs = [first] + [wall_s(lambda: forward(params, cfg, tokens))[1]
+                          for _ in range(E2E_SAMPLES - 1)]
+        _, busy, events, ranked, idle = device_share(lambda: forward(params, cfg, tokens),
+                                                     top=8)
+        rep.update(counts=counts, prefill_s=median(secs), idle=idle,
+                   tps=prefill_s / median(secs))
+        print(f"prefill {cut} B=1 S={prefill_s}: wall_ms={rep['prefill_s'] * 1e3} "
+              f"samples_ms={[x * 1e3 for x in secs]} tokens_per_s={rep['tps']} "
+              f"launches={counts} peak_memory_gb={rep['peak_gb']} device_busy_ms={busy} "
+              f"device_events={events} device_idle_share={idle} [{card}]")
+        for kernel, ms in ranked:
+            print(f"prefill {name} device time by kernel: {ms:.3f} ms {kernel[:110]}")
+        if cfg.mtp_depth:
+            hidden = hidden_states(params, cfg, tokens)
+            reset_launch_counts()
+            mtp, mtp_s = wall_s(lambda: _mtp_logits(params, cfg, hidden, tokens))
+            rep["mtp_launches"] = launch_counts["flash_attention"]
+            check(rep["mtp_launches"] == 1 and tuple(mtp.shape) == (1, prefill_s, cfg.vocab_size)
+                  and bool(torch.isfinite(mtp).all()),
+                  f"{name}: the MTP head's finite logits, one flash_attention launch")
+            rep["mtp_s"] = mtp_s
+            print(f"mtp {cut} S={prefill_s}: wall_ms={mtp_s * 1e3} "
+                  f"flash_attention launches={rep['mtp_launches']} "
+                  f"logit_std={float(mtp.std())} [{card}]")
+            del hidden, mtp
+    # Prefill against decode with every token kept: a capacity of every
+    # token (capacity_factor max(8, E / k)) in both the prefill and each
+    # step, so only routing flips (near-ties) tell the two apart.
+    m = cfg.moe
+    keep_all = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=max(8.0, m.num_experts / m.top_k)))
+    rep["consistency"] = moe_consistency(params, keep_all, tokens[:, :MOE_CONSISTENCY_S])
+    rep["serving"] = phase_serving(params, cfg, MOE_SERVE_SLOTS, serve_len,
+                                   MOE_SERVE_REQUESTS, True, label=cut,
+                                   prompts=moe_prompts(cfg), rescore=False)
+    del params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_moe(dev, card: str) -> dict:
+    """Phase 16: the kernels' times at the new shapes, then mixtral-8x7b
+    and deepseek-v3 in turn (each freed before the next). Returns the
+    cells, the kernel times and the phase's seconds."""
+    t_phase = time.perf_counter()
+    times = moe_kernel_times(dev, card)
+    cells = {name: moe_cell(dev, name, layers, s, serve_len, card)
+             for name, layers, s, serve_len in MOE_CELLS}
+    secs = time.perf_counter() - t_phase
+    print(f"phase 16 moe, mla and mtp: s={secs}")
+    return {"cells": cells, "times": times, "secs": secs}
+
+
 def main() -> int:
     import torch
 
@@ -3667,6 +4203,7 @@ def main() -> int:
     errs["segment_sum"] = phase_segment_sum(dev, ogb["dst"])
     phase_segment_sum_slice11(dev, slice11_cases)
     phase_segment_ops(dev)
+    moe_combine_err = phase_segment_sum_moe(dev)
 
     # Phases 3 and 4: the main path, launches counted from 0 in each run.
     check_sample_table(dev, dense[:, 0], dense[:, 1], CC_DENSE_N,
@@ -3732,6 +4269,14 @@ def main() -> int:
     slice11 = phase_slice11(dev, ogb, minibatch, molecules, slice11_cases)
     del ogb, minibatch, molecules, slice11_cases
     launches["segment_sum"] += sum(cell["launches"] for cell in slice11["cells"])
+
+    # Phase 16: MoE, MLA and the MTP head, launches counted from 0 in each
+    # model's timed prefill (and the MTP call).
+    moe = phase_moe(dev, card)
+    for cell in moe["cells"].values():
+        for name in ("flash_attention", "segment_sum"):
+            launches[name] += cell["counts"][name]
+    launches["flash_attention"] += moe["cells"]["deepseek-v3-671b"]["mtp_launches"]
     errs["flash_attention"] = lm["max_abs_err"]
     records = []
     for name, (ms, plain_ms, eager_ms, nbytes) in times.items():
@@ -3780,6 +4325,34 @@ def main() -> int:
     print(f"time segment_sum (record, {GNN_SHAPE} (m, {GNN_D}) float32): "
           f"ms={ss_ms} eager_ms={ss_eager} plain_ms={ss_plain} "
           f"library_ms(segment_reduce)={ss_lib} bound_ms={ss_bound} [{card}]")
+    # Phase 16's shapes: the MLA instance and the two MoE combines, each
+    # with its launches in phase 16's timed prefill (and the MTP call).
+    ds = moe["cells"]["deepseek-v3-671b"]
+    mla_ms, mla_plain, mla_eager, mla_sdpa, mla_bound = moe["times"]["mla"]
+    records.append({
+        "name": "flash_attention.mla_192_128", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": KERNELS["flash_attention"][1],
+        "launches": ds["counts"]["flash_attention"] + ds["mtp_launches"],
+        "max_abs_err": lm["mla_err"], "ms": mla_ms, "plain_ms": mla_plain,
+        "bound_ms": mla_bound, "bound_by": "operations", "library_ms": mla_sdpa,
+    })
+    print(f"time flash_attention MLA (record, B=1 H={MLA_HEADS} S={MLA_S} D=192 Dv=128): "
+          f"ms={mla_ms} eager_ms={mla_eager} plain_ms={mla_plain} "
+          f"library_ms(sdpa)={mla_sdpa} bound_ms={mla_bound} [{card}]")
+    for name, t, k, d in MOE_COMBINES:
+        c_ms, c_plain, c_eager, c_lib, c_bound = moe["times"][name]
+        records.append({
+            "name": f"segment_sum.moe_combine_{name.split('-')[0]}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+            "replaces": KERNELS["segment_sum"][1],
+            "launches": moe["cells"][name]["counts"]["segment_sum"],
+            "max_abs_err": moe_combine_err, "ms": c_ms, "plain_ms": c_plain,
+            "bound_ms": c_bound, "bound_by": "bytes", "library_ms": c_lib,
+        })
+        print(f"time segment_sum MoE combine (record, {name} ({t * k}, {d}) bf16): "
+              f"ms={c_ms} eager_ms={c_eager} plain_ms={c_plain} "
+              f"library_ms(segment_reduce)={c_lib} bound_ms={c_bound} [{card}]")
     records.append({
         "name": "ordered_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ordered_fold.cu",
@@ -3859,6 +4432,20 @@ def main() -> int:
               f"segment_sum_launches={cell['launches']} device_idle_share="
               f"{'not profiled' if cell['idle'] is None else cell['idle']} [{card}]")
     print(f"e2e slice 11 phase_s={slice11['secs']} [{card}]")
+    for name, cell in moe["cells"].items():
+        tps, steps, ms_step, peak, idle = cell["serving"]
+        print(f"e2e prefill {cell['label']} B=1 S={dict((c[0], c[2]) for c in MOE_CELLS)[name]}: "
+              f"wall_ms={cell['prefill_s'] * 1e3} tokens_per_s={cell['tps']} "
+              f"peak_memory_gb={cell['peak_gb']} device_idle_share={cell['idle']} "
+              f"launches={cell['counts']} [{card}]")
+        print(f"e2e serve {cell['label']} slots={MOE_SERVE_SLOTS} "
+              f"{MOE_SERVE_REQUESTS} requests x {SERVE_NEW} tokens: "
+              f"decode_tokens_per_s={tps} steps={steps} ms_per_step={ms_step} "
+              f"peak_memory_gb={peak} device_idle_share={idle} [{card}]")
+        if "mtp_s" in cell:
+            print(f"e2e mtp {cell['label']}: wall_ms={cell['mtp_s'] * 1e3} [{card}]")
+        print(f"e2e prefill vs decode {name}: max_abs_diff={cell['consistency']} [{card}]")
+    print(f"e2e moe phase_s={moe['secs']} [{card}]")
     print(f"chip_smoke total_s={time.perf_counter() - start}")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))

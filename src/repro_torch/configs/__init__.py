@@ -1,17 +1,17 @@
 """Architecture registry of the port: ``get_arch(name)`` under the names
 of ``repro.configs``.
 
-The three dense GQA/MQA/MHA language models are ported; each returns an
-``Arch`` with the full-width ``config`` and the small ``smoke_config``
-of the reference. The GNNs gin-tu, gat-cora, egnn and mace return a
-``GNNArch`` (``configs/gnn_family.py``), whose ``config_for(shape)``
-sizes the model for one of ``GNN_SHAPES``; their forwards aggregate
-with the ``segment_sum`` kernel. xdeepfm returns a ``RecsysArch``
+Every language model is ported: the three dense GQA/MQA/MHA ones,
+mixtral-8x7b (MoE, sliding window) and deepseek-v3-671b (MoE, MLA, the
+MTP head); each returns an ``Arch`` with the full-width ``config`` and
+the small ``smoke_config`` of the reference. The GNNs gin-tu, gat-cora,
+egnn and mace return a ``GNNArch`` (``configs/gnn_family.py``), whose
+``config_for(shape)`` sizes the model for one of ``GNN_SHAPES``; their
+forwards aggregate with the ``segment_sum`` kernel. xdeepfm returns a ``RecsysArch``
 (``configs/recsys_family.py``). The reference's dry-run plumbing
 (``LMArch.build``, ``GNNArch.build``, ``RecsysArch.build``,
 ``DryRunSpec``, the mesh shapes) is launch work and waits for ROADMAP
-queue 1, item 17. The MoE names raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+queue 1, item 17.
 """
 from __future__ import annotations
 
@@ -24,17 +24,13 @@ _ARCH_MODULES = {
     "gemma-2b": "repro_torch.configs.gemma_2b",
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "gat-cora": "repro_torch.configs.gat_cora",
     "gin-tu": "repro_torch.configs.gin_tu",
     "egnn": "repro_torch.configs.egnn",
     "mace": "repro_torch.configs.mace",
     "xdeepfm": "repro_torch.configs.xdeepfm",
-}
-
-# Registered in the reference, not ported yet: name -> ROADMAP item.
-_NOT_PORTED = {
-    "deepseek-v3-671b": "queue 1, item 15 (MoE and MLA)",
-    "mixtral-8x7b": "queue 1, item 15 (MoE)",
 }
 
 ARCH_NAMES = [
@@ -56,11 +52,6 @@ class Arch:
 def get_arch(name: str):
     """The ``Arch`` of a language model, the ``GNNArch`` of a GNN or the
     ``RecsysArch`` of xdeepfm."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP {_NOT_PORTED[name]})"
-        )
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     mod = importlib.import_module(_ARCH_MODULES[name])

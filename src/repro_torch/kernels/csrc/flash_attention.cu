@@ -26,9 +26,10 @@
 // 4096, D = 128 does 2.75e11 FLOPs (0.278 ms at 989 TFLOP/s) and must move
 // 168 MB (0.050 ms at 3.35 TB/s). Its time against that bound is in PERF.md.
 //
-// bfloat16, every head dim (16 to 256). Only wgmma reaches the tensor cores'
-// rate, and only if the loads overlap the math, so a block is warp-
-// specialised, as FlashAttention-3:
+// bfloat16, every head dim (16 to 256) with v's head dim Dv equal to D, and
+// MLA's D = 192 (nope 128 + rope 64) with Dv = 128. Only wgmma reaches the
+// tensor cores' rate, and only if the loads overlap the math, so a block is
+// warp-specialised, as FlashAttention-3:
 //   - 128 query rows of one (b, h) per block of three warpgroups. Warpgroup 0
 //     is the producer: one thread issues TMA loads of the Q tile (once) and of
 //     K and V tiles of BK keys into a ring of two stages, each load signalling
@@ -39,10 +40,12 @@
 //     softmax runs on the accumulator in registers, in log2 units (ex2 on the
 //     special-function unit), row max and sum over the quad of lanes that
 //     share a row; P, rounded to bf16 in registers, is the register A operand
-//     of O += P V (wgmma m64nDk16), whose B operand V is read MN-major (the
+//     of O += P V (wgmma m64nDvk16), whose B operand V is read MN-major (the
 //     transpose bit), so no transposed copy of V is made. Each step issues
 //     the next tile's S and the last tile's P V together. O is rescaled and
-//     divided by l in float32 and cast once.
+//     divided by l in float32 and cast once. On the tile of keys 0..BK-1,
+//     which the first rows' few large p weigh, P's bf16 rounding residual
+//     is multiplied by V too (one more P V for that tile).
 //   - Tiles are 64 columns (one 128-byte swizzle row) wide: TMA writes them
 //     with the 128-byte swizzle that the wgmma descriptors name. A head dim
 //     below a multiple of 64 (16, 32, 96) loads as the next multiple: TMA
@@ -57,13 +60,16 @@
 //     views go in and out without a copy. The maps are encoded on the host
 //     with cuTensorMapEncodeTiled, a driver function reached through
 //     cudaGetDriverEntryPoint: the library links no libcuda.
-//   - BK is 128 keys, 64 for D = 256 (whose O accumulator alone takes 128
-//     registers). The grid is (B * Hq, query tiles), the longest causal rows
+//   - BK is 128 keys, 64 for Dv = 256 (whose O accumulator alone takes 128
+//     registers). At (192, 128) Q K^T takes 12 k-steps of 16 over three
+//     panels and P V writes 128 columns; Q (48 KB), two K stages (48 KB each)
+//     and two V stages (32 KB each) take 209 KB of the 227 KB a block may
+//     have. The grid is (B * Hq, query tiles), the longest causal rows
 //     first; one block fits an SM. No atomics: every call gives the same bits.
 //
 // float32: no tensor cores (TF32 would break the 2e-3 tolerance): scores and
 // the accumulator are float32 FMA, with S and acc in shared memory, BK = 32,
-// 64 query rows a block, on contiguous inputs.
+// 64 query rows a block, on contiguous inputs, Dv = D.
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; libcuda is not linked
 #include <cuda_bf16.h>
@@ -107,20 +113,25 @@ constexpr int kConsumerRegs = 240;
 struct TcParams {
   __nv_bfloat16* o;
   long long o_sb, o_sh, o_ss;  // out's strides in elements (batch, head, row)
-  int hq, hkv, sq, sk, d, causal, window;
+  int hq, hkv, sq, sk, dv, causal, window;
   float scale2;                // log2(e) / sqrt(D)
 };
 
-// DP: D rounded up to a multiple of 64 (the width loaded and multiplied).
-template <int DP>
+// DP: D rounded up to a multiple of 64 (the width of q and k loaded and
+// multiplied); DV: Dv rounded up likewise (v's and the output's).
+template <int DP, int DV>
 struct TcShape {
-  static constexpr int BK = DP <= 128 ? 128 : 64;
+  static constexpr int BK = DV <= 128 ? 128 : 64;
   static constexpr int NP = DP / kPanel;
+  static constexpr int NPV = DV / kPanel;
   static constexpr uint32_t Q_BYTES = kBlockM * DP * 2;
-  static constexpr uint32_t KV_BYTES = BK * DP * 2;
+  static constexpr uint32_t K_BYTES = BK * DP * 2;
+  static constexpr uint32_t V_BYTES = BK * DV * 2;
   // 1024 bytes to align the tiles (the swizzle repeats every 1024), the Q
   // tile, K and V rings, and 1 + 4 * kStages mbarriers.
-  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * kStages * KV_BYTES + 8 * (1 + 4 * kStages);
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + kStages * (K_BYTES + V_BYTES) + 8 * (1 + 4 * kStages);
+  static_assert(SMEM <= 227 * 1024, "a block's shared memory is at most 227 KB");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -404,12 +415,12 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_rows, u
 // O += P V for one tile, issued: BK / 16 steps of 16 keys. V is MN-major:
 // 64-column panels BK * 128 bytes apart (leading offset), 8-key groups 1024
 // bytes apart.
-template <int DP, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[DP / 2], const uint32_t (&pa)[BK / 16][4],
+template <int DV, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&pa)[BK / 16][4],
                                          uint32_t v_tile) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    Wgmma<DP>::rs(o, pa[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024));
+    Wgmma<DV>::rs(o, pa[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024));
 }
 
 // 2^x on the special-function unit (exp2f adds a range fix-up that these
@@ -499,10 +510,25 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BK / 2], uint32_t (&pa)
   }
 }
 
-template <int DP>
-__device__ __forceinline__ void rescale(float (&o)[DP / 2], const float (&alpha)[2]) {
+// P's rounding residual as the A operand, in place: pa (P rounded to bf16,
+// from pack_p) becomes bf16(p - pa), so that P V + residual V is P V to about
+// 2^-17 of each p.
+template <int BK>
+__device__ __forceinline__ void pack_p_residual(const float (&sc)[BK / 2],
+                                                uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pa[kk][e]));
+      pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e] - hi.x, sc[8 * kk + 2 * e + 1] - hi.y);
+    }
+}
+
+template <int DV>
+__device__ __forceinline__ void rescale(float (&o)[DV / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) {
     o[4 * j] *= alpha[0];
     o[4 * j + 1] *= alpha[0];
     o[4 * j + 2] *= alpha[1];
@@ -510,20 +536,22 @@ __device__ __forceinline__ void rescale(float (&o)[DP / 2], const float (&alpha)
   }
 }
 
-template <int DP>
+template <int DP, int DV>
 __global__ void __launch_bounds__(kTcThreads, 1)
     attn_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const TcParams p) {
-  using Shape = TcShape<DP>;
+  using Shape = TcShape<DP, DV>;
   constexpr int BK = Shape::BK;
   constexpr int NP = Shape::NP;
+  constexpr int NPV = Shape::NPV;
   extern __shared__ unsigned char smem_raw[];
-  // Tiles: Q (NP panels of 128 rows x 128 bytes), then the K ring and the V
-  // ring (kStages stages of NP panels of BK rows x 128 bytes), 1024-aligned.
+  // Tiles: Q (NP panels of 128 rows x 128 bytes), then the K ring (kStages
+  // stages of NP panels of BK rows x 128 bytes) and the V ring (kStages
+  // stages of NPV such panels), 1024-aligned.
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = q_s + Shape::Q_BYTES;
-  const uint32_t v_s = k_s + kStages * Shape::KV_BYTES;
-  const uint32_t bar_q = v_s + kStages * Shape::KV_BYTES;
+  const uint32_t v_s = k_s + kStages * Shape::K_BYTES;
+  const uint32_t bar_q = v_s + kStages * Shape::V_BYTES;
   const uint32_t full_k = bar_q + 8;  // stage s at + 8 s
   const uint32_t full_v = full_k + 8 * kStages;
   const uint32_t empty_k = full_v + 8 * kStages;
@@ -564,17 +592,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const int k0 = (hi - i) * BK;
         const int s = i % kStages;
         const uint32_t parity = ((i / kStages) & 1) ^ 1;
-        const uint32_t off = s * Shape::KV_BYTES;
+        const uint32_t k_off = s * Shape::K_BYTES;
+        const uint32_t v_off = s * Shape::V_BYTES;
         mbar_wait(empty_k + 8 * s, parity);
-        mbar_expect_tx(full_k + 8 * s, Shape::KV_BYTES);
+        mbar_expect_tx(full_k + 8 * s, Shape::K_BYTES);
 #pragma unroll
         for (int pp = 0; pp < NP; ++pp)
-          tma_load(k_s + off + pp * BK * 128, &tk, pp * kPanel, k0, kvh, b, full_k + 8 * s);
+          tma_load(k_s + k_off + pp * BK * 128, &tk, pp * kPanel, k0, kvh, b, full_k + 8 * s);
         mbar_wait(empty_v + 8 * s, parity);
-        mbar_expect_tx(full_v + 8 * s, Shape::KV_BYTES);
+        mbar_expect_tx(full_v + 8 * s, Shape::V_BYTES);
 #pragma unroll
-        for (int pp = 0; pp < NP; ++pp)
-          tma_load(v_s + off + pp * BK * 128, &tv, pp * kPanel, k0, kvh, b, full_v + 8 * s);
+        for (int pp = 0; pp < NPV; ++pp)
+          tma_load(v_s + v_off + pp * BK * 128, &tv, pp * kPanel, k0, kvh, b, full_v + 8 * s);
       }
     }
   } else {
@@ -586,10 +615,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int row = q0 + 64 * c + 16 * (t / 32) + lane / 4;  // and row + 8
     const int col = 2 * (lane % 4);                          // and col + 1, + 8j
 
-    float o[DP / 2];
+    float o[DV / 2];
     float sc[BK / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
     uint32_t pa[BK / 16][4];
@@ -624,12 +653,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       reg_fence(sc);
       reg_fence(pa);
       wgmma_fence();
-      issue_qk<DP, BK>(sc, q_rows, k_s + s * Shape::KV_BYTES);
+      issue_qk<DP, BK>(sc, q_rows, k_s + s * Shape::K_BYTES);
       wgmma_commit();
       reg_fence(o);
-      rescale<DP>(o, alpha);
+      rescale<DV>(o, alpha);
       wgmma_fence();
-      issue_pv<DP, BK>(o, pa, v_s + sp * Shape::KV_BYTES);
+      issue_pv<DV, BK>(o, pa, v_s + sp * Shape::V_BYTES);
       wgmma_commit();
       wgmma_wait<1>();
       reg_fence(sc);
@@ -646,14 +675,29 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
     const int sl = (n_tiles - 1) % kStages;
     mbar_wait(full_v + 8 * sl, ((n_tiles - 1) / kStages) & 1);
-    rescale<DP>(o, alpha);
+    rescale<DV>(o, alpha);
     reg_fence(o);
     reg_fence(pa);
     wgmma_fence();
-    issue_pv<DP, BK>(o, pa, v_s + sl * Shape::KV_BYTES);
+    issue_pv<DV, BK>(o, pa, v_s + sl * Shape::V_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(o);
+    if (hi - n_tiles + 1 == 0) {
+      // The last tile visited is keys 0..BK-1, which hold every key of the
+      // first rows: there a few p near 1 carry the row, and P rounded to
+      // bf16 (2^-9 of each p) would leave an absolute error of that size on
+      // outputs of size 1 (the float32 P V of attention_ref has none). Add
+      // the residual's product: one more P V for this tile only.
+      reg_fence(sc);
+      pack_p_residual<BK>(sc, pa);
+      reg_fence(pa);
+      wgmma_fence();
+      issue_pv<DV, BK>(o, pa, v_s + sl * Shape::V_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(o);
+    }
 
     // l over the quad, then O / l, cast once, stored from registers.
     float inv[2];
@@ -669,8 +713,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       if (row + 8 * r >= p.sq) continue;
       __nv_bfloat16* orow = og + (row + 8 * r) * p.o_ss;
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        if (8 * j < p.d) {
+      for (int j = 0; j < DV / 8; ++j) {
+        if (8 * j < p.dv) {
           *reinterpret_cast<uint32_t*>(orow + 8 * j + col) =
               pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
         }
@@ -851,23 +895,24 @@ bool encode(CUtensorMap* map, const void* ptr, int d, int s, int h, int b,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// st: the element strides (batch, head, row) of q, k and v, in that order.
-template <int DP>
-int run_tc(const void* q, const void* k, const void* v, int batch, const long long* st,
+// st: the element strides (batch, head, row) of q, k and v, in that order;
+// d: the head dim of q and k.
+template <int DP, int DV>
+int run_tc(const void* q, const void* k, const void* v, int batch, int d, const long long* st,
            const TcParams& tp, cudaStream_t stream) {
-  using Shape = TcShape<DP>;
+  using Shape = TcShape<DP, DV>;
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, tp.d, tp.sq, tp.hq, batch, st, kBlockM) ||
-      !encode(&tk, k, tp.d, tp.sk, tp.hkv, batch, st + 3, Shape::BK) ||
-      !encode(&tv, v, tp.d, tp.sk, tp.hkv, batch, st + 6, Shape::BK)) {
+  if (!encode(&tq, q, d, tp.sq, tp.hq, batch, st, kBlockM) ||
+      !encode(&tk, k, d, tp.sk, tp.hkv, batch, st + 3, Shape::BK) ||
+      !encode(&tv, v, tp.dv, tp.sk, tp.hkv, batch, st + 6, Shape::BK)) {
     return kEncodeFailed;
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_tc_kernel<DP, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Shape::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(batch * tp.hq, (tp.sq + kBlockM - 1) / kBlockM);
-  attn_tc_kernel<DP><<<grid, kTcThreads, Shape::SMEM, stream>>>(tq, tk, tv, tp);
+  attn_tc_kernel<DP, DV><<<grid, kTcThreads, Shape::SMEM, stream>>>(tq, tk, tv, tp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -887,13 +932,14 @@ int launch(Kernel kernel, size_t smem, const Params& p, int batch_heads,
 }  // namespace
 
 // dtype: 0 = float32 (contiguous inputs and output; the strides are not
-// read), 1 = bfloat16. window: 0 for none. Strides are in elements, for the
-// batch, head and row dimensions of q, k, v and out. Returns the
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a head_dim
-// or dtype without an instance), or kEncodeFailed.
+// read), 1 = bfloat16. d: the head dim of q and k, dv: that of v and out.
+// window: 0 for none. Strides are in elements, for the batch, head and row
+// dimensions of q, k, v and out. Returns the cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for head dims or a dtype without an
+// instance), or kEncodeFailed.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int batch, int hq, int hkv, int sq, int sk,
-                                   int d, int causal, int window, long long q_sb,
+                                   int d, int dv, int causal, int window, long long q_sb,
                                    long long q_sh, long long q_ss, long long k_sb,
                                    long long k_sh, long long k_ss, long long v_sb,
                                    long long v_sh, long long v_ss, long long o_sb,
@@ -904,19 +950,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (sq <= 0 || sk <= 0 || batch <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const TcParams tp{static_cast<__nv_bfloat16*>(o), o_sb, o_sh, o_ss, hq, hkv, sq, sk, d,
+    const TcParams tp{static_cast<__nv_bfloat16*>(o), o_sb, o_sh, o_ss, hq, hkv, sq, sk, dv,
                       causal, window, kLog2e / sqrtf(static_cast<float>(d))};
     const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+    if (dv != d) {
+      if (d == 192 && dv == 128) return run_tc<192, 128>(q, k, v, batch, d, st, tp, s);
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     switch (d) {
       case 16:
       case 32:
-      case 64: return run_tc<64>(q, k, v, batch, st, tp, s);
+      case 64: return run_tc<64, 64>(q, k, v, batch, d, st, tp, s);
       case 96:
-      case 128: return run_tc<128>(q, k, v, batch, st, tp, s);
-      case 256: return run_tc<256>(q, k, v, batch, st, tp, s);
+      case 128: return run_tc<128, 128>(q, k, v, batch, d, st, tp, s);
+      case 256: return run_tc<256, 256>(q, k, v, batch, d, st, tp, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  if (dv != d) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, o, hq, hkv, sq, sk, causal, window,
                  1.0f / sqrtf(static_cast<float>(d))};
   const int bh = batch * hq;

@@ -6,7 +6,9 @@ Replaces ``repro/kernels/flash_attention/flash_attention.py::_attn_kernel``
 ``attention_ref``'s function -- blocked online-softmax attention with
 causal and sliding-window masks and GQA by head index (query head ``h``
 reads KV head ``h // (Hq // Hkv)``; no repeated K/V is made) -- on
-``(B, Hq, Sq, D)`` queries and ``(B, Hkv, Sk, D)`` keys and values.
+``(B, Hq, Sq, D)`` queries, ``(B, Hkv, Sk, D)`` keys and ``(B, Hkv, Sk,
+Dv)`` values. ``Dv`` is ``D`` but for MLA, whose queries and keys are
+192 wide (128 without rope, 64 with) and values 128.
 What bounds it on the H100 is the tensor cores' arithmetic: a causal
 prefill at S = 4096 does about 330 operations per byte it must move.
 
@@ -31,13 +33,16 @@ from repro_torch.kernels import check_status, launch_counts, resolve_impl
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# q, k, v, out; dtype, batch, hq, hkv, sq, sk, d, causal, window; the
+# q, k, v, out; dtype, batch, hq, hkv, sq, sk, d, dv, causal, window; the
 # (batch, head, row) strides of q, k, v and out; the stream.
-_ARGTYPES = (_P, _P, _P, _P, *(_I,) * 9, *(_L,) * 12, _P)
+_ARGTYPES = (_P, _P, _P, _P, *(_I,) * 10, *(_L,) * 12, _P)
 
 # Head dims with a template instance in csrc/flash_attention.cu: every
-# head_dim of the dense LM configs and their smoke configs.
+# head_dim of the GQA LM configs and their smoke configs (Dv = D).
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+# (D, Dv) pairs with Dv != D, bfloat16 only: MLA's (nope 128 + rope 64,
+# v 128) of deepseek-v3.
+SPLIT_HEAD_DIMS = ((192, 128),)
 # dtype -> the kernel's dtype code: bf16 runs on the tensor cores
 # (wgmma, float32 accumulators), float32 in float32 FMA (never TF32).
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,10 +53,10 @@ BLOCK_Q = 128
 MAX_GRID_Y = 65_535
 
 
-def block_k(head_dim: int) -> int:
-    """Keys a K/V tile of the bf16 kernel: 128, or 64 for D = 256 (its
+def block_k(v_head_dim: int) -> int:
+    """Keys a K/V tile of the bf16 kernel: 128, or 64 for Dv = 256 (its
     float32 output accumulator alone takes 128 registers a thread)."""
-    return 128 if head_dim <= 128 else 64
+    return 128 if v_head_dim <= 128 else 64
 
 
 def kv_tile_plan(
@@ -112,20 +117,26 @@ def tma_strides(x: torch.Tensor) -> tuple[int, int, int] | None:
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` on what the kernel does not take: a head_dim
-    without an instance, a dtype other than one of bfloat16 and float32
-    for all three, tensors on different devices, or sizes past its
-    grid's limits."""
+    (or a (D, Dv) pair, bfloat16 only) without an instance, a dtype other
+    than one of bfloat16 and float32 for all three, tensors on different
+    devices, or sizes past its grid's limits."""
     b, hq, sq, d = q.shape
-    sk = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention kernel has no instance for head_dim {d}; "
-            f"it takes {HEAD_DIMS}"
-        )
+    sk, dv = k.shape[2], v.shape[3]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             "flash_attention kernel takes bfloat16 or float32 q, k, v of one "
             f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if dv == d and d not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention kernel has no instance for head_dim {d}; "
+            f"it takes {HEAD_DIMS}"
+        )
+    if dv != d and ((d, dv) not in SPLIT_HEAD_DIMS or q.dtype != torch.bfloat16):
+        raise ValueError(
+            f"flash_attention kernel has no instance for head dims (D, Dv) = "
+            f"({d}, {dv}) in {q.dtype}; it takes {SPLIT_HEAD_DIMS} in "
+            "torch.bfloat16"
         )
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must be on one device")
@@ -154,28 +165,40 @@ def _kernel_operand(x: torch.Tensor, dtype: torch.dtype):
     return x, tma_strides(x)
 
 
+def _empty_out(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """The output ``(B, Hq, Sq, Dv)``, laid out as ``q`` is: its dims in
+    the order of ``q``'s strides, the head dim innermost. Where ``q`` is
+    a transposed ``(B, S, H, D)`` view, so is the output, and its
+    transpose back is a view."""
+    order = sorted(range(3), key=lambda i: -q.stride(i)) + [3]
+    shape = [q.shape[i] for i in order[:3]] + [dv]
+    out = torch.empty(shape, dtype=q.dtype, device=q.device)
+    return out.permute(*sorted(range(4), key=order.index))
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Hq, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
-    v: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,  # (B, Hkv, Sk, Dv)
     *,
     causal: bool = True,
     window: int | None = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Attention of ``q`` over ``k``/``v``; returns ``(B, Hq, Sq, D)`` in
-    ``q``'s dtype (for bf16 with ``q``'s strides where ``q`` is dense).
-    ``window=w`` keeps a score iff ``0 <= qpos - kpos < w`` with
-    ``causal``, iff ``qpos - kpos < w`` without.
+    """Attention of ``q`` over ``k``/``v``; returns ``(B, Hq, Sq, Dv)`` in
+    ``q``'s dtype (for bf16 laid out as ``q`` is), the scores scaled by
+    ``1 / sqrt(D)``. ``window=w`` keeps a score iff ``0 <= qpos - kpos <
+    w`` with ``causal``, iff ``qpos - kpos < w`` without.
 
     The plain version (CPU tensors) carries autograd. The kernel has no
     backward yet: on its route a ``q``, ``k`` or ``v`` that requires
     grad, with grad mode on, raises before anything is built or
     launched (the launch would cut the autograd graph)."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(
-            "flash_attention takes q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D); "
-            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            "flash_attention takes q (B, Hq, Sq, D), k (B, Hkv, Sk, D) and "
+            f"v (B, Hkv, Sk, Dv); got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}"
         )
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -201,14 +224,15 @@ def flash_attention(
         window = None  # masks nothing; a C int would wrap past 2**31
     dtype = q.dtype
     (q, q_st), (k, k_st), (v, v_st) = (_kernel_operand(x, dtype) for x in (q, k, v))
-    out = torch.empty_like(q)
+    dv = v.shape[3]
+    out = _empty_out(q, dv)
     if out.numel() == 0 or sk == 0:  # no key: zeros, as attention_ref
         return out.zero_()
     o_st = tuple(out.stride()[:3])
     fn = function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     check_status("flash_attention", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[dtype], b, hq, hkv, sq, sk, d, int(causal),
+        _DTYPES[dtype], b, hq, hkv, sq, sk, d, dv, int(causal),
         0 if window is None else int(window),
         *q_st, *k_st, *v_st, *o_st,
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -3,6 +3,7 @@ from repro_torch.models.transformer.model import (
     TransformerLM,
     cache_length,
     forward,
+    hidden_states,
     init_kv_cache,
     init_params,
     prefill,
@@ -15,6 +16,7 @@ __all__ = [
     "TransformerLM",
     "init_params",
     "forward",
+    "hidden_states",
     "init_kv_cache",
     "cache_length",
     "serve_step",

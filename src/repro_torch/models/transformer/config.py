@@ -3,10 +3,9 @@
 
 The dataclasses and param-count formulas are the reference's, field for
 field, so a config of either package describes the same model. The port
-runs the dense GQA/MQA/MHA path; a config with ``moe``, MLA attention or
-``mtp_depth`` is refused by ``models.transformer.model`` (ROADMAP queue
-1, item 15). ``MoEConfig``'s dispatch and sharding fields are carried
-only so the formulas and configs stay whole.
+runs every one of them on one card: ``MoEConfig``'s ``ep_axes`` and
+``a2a_dtype`` are read only by the sharded MoE schedules, which wait for
+ROADMAP queue 1, item 16.
 """
 from __future__ import annotations
 

@@ -1,17 +1,18 @@
-"""Decoder LM of the port: init, prefill forward and KV-cache serving for
-the dense GQA/MQA/MHA configs. The port's copy of the dense path of
-``repro.models.transformer.model``.
+"""Decoder LM of the port: init, prefill forward, the MTP head and
+KV-cache serving, for every LM config of the reference (dense GQA/MQA/
+MHA, MoE, MLA). The port's copy of ``repro.models.transformer.model``.
 
-The parameters are one ``TransformerLM`` module (its layers an
-``nn.ModuleList`` where the reference stacks them along axis 0 for
-``lax.scan``); the functions take it as ``params`` in the reference's
-argument order. The model serves and does not train yet (``loss_fn``
-and the optimizer wait for ROADMAP queue 1, item 16), so ``init_params``
-returns parameters that do not require grad. Every entry point runs
-where the parameters live: ``init_params`` allocates on the card unless
-the caller passes ``device="cpu"``, and tokens go to the parameters'
-device. MoE layers, MLA attention and the MTP head raise
-``NotImplementedError`` (ROADMAP queue 1, item 15).
+The parameters are one ``TransformerLM`` module (its layers in
+``nn.ModuleList``s where the reference stacks them along axis 0 for
+``lax.scan``): the leading dense layers (every layer of a dense model,
+``num_dense_layers`` of an MoE one), then the MoE layers, then
+DeepSeek-V3's ``mtp_layer`` and ``mtp_norm``. The functions take it as
+``params`` in the reference's argument order. The model serves and does
+not train yet (``loss_fn`` with its MTP loss and the optimizer wait for
+ROADMAP queue 1, item 16), so ``init_params`` returns parameters that do
+not require grad. Every entry point runs where the parameters live:
+``init_params`` allocates on the card unless the caller passes
+``device="cpu"``, and tokens go to the parameters' device.
 """
 from __future__ import annotations
 
@@ -26,29 +27,18 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import activation_fn, rms_norm
 from repro_torch.models.transformer.attention import (
     GQAttention,
+    MLAttention,
     gqa_attention,
     gqa_decode,
     init_gqa_params,
+    init_mla_params,
+    mla_attention,
+    mla_decode,
     no_mesh,
     normal_,
 )
 from repro_torch.models.transformer.config import TransformerConfig
-
-
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for the parts of the reference's LM the port lacks."""
-    missing = []
-    if cfg.moe is not None:
-        missing.append("MoE layers")
-    if cfg.attention != "gqa":
-        missing.append(f"{cfg.attention!r} attention")
-    if cfg.mtp_depth:
-        missing.append("the multi-token-prediction head")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
-            "yet (ROADMAP queue 1, item 15)"
-        )
+from repro_torch.models.transformer.moe import MoE, init_moe_params, moe_ffn
 
 
 def torch_dtype(cfg: TransformerConfig) -> torch.dtype:
@@ -66,36 +56,56 @@ class DenseFFN(nn.Module):
         self.w_down = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
 
 
-class DenseLayer(nn.Module):
-    def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
+class DecoderLayer(nn.Module):
+    """One decoder layer: pre-norm attention (GQA or MLA, by
+    ``cfg.attention``) and a feed-forward block, dense (``ffn``) or MoE
+    (``moe``); the other of the two is None."""
+
+    def __init__(self, cfg: TransformerConfig, *, use_moe: bool = False,
+                 device=None, dtype=None):
         super().__init__()
-        self.ln1 = nn.Parameter(torch.zeros(cfg.d_model, device=device, dtype=dtype))
-        self.ln2 = nn.Parameter(torch.zeros(cfg.d_model, device=device, dtype=dtype))
-        self.attn = GQAttention(cfg, device=device, dtype=dtype)
-        self.ffn = DenseFFN(cfg, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
+        self.ln1 = nn.Parameter(torch.zeros(cfg.d_model, **kw))
+        self.ln2 = nn.Parameter(torch.zeros(cfg.d_model, **kw))
+        attn = MLAttention if cfg.attention == "mla" else GQAttention
+        self.attn = attn(cfg, **kw)
+        self.ffn = None if use_moe else DenseFFN(cfg, **kw)
+        self.moe = MoE(cfg, **kw) if use_moe else None
 
 
 class TransformerLM(nn.Module):
-    """The parameters of one dense decoder LM. ``embed`` is (V, d);
-    ``unembed`` (absent with tied embeddings) is an ``nn.Linear`` whose
-    weight is the reference's ``(d, V)`` array transposed."""
+    """The parameters of one decoder LM. ``embed`` is (V, d); ``unembed``
+    (absent with tied embeddings) is an ``nn.Linear`` whose weight is
+    the reference's ``(d, V)`` array transposed. ``moe_layers`` is empty
+    for a dense model; ``mtp_layer`` and ``mtp_norm`` are None without
+    ``mtp_depth``."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
-        check_supported(cfg)
         d = cfg.d_model
-        self.embed = nn.Parameter(
-            torch.empty(cfg.vocab_size, d, device=device, dtype=dtype))
-        self.final_norm = nn.Parameter(torch.zeros(d, device=device, dtype=dtype))
+        kw = dict(device=device, dtype=dtype)
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, d, **kw))
+        self.final_norm = nn.Parameter(torch.zeros(d, **kw))
         self.unembed = (
             None if cfg.tie_embeddings
-            else nn.Linear(d, cfg.vocab_size, bias=False, device=device,
-                           dtype=dtype)
+            else nn.Linear(d, cfg.vocab_size, bias=False, **kw)
         )
         self.dense_layers = nn.ModuleList(
-            DenseLayer(cfg, device=device, dtype=dtype)
-            for _ in range(cfg.num_layers)
-        )
+            DecoderLayer(cfg, **kw) for _ in range(cfg.num_dense_layers_effective()))
+        self.moe_layers = nn.ModuleList(
+            DecoderLayer(cfg, use_moe=True, **kw) for _ in range(cfg.num_moe_layers()))
+        if cfg.mtp_depth:
+            self.mtp_layer = DecoderLayer(cfg, **kw)
+            self.mtp_norm = nn.Parameter(torch.zeros(d, **kw))
+        else:
+            self.mtp_layer = self.mtp_norm = None
+
+    def layers(self):
+        """Every trunk layer in order, each as ``(group, index, layer)``
+        with ``group`` the KV cache's key ("dense" or "moe")."""
+        for group, stack in (("dense", self.dense_layers), ("moe", self.moe_layers)):
+            for i, layer in enumerate(stack):
+                yield group, i, layer
 
 
 def empty_params(cfg: TransformerConfig, device) -> TransformerLM:
@@ -106,6 +116,20 @@ def empty_params(cfg: TransformerConfig, device) -> TransformerLM:
     return model.to_empty(device=device).requires_grad_(False)
 
 
+def _init_layer(layer: DecoderLayer, cfg: TransformerConfig, gen) -> None:
+    if cfg.attention == "mla":
+        init_mla_params(layer.attn, cfg, gen)
+    else:
+        init_gqa_params(layer.attn, cfg, gen)
+    if layer.moe is not None:
+        init_moe_params(layer.moe, cfg, gen)
+    else:
+        d, f = cfg.d_model, cfg.d_ff
+        normal_(layer.ffn.w_gate.weight, d ** -0.5, gen)
+        normal_(layer.ffn.w_up.weight, d ** -0.5, gen)
+        normal_(layer.ffn.w_down.weight, f ** -0.5, gen)
+
+
 def init_params(
     cfg: TransformerConfig,
     *,
@@ -113,12 +137,14 @@ def init_params(
     generator: torch.Generator | None = None,
 ) -> TransformerLM:
     """Random parameters with the reference's shapes and scales: normal
-    draws (float32, cast to ``cfg.dtype``) scaled by 0.02 for the
-    embedding, ``d ** -0.5`` for the unembedding and the q/k/v, gate and
-    up projections, ``(Hq * hd) ** -0.5`` and ``d_ff ** -0.5`` for the
-    output projections; every norm gamma zero. Drawn from ``generator``
-    (which must live on ``device``), else from one seeded with 0. On
-    ``device="meta"`` only the shapes are made."""
+    draws (float32, cast to ``cfg.dtype``; the MoE router stays float32)
+    scaled by 0.02 for the embedding and by the inverse square root of
+    each matrix's input width elsewhere (``d ** -0.5`` for the
+    unembedding and every projection out of the model width, ``(Hq * hd)
+    ** -0.5``, ``d_ff ** -0.5`` and so on for the others); every norm
+    gamma zero. Drawn from ``generator`` (which must live on
+    ``device``), else from one seeded with 0. On ``device="meta"`` only
+    the shapes are made."""
     dev = resolve_device(device)
     model = empty_params(cfg, dev)
     for p in model.parameters():
@@ -127,15 +153,13 @@ def init_params(
     if dev.type == "meta":
         return model
     gen = generator if generator is not None else torch.Generator(dev).manual_seed(0)
-    d, f = cfg.d_model, cfg.d_ff
     normal_(model.embed, 0.02, gen)
     if model.unembed is not None:
-        normal_(model.unembed.weight, d ** -0.5, gen)
-    for layer in model.dense_layers:
-        init_gqa_params(layer.attn, cfg, gen)
-        normal_(layer.ffn.w_gate.weight, d ** -0.5, gen)
-        normal_(layer.ffn.w_up.weight, d ** -0.5, gen)
-        normal_(layer.ffn.w_down.weight, f ** -0.5, gen)
+        normal_(model.unembed.weight, cfg.d_model ** -0.5, gen)
+    for _, _, layer in model.layers():
+        _init_layer(layer, cfg, gen)
+    if model.mtp_layer is not None:
+        _init_layer(model.mtp_layer, cfg, gen)
     return model
 
 
@@ -167,14 +191,13 @@ def _dense_ffn(p: DenseFFN, cfg: TransformerConfig, x: torch.Tensor) -> torch.Te
     return F.linear(h.to(x.dtype), p.w_down.weight)
 
 
-def _logits(params: TransformerLM, cfg: TransformerConfig,
-            x: torch.Tensor) -> torch.Tensor:
-    """Final norm and unembedding; float32 logits. As the reference's
+def _unembed(params: TransformerLM, cfg: TransformerConfig,
+             x: torch.Tensor) -> torch.Tensor:
+    """The unembedding; float32 logits. As the reference's
     ``preferred_element_type=float32``, a bf16 product is summed and
     written in float32, never rounded to bf16: on the card one GEMM with
     float32 output, on the CPU (which has no such GEMM) the same product
     of the operands widened to float32, whose products are exact."""
-    x = rms_norm(x, params.final_norm)
     w = params.embed if cfg.tie_embeddings else params.unembed.weight
     if x.dtype == torch.float32:
         return F.linear(x, w)
@@ -184,20 +207,68 @@ def _logits(params: TransformerLM, cfg: TransformerConfig,
     return F.linear(x.float(), w.float())
 
 
-def forward(params: TransformerLM, cfg: TransformerConfig, tokens, *,
-            mesh=None) -> torch.Tensor:
-    """tokens: (B, S) ints -> logits (B, S, V) float32. Each layer's
-    attention is one ``flash_attention`` launch on the card."""
+def _logits(params: TransformerLM, cfg: TransformerConfig,
+            x: torch.Tensor) -> torch.Tensor:
+    """Final norm and unembedding; float32 logits."""
+    return _unembed(params, cfg, rms_norm(x, params.final_norm))
+
+
+def _attn(p, cfg: TransformerConfig, x, positions):
+    if cfg.attention == "mla":
+        return mla_attention(p, cfg, x, positions)
+    return gqa_attention(p, cfg, x, positions)
+
+
+def _layer_fwd(layer: DecoderLayer, cfg: TransformerConfig, x, positions):
+    h = x + _attn(layer.attn, cfg, rms_norm(x, layer.ln1), positions)
+    hn = rms_norm(h, layer.ln2)
+    if layer.moe is not None:
+        return h + moe_ffn(layer.moe, cfg, hn, activation_fn(cfg.activation))
+    return h + _dense_ffn(layer.ffn, cfg, hn)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    positions = torch.arange(s, dtype=torch.int32, device=device)
+    return positions[None].expand(b, s)
+
+
+def hidden_states(params: TransformerLM, cfg: TransformerConfig, tokens, *,
+                  mesh=None) -> torch.Tensor:
+    """The trunk: tokens (B, S) -> the last layer's output (B, S, d),
+    before the final norm (what the MTP head reads)."""
     no_mesh(mesh)
     tokens = as_tokens(params, tokens)
     b, s = tokens.shape
     x = embed_lookup(params, cfg, tokens)
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    positions = positions[None].expand(b, s)
-    for layer in params.dense_layers:
-        h = x + gqa_attention(layer.attn, cfg, rms_norm(x, layer.ln1), positions)
-        x = h + _dense_ffn(layer.ffn, cfg, rms_norm(h, layer.ln2))
-    return _logits(params, cfg, x)
+    positions = _positions(b, s, x.device)
+    for _, _, layer in params.layers():
+        x = _layer_fwd(layer, cfg, x, positions)
+    return x
+
+
+def forward(params: TransformerLM, cfg: TransformerConfig, tokens, *,
+            mesh=None) -> torch.Tensor:
+    """tokens: (B, S) ints -> logits (B, S, V) float32. Each layer's
+    attention is one ``flash_attention`` launch on the card, and each MoE
+    layer's combine one ``segment_sum`` launch."""
+    return _logits(params, cfg, hidden_states(params, cfg, tokens, mesh=mesh))
+
+
+def _mtp_logits(params: TransformerLM, cfg: TransformerConfig,
+                x_final: torch.Tensor, tokens, *, mesh=None) -> torch.Tensor:
+    """DeepSeek-V3's multi-token-prediction head (depth 1, simplified as
+    the reference: the MTP block reads the trunk's hidden states
+    ``x_final`` (``hidden_states``) normed by ``mtp_norm`` plus the
+    embedding of ``tokens``, and its dense layer's output is unembedded
+    without the final norm). Returns float32 logits (B, S, V); the MTP
+    loss that consumes them waits for item 16."""
+    no_mesh(mesh)
+    tokens = as_tokens(params, tokens)
+    b, s = tokens.shape
+    emb_next = embed_lookup(params, cfg, tokens)
+    h = rms_norm(x_final, params.mtp_norm) + emb_next
+    h = _layer_fwd(params.mtp_layer, cfg, h, _positions(b, s, h.device))
+    return _unembed(params, cfg, h)
 
 
 # ---------------------------------------------------------------------------
@@ -213,30 +284,55 @@ def cache_length(cfg: TransformerConfig, max_len: int) -> int:
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
                   device=None) -> dict:
-    """Zeroed stacked caches, ``{"dense": {"k", "v"}}`` each
-    ``(L, B, C, Hkv, hd)`` with ``C = cache_length(cfg, max_len)``, on
-    ``device`` (default: the card)."""
-    check_supported(cfg)
-    shape = (cfg.num_layers, batch, cache_length(cfg, max_len),
-             cfg.num_kv_heads, cfg.head_dim)
+    """Zeroed stacked caches, one entry per layer group (``"dense"``,
+    ``"moe"``) with ``L`` the group's layers and ``C = cache_length(cfg,
+    max_len)``: for GQA ``{"k", "v"}`` each ``(L, B, C, Hkv, hd)``, for
+    MLA the compressed latent ``"ckv"`` ``(L, B, C, kv_lora)`` and the
+    rope keys ``"krope"`` ``(L, B, C, dr)``; on ``device`` (default: the
+    card)."""
     kw = dict(dtype=torch_dtype(cfg), device=resolve_device(device))
-    return {"dense": {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}}
+    clen = cache_length(cfg, max_len)
+
+    def stack(n):
+        if cfg.attention == "mla":
+            return {
+                "ckv": torch.zeros((n, batch, clen, cfg.kv_lora_rank), **kw),
+                "krope": torch.zeros((n, batch, clen, cfg.qk_rope_head_dim), **kw),
+            }
+        shape = (n, batch, clen, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+    cache = {}
+    for group, n in (("dense", cfg.num_dense_layers_effective()),
+                     ("moe", cfg.num_moe_layers())):
+        if n:
+            cache[group] = stack(n)
+    return cache
 
 
 def serve_step(params: TransformerLM, cfg: TransformerConfig, cache: dict,
                tokens, pos, *, mesh=None):
     """One decode step: tokens (B, 1) at index ``pos``; returns (logits
     (B, 1, V) float32, cache). The cache is updated in place (see
-    ``gqa_decode``) and returned."""
+    ``gqa_decode`` and ``mla_decode``) and returned."""
     no_mesh(mesh)
     pos = int(pos)
     x = embed_lookup(params, cfg, as_tokens(params, tokens))
-    ck, cv = cache["dense"]["k"], cache["dense"]["v"]
-    for i, layer in enumerate(params.dense_layers):
-        attn_out, _, _ = gqa_decode(
-            layer.attn, cfg, rms_norm(x, layer.ln1), ck[i], cv[i], pos)
+    act = activation_fn(cfg.activation)
+    for group, i, layer in params.layers():
+        c = cache[group]
+        hn = rms_norm(x, layer.ln1)
+        if cfg.attention == "mla":
+            attn_out, _, _ = mla_decode(layer.attn, cfg, hn, c["ckv"][i],
+                                        c["krope"][i], pos)
+        else:
+            attn_out, _, _ = gqa_decode(layer.attn, cfg, hn, c["k"][i], c["v"][i], pos)
         h = x + attn_out
-        x = h + _dense_ffn(layer.ffn, cfg, rms_norm(h, layer.ln2))
+        hn2 = rms_norm(h, layer.ln2)
+        if layer.moe is not None:
+            x = h + moe_ffn(layer.moe, cfg, hn2, act)
+        else:
+            x = h + _dense_ffn(layer.ffn, cfg, hn2)
     return _logits(params, cfg, x), cache
 
 

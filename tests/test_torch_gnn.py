@@ -226,13 +226,14 @@ def test_registry_matches_the_reference(name):
 
 
 def test_other_gnns_still_raise_naming_the_roadmap_item():
-    # Item 13 ported EGNN and MACE: every GNN name returns its GNNArch,
-    # and only the MoE names of item 15 still raise.
+    # Item 13 ported EGNN and MACE: every GNN name returns its GNNArch;
+    # since item 15 the MoE names return their LM Arch too.
+    from repro_torch.configs import Arch
     from repro_torch.configs.gnn_family import GNNArch
 
     for name in ("egnn", "mace"):
         arch = get_arch(name)
         assert isinstance(arch, GNNArch) and arch.geometric
     for name in ("mixtral-8x7b", "deepseek-v3-671b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-            get_arch(name)
+        arch = get_arch(name)
+        assert isinstance(arch, Arch) and arch.config.moe is not None

@@ -36,8 +36,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         env=env, cwd=ROOT, check=True, timeout=120,
     ).stdout)
     assert len(out["names"]) >= 20, "walked too few modules"
-    # the walk reaches every subpackage, the sharded graph engine and the
-    # GNN, sampler and RecSys modules too
+    # the walk reaches every subpackage, the sharded graph engine, the
+    # GNN, sampler and RecSys modules and the MoE LMs' modules too
     assert {"repro_torch.distributed", "repro_torch.distributed.graph",
             "repro_torch.ops.neighbor_sampler", "repro_torch.ops.embedding_bag",
             "repro_torch.data.recsys", "repro_torch.models.tree",
@@ -46,6 +46,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.models.recsys.xdeepfm", "repro_torch.models.recsys.convert",
             "repro_torch.configs.egnn", "repro_torch.configs.mace",
             "repro_torch.configs.recsys_family", "repro_torch.configs.xdeepfm",
+            "repro_torch.models.transformer.moe", "repro_torch.data.lm",
+            "repro_torch.data.pipeline", "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.configs.deepseek_v3",
             } <= set(out["names"])
     assert out["bad"] == []
 

@@ -195,3 +195,22 @@ def test_on_failure_raise_restores_fail_fast(model):
         eng.run()
     with pytest.raises(ValueError, match="on_failure"):
         ServeEngine(params, cfg, on_failure="ignore")
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "deepseek-v3-671b"])
+def test_moe_and_mla_engines_token_for_token(name):
+    """The engine is generic over the cache: mixtral-smoke (MoE, an
+    8-row window ring) and deepseek-smoke (MLA's compressed cache, dense
+    then MoE layers) serve ragged prompts past the window token for token
+    with the reference, at the published capacity factor (so a decode
+    step's tokens compete for experts as the reference's do)."""
+    jcfg = jax_get_arch(name).smoke_config
+    cfg = get_arch(name).smoke_config
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    reqs = [(0, [5, 9, 2, 7, 1], 14), (1, [3], 4), (2, [8, 8, 8], 9),
+            (3, list(range(10, 22)), 6), (4, [4, 6], 3)]
+    eng, done, jeng, jdone = _both((jcfg, jparams, cfg, params), reqs,
+                                   num_slots=3, max_len=24)
+    _assert_same(eng, done, jeng, jdone)
+    assert len(done) == 5 and eng.waves == 2

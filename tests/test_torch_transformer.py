@@ -68,17 +68,19 @@ def test_configs_equal_the_reference(name):
 
 
 def test_unported_archs_raise_naming_the_roadmap_item():
-    # Only the MoE names of item 15 are left unported; every other
-    # registered name, egnn, mace and xdeepfm included, returns its
-    # architecture.
-    unported = ("mixtral-8x7b", "deepseek-v3-671b")
-    assert {"egnn", "mace", "xdeepfm", *unported} <= set(ARCH_NAMES)
+    # Item 15 ported the MoE names: every registered name, mixtral-8x7b,
+    # deepseek-v3-671b, egnn, mace and xdeepfm included, returns its
+    # architecture, equal to the reference's; only an unknown name raises.
+    moe_names = ("mixtral-8x7b", "deepseek-v3-671b")
+    assert {"egnn", "mace", "xdeepfm", *moe_names} <= set(ARCH_NAMES)
     for name in ARCH_NAMES:
-        if name in unported:
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-                get_arch(name)
-        else:
-            assert get_arch(name).name == name
+        assert get_arch(name).name == name
+    for name in moe_names:
+        for attr in ("config", "smoke_config"):
+            want = getattr(jax_get_arch(name), attr)
+            got = getattr(get_arch(name), attr)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert got.total_params() == want.total_params()
     with pytest.raises(KeyError):
         get_arch("llama")
 
@@ -254,14 +256,25 @@ def test_params_from_jax_is_bit_exact_in_bfloat16():
 
 
 def test_unported_model_parts_raise():
+    # MoE layers, MLA and the MTP head build and run since item 15; what
+    # still raises is item 16's: a mesh (sharded attention, embedding and
+    # the MoE schedules).
     cfg = get_arch("qwen3-4b").smoke_config
     moe = MoEConfig(num_experts=4, top_k=2, d_ff_expert=32)
-    for changes in ({"moe": moe}, {"attention": "mla"}, {"mtp_depth": 1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 15"):
-            init_params(dataclasses.replace(cfg, **changes), device="cpu")
-    params = init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        forward(params, cfg, _tokens(cfg, 1, 4), mesh=object())
+    toks = _tokens(cfg, 1, 4)
+    for changes in ({"moe": moe}, {"attention": "mla"}, {"mtp_depth": 1},
+                    {"moe": moe, "num_dense_layers": 1, "attention": "mla",
+                     "mtp_depth": 1}):
+        c = dataclasses.replace(cfg, **changes)
+        params = init_params(c, device="cpu")
+        assert forward(params, c, toks).shape == (1, 4, c.vocab_size)
+        assert (params.mtp_layer is not None) == bool(c.mtp_depth)
+        assert len(params.moe_layers) == c.num_moe_layers()
+        with pytest.raises(NotImplementedError, match="item 16"):
+            forward(params, c, toks, mesh=object())
+        with pytest.raises(NotImplementedError, match="item 16"):
+            serve_step(params, c, init_kv_cache(c, 1, 8, device="cpu"), toks[:, :1], 0,
+                       mesh=object())
 
 
 def test_entry_points_default_to_the_card():
