@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with an H100. Phases, each
 of which raises on failure:
 
 1. Device and build: the card's name and power limit, the torch
-   version, and the six CUDA kernels built from ``kernels/csrc`` (one
+   version, and the seven CUDA kernels built from ``kernels/csrc`` (one
    ``nvcc`` per source, all at once; the build's seconds printed) with
    ``-Xptxas -v``'s registers, shared memory and spills; the bf16
    attention kernel's D = 128 and MLA (D, Dv) = (192, 128) instances
@@ -122,10 +122,10 @@ of which raises on failure:
    and (l) MQA (Hkv=1) at D=128; (n) a window of 2**40, past a C int;
    (m) the transposed (B, S, H, D) views that attention.py passes, whose
    output must keep q's strides and equal the call on contiguous copies
-   bit for bit; a ``q`` that requires grad refused with an error naming
-   ROADMAP queue 1, item 16 before any launch (the kernel has no
-   backward), and the same call under ``torch.no_grad()`` against the
-   plain version; two calls at shape (a) bit-equal;
+   bit for bit; a ``q`` that requires grad goes through the autograd
+   Function (one forward launch, a ``grad_fn``, the bits of the same
+   call under ``torch.no_grad()``, which is held to the plain version;
+   phase 17 checks the backward); two calls at shape (a) bit-equal;
    every other head_dim instance in both types; rows with no live key
    (Sq > Sk + window); and, at S=32768 (the ``prefill_32k`` length, where
    the plain version's scores would take 137 GB), the first and last
@@ -295,7 +295,33 @@ of which raises on failure:
    slots of 8192 rows (mixtral's 4096-row ring) and of 4096 rows on 16
    ``lm_batch`` prompts of 16-128 tokens at the published capacity
    factor 1.25, 32 new tokens each, as phase 9 (no re-scoring: a decode
-   step's tokens compete for experts as a prefill's do not). The
+   step's tokens compete for experts as a prefill's do not).
+17. Single-device training. (a) ``flash_attention``'s backward kernel
+   (``csrc/flash_attention_bwd.cu``) against ``attention_vjp_ref`` at
+   ``ATTN_BWD_CASES``: qwen3-4b's training shape (B=1, Hq=32, Hkv=8,
+   S=4096, D=128, causal), mixtral's window (w=4096, S=8192, Hq=4,
+   Hkv=1), MLA's (192, 128), float32, a non-causal ragged S=777, rows
+   with no live key, and every head dim in both dtypes; float32 within
+   rtol = atol = 2e-3 (atol times the rms), bf16 within 3e-2 in norm per
+   gradient, the elementwise worst printed beside; at the training shape
+   two calls bit-equal and the autograd Function's gradients equal to the
+   direct call's; then its time there beside its plain version, SDPA's
+   backward (the yardstick) and the five-product FLOP bound. (b)
+   qwen3-4b at full width (``TRAIN_LM_LAYERS`` of 36 layers, bf16, float32
+   moments, ``remat=True``, B=1, S=4096 ``lm_batch`` tokens): on a 2-layer
+   cut every gradient on the kernel route within 3e-2 in norm of the
+   ``impl="torch"`` route, and a ``num_microbatches=2`` step at B=2 equal
+   (1e-3 in norm) to the mean of its halves' float32 gradients; then
+   ``train()`` for 8 AdamW steps on one repeated batch (lr 1e-3, 2
+   warm-up steps): the loss falls by more than 0.5, two forward and one
+   backward attention launches a layer a step; step ms, tokens/s, peak
+   memory, and one profiled step's idle share and the backward kernel's
+   share of busy time. (c) gin-tu at ``config_for("ogb_products")`` on
+   phase 11's graph: the first step's gradients within 2e-3 in norm of
+   the autograd of ``gnn_by_index_add``; ``train()`` for 3 steps (one
+   ``segment_sum`` launch a layer a step), step ms, edges/s, peak
+   memory. (d) the checkpoint ``train()`` wrote at its last step
+   restored, saved again from the card and restored: bit-equal. The
    script's total seconds are printed at the end.
 
 Every profile prints the host's launch calls beside the device records
@@ -1355,24 +1381,21 @@ def phase_attention(dev, layer0_qkv):
     for dtype in (bf, f32):
         errs.append(run(f"rows without a live key {dtype} Sq=300 Sk=100 window=64",
                         *qkv(1, 4, 2, 300, 100, 64, dtype), window=64))
-    # No backward yet: an input that requires grad, with grad mode on,
-    # raises before any launch; under no_grad the same call runs.
+    # An input that requires grad, with grad mode on, goes through the
+    # autograd Function: one forward launch, an output with a grad_fn and
+    # the bits of the call under no_grad (phase 17 checks its backward).
     q, k, v = (x.clone() for x in qkv(1, 4, 2, 64, 64, 128, bf))
     q.requires_grad_()
     before = launch_counts["flash_attention"]
-    try:
-        flash_attention(q, k, v, impl="cuda")
-    except RuntimeError as err:
-        check("ROADMAP queue 1, item 16" in str(err),
-              f"the no-backward error names item 16: {err}")
-        print(f"flash_attention: requires_grad input refused before launch: {err}")
-    else:
-        check(False, "flash_attention on a requires_grad input raises")
-    check(launch_counts["flash_attention"] == before,
-          "the refused call launched nothing")
+    graded = flash_attention(q, k, v, impl="cuda")
+    check(graded.grad_fn is not None and launch_counts["flash_attention"] == before + 1,
+          "a requires_grad q: one forward launch and an output with a grad_fn")
     with torch.no_grad():
         errs.append(run("requires_grad q under torch.no_grad()", q, k, v))
-    del q, k, v
+        check(torch.equal(graded.detach(), flash_attention(q, k, v, impl="cuda")),
+              "the autograd Function's forward gives the no_grad call's bits")
+    print(f"flash_attention: requires_grad q -> grad_fn {type(graded.grad_fn).__name__}")
+    del q, k, v, graded
     # Determinism: no atomics, so two calls give the same bits.
     first = flash_attention(*shape_a, impl="cuda")
     check(torch.equal(first, flash_attention(*shape_a, impl="cuda")),
@@ -1914,9 +1937,13 @@ def gnn_by_index_add(name, params, cfg, graph):
     """The logits of gin-tu or gat-cora computed independently of the
     port's aggregation path: plain ``index_add_`` sums over unsorted-safe
     int64 ids, ``scatter_reduce`` maxima, ``F.layer_norm``, and the same
-    layers on the same parameters."""
+    layers on the same parameters. With grad mode on, each gin-tu layer's
+    gather and sum is recomputed in the backward: ``index_add_``'s
+    autograd keeps its (m, d) source alive, and the layers' gathers
+    together pass the card's memory on ogb_products."""
     import torch
     import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
 
     h = graph["node_feats"]
     n = h.shape[0]
@@ -1927,10 +1954,15 @@ def gnn_by_index_add(name, params, cfg, graph):
                           device=msgs.device)
         return out.index_add_(0, index, msgs)
 
+    def gather_sum(x):
+        return agg(x[src], dst, n)
+
     if name == "gin-tu":
         reps = []
         for layer in params.layers:
-            z = (1.0 + layer.eps) * h + agg(h[src], dst, n)
+            summed = (checkpoint(gather_sum, h, use_reentrant=False)
+                      if torch.is_grad_enabled() else gather_sum(h))
+            z = (1.0 + layer.eps) * h + summed
             z = F.linear(F.relu(F.linear(z, layer.w1.weight, layer.w1.bias)),
                          layer.w2.weight, layer.w2.bias)
             h = F.layer_norm(z, (z.shape[-1],), layer.ln_g, layer.ln_b, eps=1e-5)
@@ -4138,6 +4170,390 @@ def phase_moe(dev, card: str) -> dict:
     return {"cells": cells, "times": times, "secs": secs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: single-device training
+# ---------------------------------------------------------------------------
+
+ATTN_BWD_SHAPE = (1, 32, 8, 4096, 128)  # qwen3-4b's training shape: B, Hq, Hkv, S, D
+ATTN_BWD_TOL = {"bfloat16": 3e-2, "float32": 2e-3}
+ATTN_BWD_CASES = (  # (label, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, dtype)
+    ("qwen3-4b training shape", 1, 32, 8, 4096, 4096, 128, 128, True, None, "bfloat16"),
+    ("mixtral window=4096 S=8192", 1, 4, 1, 8192, 8192, 128, 128, True, 4096, "bfloat16"),
+    ("MLA (192, 128) S=1024", 1, 8, 8, 1024, 1024, 192, 128, True, None, "bfloat16"),
+    ("GQA S=300", 2, 4, 2, 300, 300, 64, 64, True, None, "float32"),
+    ("non-causal ragged S=777", 1, 4, 4, 777, 777, 96, 96, False, None, "bfloat16"),
+) + tuple(
+    (f"rows without a live key Sq=300 Sk=100 window=64", 1, 4, 2, 300, 100, 64, 64,
+     True, 64, dt) for dt in ("bfloat16", "float32")
+) + tuple(
+    (f"head_dim={d} S=130", 2, 4, 2, 130, 130, d, d, True, None, dt)
+    for d in (16, 32, 64, 96, 128, 256) for dt in ("bfloat16", "float32")
+)
+
+
+def attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize):
+    """``(bound_ms, flops, bytes)`` of attention's backward: the larger of
+    its five products over the live pairs (S = Q K^T and dK = dS^T Q,
+    dQ = dS K over ``d``; dP = dO V^T and dV = P^T dO over ``dv``) at the
+    bf16 tensor-core peak, and its bytes (q, k, v, out, dout read once;
+    dq, dk, dv written once) at the HBM rate."""
+    flops = 2 * (3 * d + 2 * dv) * b * hq * live_pairs(sq, sk, causal, window)
+    nbytes = itemsize * (b * hq * sq * (2 * d + 2 * dv) + 2 * b * hkv * sk * (d + dv))
+    return (max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+            flops, nbytes)
+
+
+def grad_within(name: str, got, want, dtype_name: str) -> float:
+    """One gradient of the kernel against the plain version. float32:
+    ``|got - want| <= tol * rms(want) + tol * |want|`` everywhere. bf16:
+    ``||got - want|| <= tol * ||want||`` in norm, with the elementwise
+    worst (in units of ``rms(want) + |want|``) printed beside it, since a
+    few elements of a bf16 gradient that sum thousands of rounded
+    products can differ by more. Returns max |got - want|."""
+    import torch
+
+    tol = ATTN_BWD_TOL[dtype_name]
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{name}: finite gradient")
+    diff = (g - w).abs()
+    rms = float(w.square().mean().sqrt())
+    norm_err = float(diff.norm() / max(float(w.norm()), 1e-30))
+    worst = float((diff / (rms + w.abs()).clamp_min(1e-30)).max())
+    over = int((diff > tol * rms + tol * w.abs()).sum())
+    err = float(diff.max())
+    print(f"flash_attention.bwd {name}: max_abs_err={err} norm_err={norm_err} "
+          f"elementwise_worst={worst} over_elementwise_tol={over} tol={tol}")
+    if dtype_name == "float32":
+        check(over == 0, f"{name}: within rtol {tol}, atol {tol} * rms of the plain VJP")
+    else:
+        check(norm_err <= tol, f"{name}: within {tol} in norm of the plain VJP")
+    return err
+
+
+def phase_attention_bwd(dev) -> float:
+    """Phase 17 (a): the backward kernel against ``attention_vjp_ref`` at
+    ``ATTN_BWD_CASES``; at the training shape also two calls bit-equal and
+    the autograd Function's gradients equal to the direct call's.
+    Returns the largest max_abs_err."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
+
+    gen = torch.Generator(dev).manual_seed(17)
+    errs = []
+    for label, b, hq, hkv, sq, sk, d, dv, causal, window, dt in ATTN_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v, dout = (torch.randn(b, h, s, w, device=dev, generator=gen).to(dtype)
+                         for h, s, w in ((hq, sq, d), (hkv, sk, d), (hkv, sk, dv),
+                                         (hq, sq, dv)))
+        out = flash_attention(q, k, v, causal=causal, window=window, impl="cuda")
+        got = flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+        want = attention_vjp_ref(q, k, v, dout, causal=causal, window=window)
+        name = (f"{label} B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} "
+                f"causal={causal} window={window} {dt}")
+        for grad_name, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs.append(grad_within(f"{name} {grad_name}", g, w, dt))
+        if label.startswith("qwen3-4b"):
+            again = flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  "the backward kernel: two calls give the same bits")
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            before = launch_counts["flash_attention.bwd"]
+            o = flash_attention(*leaves, causal=causal, window=window, impl="cuda")
+            o.backward(dout)
+            check(launch_counts["flash_attention.bwd"] == before + 1
+                  and all(torch.equal(x.grad, y) for x, y in zip(leaves, got)),
+                  "the autograd Function's gradients are the direct call's, one launch")
+            print("flash_attention.bwd: two calls bit-equal; the autograd Function "
+                  "gives the direct call's bits")
+            del again, leaves, o
+        del q, k, v, dout, out, got, want
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def attention_bwd_times(dev, card: str) -> tuple:
+    """Phase 17 (a)'s times at qwen3-4b's training shape: the backward
+    kernel, its plain version, SDPA's backward (the yardstick; the port
+    never calls it) and the FLOP bound. Returns ``(ms, plain_ms,
+    library_ms, bound_ms)``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
+
+    b, hq, hkv, s, d = ATTN_BWD_SHAPE
+    gen = torch.Generator(dev).manual_seed(18)
+    q, k, v, dout = (torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
+                     for h in (hq, hkv, hkv, hq))
+    out = flash_attention(q, k, v, impl="cuda")
+    bound_ms, flops, nbytes = attention_bwd_bound_ms(b, hq, hkv, s, s, d, d, True, None, 2)
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, dout), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: attention_vjp_ref(q, k, v, dout), iters=3, warmup=1)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+                     iters=10, warmup=2)
+    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, impl="cuda"), iters=10, warmup=2)
+    print(f"time flash_attention.bwd B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 causal: "
+          f"ms={ms} plain_ms={plain_ms} library_ms(sdpa backward)={lib_ms} "
+          f"bound_ms={bound_ms} flops={flops} bytes={nbytes} "
+          f"share_of_bound={bound_ms / ms} tflops={flops / ms / 1e9} "
+          f"forward_kernel_ms={fwd_ms} [{card}]")
+    del q, k, v, dout, out, leaves, o
+    torch.cuda.empty_cache()
+    return ms, plain_ms, lib_ms, bound_ms
+
+
+TRAIN_LM_LAYERS = 36  # qwen3-4b's depth: all of it
+TRAIN_LM_S = 4096
+TRAIN_LM_STEPS = 8
+TRAIN_LM_LR = 1e-3
+TRAIN_CUT_LAYERS = 2  # the cut on which the two routes' gradients are held
+TRAIN_GRAD_TOL = 3e-2  # bf16 gradients of the two routes, per leaf in norm
+TRAIN_MICRO_TOL = 1e-3  # the 2-microbatch step against the mean of its halves
+TRAIN_GNN_STEPS = 3
+TRAIN_GNN_LR = 1e-3
+TRAIN_GNN_TOL = 2e-3  # float32 gradients against the index_add_ forward's
+
+
+def leaf_norm_errs(got, want) -> list:
+    """``||g - w|| / ||w||`` of each pair of gradients (float32)."""
+    return [float((g.float() - w.float()).norm() / w.float().norm().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+
+
+@contextlib.contextmanager
+def attention_on_plain_route():
+    """The LM's attention through ``flash_attention(..., impl="torch")``
+    (``attention_ref``, autograd included) for the duration."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.transformer import attention
+
+    attention.flash_attention = functools.partial(flash_attention, impl="torch")
+    try:
+        yield
+    finally:
+        attention.flash_attention = flash_attention
+
+
+def lm_train_batch(dev, b: int, seed: int, vocab: int) -> dict:
+    import torch
+
+    from repro_torch.data.lm import lm_batch
+
+    batch = lm_batch(b, TRAIN_LM_S, vocab, seed=seed)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def phase_train_lm(dev, card: str) -> dict:
+    """Phase 17 (b): qwen3-4b training at full width. On a 2-layer cut,
+    every gradient on the kernel route against the ``impl="torch"`` route
+    and a 2-microbatch step at B=2 against the mean of its halves; then
+    ``train()`` at ``TRAIN_LM_LAYERS`` layers on one repeated batch, its
+    launches counted from 0, and one profiled step."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.loop import LoopConfig, make_train_step, train, value_and_grads
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.tree import leaf_name, named_leaves, trainable
+
+    t_phase = time.perf_counter()
+    full = dataclasses.replace(get_arch(LM_ARCH).config, remat=True)
+    cut = dataclasses.replace(full, num_layers=TRAIN_CUT_LAYERS)
+    params = trainable(init_params(cut, device=dev,
+                                   generator=torch.Generator(dev).manual_seed(0)))
+    lm_loss = lambda p, b: loss_fn(p, cut, b)  # noqa: E731
+    batch = lm_train_batch(dev, 1, 0, full.vocab_size)
+    reset_launch_counts()
+    loss_k, grads_k = value_and_grads(lm_loss, params, batch)
+    counts = dict(launch_counts)
+    check(counts["flash_attention"] == 2 * TRAIN_CUT_LAYERS
+          and counts["flash_attention.bwd"] == TRAIN_CUT_LAYERS,
+          f"the cut's step: a forward launch a layer and one more in its "
+          f"recompute, a backward launch a layer: {counts}")
+    with attention_on_plain_route():
+        loss_t, grads_t = value_and_grads(lm_loss, params, batch)
+    check(launch_counts["flash_attention.bwd"] == TRAIN_CUT_LAYERS,
+          "the plain route launches no kernel")
+    errs = leaf_norm_errs(grads_k, grads_t)
+    names = [leaf_name(p) for p, _ in named_leaves(params)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    print(f"train {LM_ARCH} {TRAIN_CUT_LAYERS}-layer cut B=1 S={TRAIN_LM_S}: "
+          f"loss kernel={float(loss_k)} plain={float(loss_t)}; gradients of "
+          f"{len(errs)} leaves, kernel route vs impl=\"torch\" in norm: worst "
+          f"{errs[worst]} ({names[worst]}), median {median(errs)}")
+    check(abs(float(loss_k) - float(loss_t)) <= 1e-2 * abs(float(loss_t)),
+          "the two routes' losses agree")
+    check(max(errs) <= TRAIN_GRAD_TOL,
+          f"every gradient within {TRAIN_GRAD_TOL} in norm of the plain route's")
+    del grads_k, grads_t
+    batch2 = lm_train_batch(dev, 2, 1, full.vocab_size)
+    loss_m, grads_m = value_and_grads(lm_loss, params, batch2, num_microbatches=2)
+    halves = [value_and_grads(lm_loss, params, {k: v[i:i + 1] for k, v in batch2.items()})
+              for i in range(2)]
+    mean = [(a.float() + b.float()) * 0.5 for a, b in zip(halves[0][1], halves[1][1])]
+    micro_errs = leaf_norm_errs(grads_m, mean)
+    max_diff = max(float((g - w).abs().max()) for g, w in zip(grads_m, mean))
+    print(f"train {LM_ARCH} cut: num_microbatches=2 at B=2: loss={float(loss_m)} "
+          f"mean of halves={(float(halves[0][0]) + float(halves[1][0])) / 2} "
+          f"grads float32={all(g.dtype == torch.float32 for g in grads_m)} "
+          f"worst norm err vs the mean of the halves' grads={max(micro_errs)} "
+          f"max_abs_diff={max_diff}")
+    check(all(g.dtype == torch.float32 for g in grads_m),
+          "microbatch gradients accumulate in float32")
+    check(max(micro_errs) <= TRAIN_MICRO_TOL,
+          "the 2-microbatch step's gradients are the mean of its halves'")
+    del params, grads_m, halves, mean, batch2
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LM_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"train {LM_ARCH} {TRAIN_LM_LAYERS} layers: init_s={time.perf_counter() - t0} "
+          f"weights_gb={sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9}")
+    opt_cfg = AdamWConfig(lr=TRAIN_LM_LR, warmup_steps=2, total_steps=TRAIN_LM_STEPS)
+    lm_loss = lambda p, b: loss_fn(p, cfg, b)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    params, out = train(params, lm_loss, iter(lambda: batch, None), opt_cfg,
+                        LoopConfig(total_steps=TRAIN_LM_STEPS, log_every=TRAIN_LM_STEPS))
+    counts = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in out["history"]]
+    step_s = [h["dt"] for h in out["history"]]
+    steady = median(step_s[1:])
+    want = {"flash_attention": 2 * TRAIN_LM_LAYERS * TRAIN_LM_STEPS,
+            "flash_attention.bwd": TRAIN_LM_LAYERS * TRAIN_LM_STEPS}
+    print(f"train {LM_ARCH} {TRAIN_LM_LAYERS} layers B=1 S={TRAIN_LM_S} bf16, float32 "
+          f"moments, remat: losses={losses} step_ms={[x * 1e3 for x in step_s]} "
+          f"launches={counts} peak_memory_gb={peak_gb} [{card}]")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0] - 0.5,
+          f"the loss falls on a repeated batch: {losses}")
+    check(all(counts[k] == v for k, v in want.items()),
+          f"train() went through both attention kernels: {counts}, want {want}")
+    # One profiled step, on a fresh optimizer state (train() dropped its own).
+    opt_state = init_opt_state(params, opt_cfg)
+    step = make_train_step(lm_loss, opt_cfg)
+    wall_ms, busy_ms, events, ranked, idle = device_share(
+        lambda: step(params, opt_state, None, batch), top=10_000)
+    bwd_ms = sum(ms for name, ms in ranked if "attn_bwd" in name)
+    fwd_ms = sum(ms for name, ms in ranked if "attn_tc_kernel" in name)
+    print(f"train {LM_ARCH} profiled step: wall_ms={wall_ms} device_busy_ms={busy_ms} "
+          f"device_events={events} device_idle_share={idle} attention_bwd_ms={bwd_ms} "
+          f"attention_bwd_share_of_busy={bwd_ms / busy_ms} attention_fwd_ms={fwd_ms}")
+    for name, ms in ranked[:8]:
+        print(f"train {LM_ARCH} device time by kernel: {ms:.3f} ms {name[:110]}")
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    return {"step_s": steady, "tps": TRAIN_LM_S / steady, "peak_gb": peak_gb,
+            "idle": idle, "bwd_share": bwd_ms / busy_ms, "losses": losses,
+            "counts": counts, "secs": time.perf_counter() - t_phase}
+
+
+def phase_train_gnn(dev, ogb: dict, card: str) -> dict:
+    """Phase 17 (c) and (d): gin-tu training on the ogb_products graph.
+    The first step's gradients against the autograd of the independent
+    ``index_add_`` forward; ``train()`` for ``TRAIN_GNN_STEPS`` steps with
+    a checkpoint at the end; the checkpoint restored, saved again and
+    restored, bit-equal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.common import node_nll
+    from repro_torch.models.gnn import gin
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import LoopConfig, train, value_and_grads
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.tree import copy_into, leaves, named_leaves, trainable
+
+    t_phase = time.perf_counter()
+    graph = gnn_on_card(ogb, dev)
+    graph["labels"] = torch.from_numpy(ogb["labels"]).to(dev)
+    cfg = get_arch("gin-tu").config_for(GNN_SHAPE)
+    params = trainable(gin.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                                       device=dev))
+    gnn_loss = lambda p, b: gin.loss_fn(p, cfg, b)  # noqa: E731
+    reset_launch_counts()
+    loss_k, grads_k = value_and_grads(gnn_loss, params, graph)
+    check(launch_counts["segment_sum"] == cfg.num_layers,
+          f"gin's step: one segment_sum launch a layer, got {launch_counts['segment_sum']}")
+    torch.cuda.empty_cache()
+    index_loss = lambda p, b: node_nll(  # noqa: E731
+        gnn_by_index_add("gin-tu", p, cfg, b), b["labels"])
+    loss_i, grads_i = value_and_grads(index_loss, params, graph)
+    errs = leaf_norm_errs(grads_k, grads_i)
+    print(f"train gin-tu {GNN_SHAPE}: first step loss={float(loss_k)} index_add "
+          f"forward's={float(loss_i)}; gradients of {len(errs)} leaves in norm: worst "
+          f"{max(errs)} median {median(errs)}")
+    check(max(errs) <= TRAIN_GNN_TOL,
+          f"gin's gradients within {TRAIN_GNN_TOL} in norm of the index_add_ forward's")
+    del grads_k, grads_i
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        opt_cfg = AdamWConfig(lr=TRAIN_GNN_LR, warmup_steps=1, total_steps=TRAIN_GNN_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        params, out = train(params, gnn_loss, iter(lambda: graph, None), opt_cfg,
+                            LoopConfig(total_steps=TRAIN_GNN_STEPS,
+                                       checkpoint_every=TRAIN_GNN_STEPS,
+                                       checkpoint_dir=f"{tmp}/a", log_every=100))
+        counts = dict(launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [h["loss"] for h in out["history"]]
+        step_s = [h["dt"] for h in out["history"]]
+        m = graph["src"].shape[0]
+        steady = median(step_s[1:])
+        print(f"train gin-tu {GNN_SHAPE} n={graph['node_feats'].shape[0]} m={m}: "
+              f"losses={losses} step_ms={[x * 1e3 for x in step_s]} "
+              f"edges_per_s={cfg.num_layers * m / steady} launches={counts} "
+              f"peak_memory_gb={peak_gb} [{card}]")
+        check(counts["segment_sum"] == cfg.num_layers * TRAIN_GNN_STEPS,
+              f"train() went through segment_sum once a layer a step: {counts}")
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"gin's loss falls: {losses}")
+        # (d): the checkpoint of train()'s last step, restored; saved again
+        # from the card and restored; bit-equal throughout.
+        like = {"params": params, "opt_state": init_opt_state(params, opt_cfg)}
+        first = CheckpointManager(f"{tmp}/a").restore(TRAIN_GNN_STEPS, like)
+        check(int(first["opt_state"]["step"]) == TRAIN_GNN_STEPS
+              and all(torch.equal(a.cpu(), b) for a, b in
+                      zip(leaves(params), leaves(first["params"]))),
+              "the checkpoint holds train()'s last parameters and step")
+        copy_into(like, first)
+        second_mgr = CheckpointManager(f"{tmp}/b")
+        second_mgr.save(TRAIN_GNN_STEPS, like)
+        second_mgr.wait()
+        second = second_mgr.restore(TRAIN_GNN_STEPS, like)
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for (_, a), (_, b) in
+                   zip(named_leaves(first), named_leaves(second)))
+        nbytes = sum(x.numel() * x.element_size() for x in leaves(second))
+        print(f"checkpoint gin-tu state: {len(leaves(second))} leaves, {nbytes} bytes, "
+              f"save -> restore -> save from the card -> restore bit-equal={same}")
+        check(same, "the checkpoint round trip is bit-equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params, graph, like
+    torch.cuda.empty_cache()
+    return {"step_s": steady, "eps": cfg.num_layers * m / steady, "peak_gb": peak_gb,
+            "counts": counts, "losses": losses, "secs": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -4267,7 +4683,7 @@ def main() -> int:
     # Phase 15: the rest of GNN and RecSys inference, launches counted
     # from 0 in each cell.
     slice11 = phase_slice11(dev, ogb, minibatch, molecules, slice11_cases)
-    del ogb, minibatch, molecules, slice11_cases
+    del minibatch, molecules, slice11_cases
     launches["segment_sum"] += sum(cell["launches"] for cell in slice11["cells"])
 
     # Phase 16: MoE, MLA and the MTP head, launches counted from 0 in each
@@ -4277,6 +4693,18 @@ def main() -> int:
         for name in ("flash_attention", "segment_sum"):
             launches[name] += cell["counts"][name]
     launches["flash_attention"] += moe["cells"]["deepseek-v3-671b"]["mtp_launches"]
+
+    # Phase 17: single-device training; launches counted from 0 in each
+    # train() run.
+    t17 = time.perf_counter()
+    bwd_err = phase_attention_bwd(dev)
+    bwd_ms, bwd_plain, bwd_lib, bwd_bound = attention_bwd_times(dev, card)
+    train_lm = phase_train_lm(dev, card)
+    train_gnn = phase_train_gnn(dev, ogb, card)
+    del ogb
+    train_secs = time.perf_counter() - t17
+    launches["flash_attention"] += train_lm["counts"]["flash_attention"]
+    launches["segment_sum"] += train_gnn["counts"]["segment_sum"]
     errs["flash_attention"] = lm["max_abs_err"]
     records = []
     for name, (ms, plain_ms, eager_ms, nbytes) in times.items():
@@ -4353,6 +4781,21 @@ def main() -> int:
         print(f"time segment_sum MoE combine (record, {name} ({t * k}, {d}) bf16): "
               f"ms={c_ms} eager_ms={c_eager} plain_ms={c_plain} "
               f"library_ms(segment_reduce)={c_lib} bound_ms={c_bound} [{card}]")
+    records.append({
+        "name": "flash_attention.bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": KERNELS["flash_attention"][1],
+        "launches": train_lm["counts"]["flash_attention.bwd"],
+        "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain,
+        "bound_ms": bwd_bound, "bound_by": "operations", "library_ms": bwd_lib,
+    })
+    b_, hq_, hkv_, s_, d_ = ATTN_BWD_SHAPE
+    print(f"time flash_attention.bwd (record, B={b_} Hq={hq_} Hkv={hkv_} S={s_} D={d_} "
+          f"bf16 causal): ms={bwd_ms} plain_ms={bwd_plain} "
+          f"library_ms(sdpa backward)={bwd_lib} bound_ms={bwd_bound} "
+          f"share_of_bound={bwd_bound / bwd_ms} [{card}]")
+    print("flash_attention.bwd has no Pallas counterpart: the reference takes the VJP "
+          "of _attn_kernel's function by autodiff")
     records.append({
         "name": "ordered_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ordered_fold.cu",
@@ -4446,6 +4889,16 @@ def main() -> int:
             print(f"e2e mtp {cell['label']}: wall_ms={cell['mtp_s'] * 1e3} [{card}]")
         print(f"e2e prefill vs decode {name}: max_abs_diff={cell['consistency']} [{card}]")
     print(f"e2e moe phase_s={moe['secs']} [{card}]")
+    print(f"e2e train {LM_ARCH} {TRAIN_LM_LAYERS} layers B=1 S={TRAIN_LM_S}: "
+          f"step_ms={train_lm['step_s'] * 1e3} tokens_per_s={train_lm['tps']} "
+          f"peak_memory_gb={train_lm['peak_gb']} device_idle_share={train_lm['idle']} "
+          f"attention_bwd_share_of_busy={train_lm['bwd_share']} "
+          f"loss_first={train_lm['losses'][0]} loss_last={train_lm['losses'][-1]} [{card}]")
+    print(f"e2e train gin-tu {GNN_SHAPE}: step_ms={train_gnn['step_s'] * 1e3} "
+          f"edges_per_s={train_gnn['eps']} peak_memory_gb={train_gnn['peak_gb']} "
+          f"loss_first={train_gnn['losses'][0]} loss_last={train_gnn['losses'][-1]} [{card}]")
+    print(f"e2e train phase_s={train_secs} (lm {train_lm['secs']}, gnn "
+          f"{train_gnn['secs']}) [{card}]")
     print(f"chip_smoke total_s={time.perf_counter() - start}")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))

@@ -1,9 +1,11 @@
 """CUDA C++ kernels for Hopper (``sm_90a``), the port's counterparts of
 the Pallas TPU kernels in ``repro.kernels``: ``edge_hook``,
 ``pointer_jump``, ``splitter_aggregate``, ``flash_attention`` and
-``segment_sum``; and ``ordered_fold``, which has no Pallas counterpart
+``segment_sum``; ``ordered_fold``, which has no Pallas counterpart
 (the slot-order fold of the ``ADD`` monoid, which XLA's scatter-add gives
-the reference for free).
+the reference for free); and ``flash_attention``'s backward
+(``csrc/flash_attention_bwd.cu``), which has none either (the reference
+takes that VJP by autodiff).
 
 Each kernel directory holds:
   ops.py  -- the wrapper: checks its inputs, launches the kernel on a
@@ -38,6 +40,7 @@ launch_counts = {
     "pointer_jump": 0,
     "splitter_aggregate": 0,
     "flash_attention": 0,
+    "flash_attention.bwd": 0,
     "segment_sum": 0,
     "ordered_fold": 0,
 }

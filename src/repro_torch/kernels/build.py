@@ -24,7 +24,7 @@ from pathlib import Path
 
 SOURCES = (
     "edge_hook", "pointer_jump", "splitter_aggregate", "flash_attention",
-    "segment_sum", "ordered_fold",
+    "flash_attention_bwd", "segment_sum", "ordered_fold",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -22,6 +22,13 @@ strides whose last is 1: the kernel reads them through TMA tensor maps,
 so the model's transposed ``(B, S, H, D)`` views need no copy, and the
 output is allocated with ``q``'s strides, so its transpose back is a
 view. ``kv_tile_plan`` states the kernel's tile schedule.
+
+Gradients: on the card, inputs that require grad go through
+``_Attention``, a ``torch.autograd.Function`` whose forward is the
+kernel above and whose backward is a second hand kernel
+(``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd`` here): the
+reference takes that VJP by autodiff, and no card path runs the plain
+version. ``ref.py::attention_vjp_ref`` is its plain counterpart.
 """
 from __future__ import annotations
 
@@ -36,6 +43,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # q, k, v, out; dtype, batch, hq, hkv, sq, sk, d, dv, causal, window; the
 # (batch, head, row) strides of q, k, v and out; the stream.
 _ARGTYPES = (_P, _P, _P, _P, *(_I,) * 10, *(_L,) * 12, _P)
+# q, k, v, out, dout, dq, dk, dv, lse, delta; dtype, batch, hq, hkv, sq,
+# sk, d, dv, causal, window; a pointer to the 15 (batch, head, row)
+# strides of q, k, v, out and dout; the stream.
+_BWD_ARGTYPES = (*(_P,) * 10, *(_I,) * 10, _P, _P)
 
 # Head dims with a template instance in csrc/flash_attention.cu: every
 # head_dim of the GQA LM configs and their smoke configs (Dv = D).
@@ -190,10 +201,11 @@ def flash_attention(
     ``1 / sqrt(D)``. ``window=w`` keeps a score iff ``0 <= qpos - kpos <
     w`` with ``causal``, iff ``qpos - kpos < w`` without.
 
-    The plain version (CPU tensors) carries autograd. The kernel has no
-    backward yet: on its route a ``q``, ``k`` or ``v`` that requires
-    grad, with grad mode on, raises before anything is built or
-    launched (the launch would cut the autograd graph)."""
+    The plain version (CPU tensors) carries autograd by itself. On the
+    kernel's route, where grad mode is on and ``q``, ``k`` or ``v``
+    requires grad, the call goes through ``_Attention``: the same
+    forward launch, and ``flash_attention_bwd``'s kernel for the
+    gradients."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(
             "flash_attention takes q (B, Hq, Sq, D), k (B, Hkv, Sk, D) and "
@@ -211,17 +223,21 @@ def flash_attention(
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if resolve_impl(impl, q) == "torch":
         return attention_ref(q, k, v, causal=causal, window=window)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention's kernel has no backward yet (ROADMAP queue 1, "
-            "item 16): call it under torch.no_grad() or on tensors that do "
-            "not require grad"
-        )
-    from repro_torch.kernels.build import function
-
     check_kernel_inputs(q, k, v)
     if window is not None and window >= sq + sk:
         window = None  # masks nothing; a C int would wrap past 2**31
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        check_backward_grid(q, k, v)
+        return _Attention.apply(q, k, v, causal, window)
+    return _forward_kernel(q, k, v, causal, window)
+
+
+def _forward_kernel(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
+    """The forward kernel's launch on checked inputs."""
+    from repro_torch.kernels.build import function
+
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     dtype = q.dtype
     (q, q_st), (k, k_st), (v, v_st) = (_kernel_operand(x, dtype) for x in (q, k, v))
     dv = v.shape[3]
@@ -239,3 +255,113 @@ def flash_attention(
     ))
     launch_counts["flash_attention"] += 1
     return out
+
+
+class _Attention(torch.autograd.Function):
+    """``flash_attention`` on the card with gradients: the forward kernel,
+    then ``flash_attention_bwd``'s kernel on the saved ``q, k, v`` and
+    output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _forward_kernel(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _backward_kernel(q, k, v, out, dout, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _bwd_operand(x: torch.Tensor):
+    """``(tensor, strides)`` as the backward kernel reads it: any
+    ``(B, H, S, D)`` strides whose last is 1 and whose others, and whose
+    address, are multiples of 16 bytes (``tma_strides``); else a
+    contiguous copy."""
+    st = tma_strides(x)
+    if st is None:
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        st = tma_strides(x)
+    return x, st
+
+
+def check_backward_grid(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ``ValueError`` where the backward kernel's grids (query tiles,
+    key tiles on grid.y) would pass their limit. Its tiles: (query rows,
+    keys) = (64, 64) in bfloat16, (64, 32) for a head dim of 256, (16, 16)
+    in float32."""
+    sq, sk = q.shape[2], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        bq, bk = 64, 32 if max(q.shape[3], v.shape[3]) > 192 else 64
+    else:
+        bq, bk = 16, 16
+    if -(-sq // bq) > MAX_GRID_Y or -(-sk // bk) > MAX_GRID_Y:
+        raise ValueError(
+            f"flash_attention's backward kernel takes Sq <= 65535 * {bq} and "
+            f"Sk <= 65535 * {bk} for {q.dtype}; got Sq={sq}, Sk={sk}"
+        )
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,     # (B, Hq, Sq, D)
+    k: torch.Tensor,     # (B, Hkv, Sk, D)
+    v: torch.Tensor,     # (B, Hkv, Sk, Dv)
+    out: torch.Tensor,   # (B, Hq, Sq, Dv): flash_attention(q, k, v)
+    dout: torch.Tensor,  # (B, Hq, Sq, Dv)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's launch on CUDA tensors: ``(dq, dk, dv)``,
+    contiguous, in the inputs' dtype, the VJP of ``attention_ref`` at
+    ``dout`` (``attention_vjp_ref``'s function; dK and dV summed over
+    each KV head's query heads in float32). Takes the instances the
+    forward takes and raises, before anything is built, on the others.
+    Counts the launch."""
+    resolve_impl("cuda", q)  # raises for tensors off the card
+    check_kernel_inputs(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    for name, x in (("out", out), ("dout", dout)):
+        if tuple(x.shape) != (b, hq, sq, dv) or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(
+                f"flash_attention_bwd: {name} must be {(b, hq, sq, dv)} {q.dtype} on "
+                f"{q.device}; got {tuple(x.shape)} {x.dtype} on {x.device}"
+            )
+    check_backward_grid(q, k, v)
+    if window is not None and window >= sq + sk:
+        window = None
+    return _backward_kernel(q, k, v, out, dout, causal, window)
+
+
+def _backward_kernel(q, k, v, out, dout, causal: bool, window: int | None):
+    """The backward kernel's launch on checked inputs."""
+    from repro_torch.kernels.build import function
+
+    b, hq, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    kw = dict(dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, hq, sq, d), **kw)
+    dk = torch.empty((b, hkv, sk, d), **kw)
+    dv_ = torch.empty((b, hkv, sk, dv), **kw)
+    if dq.numel() == 0 or sk == 0:  # no query row or no key: zero gradients
+        return dq.zero_(), dk.zero_(), dv_.zero_()
+    operands = [_bwd_operand(x) for x in (q, k, v, out, dout)]
+    strides = (ctypes.c_longlong * 15)(*(s for _, st in operands for s in st))
+    lse = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
+    check_status("flash_attention_bwd", fn(
+        *(x.data_ptr() for x, _ in operands), dq.data_ptr(), dk.data_ptr(),
+        dv_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv, int(causal),
+        0 if window is None else int(window), ctypes.addressof(strides),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    ))
+    launch_counts["flash_attention.bwd"] += 1
+    return dq, dk, dv_

@@ -8,6 +8,9 @@ float32 softmax; ``p @ v`` is float32 and the result is cast to ``q``'s
 dtype. A row with no live key (only reachable with ``q_offset``, or with
 a window and ``Sq >= Sk + window``) gets equal weights on every key: the
 mean of ``v``.
+
+``attention_vjp_ref`` is the VJP of ``attention_ref`` by autograd, the
+plain version of the backward kernel (``csrc/flash_attention_bwd.cu``).
 """
 from __future__ import annotations
 
@@ -43,3 +46,21 @@ def attention_ref(
     p = torch.softmax(s, dim=-1)
     # torch's einsum does not promote mixed dtypes (JAX's does): cast v.
     return torch.einsum("bhqk,bhkd->bhqd", p, vr.float()).to(q.dtype)
+
+
+def attention_vjp_ref(
+    q: torch.Tensor,     # (B, Hq, Sq, D)
+    k: torch.Tensor,     # (B, Hkv, Sk, D)
+    v: torch.Tensor,     # (B, Hkv, Sk, Dv)
+    dout: torch.Tensor,  # (B, Hq, Sq, Dv)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``: the VJP of ``attention_ref`` at ``dout``, by
+    autograd through it (materialised scores, ``(B, Hq, Sq, Sk)``
+    float32), in the inputs' dtypes."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(out, leaves, dout)

@@ -12,6 +12,13 @@ tiles, in tile order). It does not follow the kernel's order of sums
 inside a tile, so it equals the kernel only where every order gives the
 same sum. The kernel sums in float32, without atomics, so two calls
 give bit-equal outputs.
+
+Gradients: on the card, ``data`` that requires grad goes through
+``_SegmentSum``, a ``torch.autograd.Function`` around the same launch
+whose backward is ``segment_sum_vjp``: the gather ``grad_out[ids]``
+(zero rows for ids outside ``[0, n)``), which the reference gets from
+XLA's autodiff and not from a Pallas kernel. It is a PyTorch gather, and
+deterministic.
 """
 from __future__ import annotations
 
@@ -161,18 +168,12 @@ def segment_sum_sorted(
     On the card the work is split by rows (``row_tiles``), whatever the
     largest segment; the call reads nothing back to the host, so it can
     be captured in a CUDA graph. ``data`` whose address is not a
-    multiple of 16 bytes is copied first.
-
-    This slice is inference: a ``data`` that requires grad, with grad
-    mode on, raises (the kernel's launch would cut the autograd graph).
+    multiple of 16 bytes is copied first. A ``data`` that requires grad,
+    with grad mode on, goes through ``_SegmentSum`` (the same launch;
+    ``segment_sum_vjp`` for its gradient); the plain version carries
+    autograd by itself.
     """
     del block_e, block_s, max_steps
-    if data.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(
-            "segment_sum_sorted has no backward yet (ROADMAP queue 1, item "
-            "16): call it under torch.no_grad() or on a tensor that does "
-            "not require grad"
-        )
     if data.dim() < 1 or seg_ids.dim() != 1 or seg_ids.shape[0] != data.shape[0]:
         raise ValueError(
             f"data (m, ...) and seg_ids (m,) disagree: {tuple(data.shape)} "
@@ -182,7 +183,40 @@ def segment_sum_sorted(
         raise ValueError(f"num_segments must be >= 0, got {num_segments}")
     if resolve_impl(impl, data) == "torch":
         return segment_sum_sorted_ref(data, seg_ids, num_segments)
+    if data.requires_grad and torch.is_grad_enabled():
+        return _SegmentSum.apply(data, seg_ids, num_segments)
     return segment_sum_and_pointers(data, seg_ids, num_segments)[0]
+
+
+def segment_sum_vjp(grad: torch.Tensor, seg_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """The gradient of a segment sum with respect to its rows:
+    ``grad[seg_ids]``, ``(m, *feature_dims)``, with a zero row for every
+    id outside ``[0, num_segments)``. One gather and one masked fill, so
+    two calls give the same bits."""
+    feat = grad.shape[1:]
+    if num_segments == 0:
+        return grad.new_zeros((seg_ids.shape[0], *feat))
+    ids = seg_ids.long()
+    dropped = (ids < 0) | (ids >= num_segments)
+    rows = grad.index_select(0, ids.clamp(0, num_segments - 1))
+    return rows.masked_fill_(dropped.view(-1, *([1] * len(feat))), 0)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """``segment_sum_sorted``'s kernel with a gradient: the launch, then
+    ``segment_sum_vjp`` on the saved ids (``data`` is not saved)."""
+
+    @staticmethod
+    def forward(ctx, data, seg_ids, num_segments):
+        ctx.save_for_backward(seg_ids)
+        ctx.num_segments = num_segments
+        return segment_sum_and_pointers(data, seg_ids, num_segments)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (seg_ids,) = ctx.saved_tensors
+        return segment_sum_vjp(grad, seg_ids, ctx.num_segments), None, None
 
 
 def segment_sum_and_pointers(

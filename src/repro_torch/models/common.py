@@ -1,7 +1,7 @@
 """Shared model building blocks of the port: initialisers, RMS and layer
 norm, rotary embedding, activations. The port's copy of the parts of
-``repro.models.common`` that the decoder LM and the GNNs use;
-``softmax_cross_entropy`` comes with the training slice."""
+``repro.models.common`` that the decoder LM and the GNNs use, and the
+LM's training loss ``softmax_cross_entropy``."""
 from __future__ import annotations
 
 import math
@@ -110,6 +110,31 @@ _ACTIVATIONS = {
 
 def activation_fn(name: str):
     return _ACTIVATIONS[name]
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          ignore_id: int = -1) -> torch.Tensor:
+    """Mean cross-entropy over the positions whose label is not
+    ``ignore_id``; logits (..., V) (taken in float32), labels (...).
+    Labels are clipped at 0 before the gather, as the reference's, so an
+    ignored position reads class 0 and is masked out."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    total = torch.clamp(mask.sum(), min=1.0)
+    return ((lse - gold) * mask).sum() / total
+
+
+def node_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The GNNs' node (or graph) classification loss: the mean negative
+    log-likelihood of ``log_softmax(logits)`` in float32 over the rows
+    whose label is >= 0 (labels clipped at 0 before the gather), as the
+    reference's ``gin``/``gat`` ``loss_fn`` and ``extra._node_ce``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long().clamp(min=0)[:, None])[:, 0]
+    mask = (labels >= 0).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def count_params(module: torch.nn.Module) -> int:

@@ -7,7 +7,7 @@ the GCN, GraphSAGE and PNA of ``extra.py``, the counterparts of
 Each model module has a config dataclass, parameters in an
 ``nn.Module`` (``nn.Linear`` layers for GIN and GAT, a ``ParamTree``
 under the reference's keys for the others), an init taking
-``(cfg, *, generator, device)`` and a forward taking ``(params, cfg,
-graph)`` (inference). ``convert.params_from_jax`` carries the
-reference's parameters across.
+``(cfg, *, generator, device)``, a forward taking ``(params, cfg,
+graph)`` and a loss taking the reference's arguments.
+``convert.params_from_jax`` carries the reference's parameters across.
 """

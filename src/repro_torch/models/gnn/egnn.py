@@ -1,5 +1,6 @@
 """EGNN (E(n)-equivariant GNN), arXiv:2102.09844, the port of
-``repro/models/gnn/egnn.py`` (inference). Config: 4 layers, d = 64.
+``repro/models/gnn/egnn.py``: forward and ``loss_fn``. Config: 4 layers,
+d = 64.
 
 m_ij   = phi_e(h_i, h_j, ||x_i - x_j||^2)
 x_i'   = x_i + (1/deg_i) sum_j (x_i - x_j) phi_x(m_ij)
@@ -112,3 +113,11 @@ def forward(params: ParamTree, cfg: EGNNConfig, graph: dict, *,
     else:
         out = node_out
     return out, x
+
+
+def loss_fn(params: ParamTree, cfg: EGNNConfig, graph: dict, *,
+            psum_axes: tuple[str, ...] = ()) -> torch.Tensor:
+    """Mean squared error of the readout against ``graph["labels"]``."""
+    pred, _x = forward(params, cfg, graph, psum_axes=psum_axes)
+    target = input_tensor(graph, "labels", pred.device).float()
+    return torch.mean((pred.squeeze(-1).float() - target) ** 2)

@@ -1,6 +1,6 @@
 """GCN [arXiv:1609.02907], GraphSAGE [arXiv:1706.02216] and PNA
-[arXiv:2004.05718], the port of ``repro/models/gnn/extra.py``
-(inference).
+[arXiv:2004.05718], the port of ``repro/models/gnn/extra.py``:
+forwards and losses (``gcn_loss``, ``sage_loss``, ``pna_loss``).
 
 Every float sum over edges is the ``segment_sum`` kernel over edges
 sorted by destination (``graph.dst_sorted_edges``: checked once a
@@ -9,8 +9,7 @@ layer (its mean), PNA two a layer (its sums and sums of squares); PNA's
 extremes and the degree counts are scatters, as in the reference.
 Parameters are ``ParamTree``s under the reference's keys, matrices
 ``(in, out)``. Like the reference, nothing registers these three in the
-architecture table. The losses come with the training slice (ROADMAP
-queue 1, item 16).
+architecture table.
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import input_tensor
+from repro_torch.models.common import input_tensor, node_nll
 from repro_torch.models.gnn.graph import dst_sorted_edges
 from repro_torch.models.tree import ParamTree, empty_tree, generator_on, he_or_zero
 from repro_torch.ops.segment import (
@@ -41,6 +40,11 @@ def _init(spec: dict, cfg, generator, device) -> ParamTree:
     dev = resolve_device(device)
     params = empty_tree(spec, dev, getattr(torch, cfg.dtype))
     return he_or_zero(params, generator_on(generator, dev))
+
+
+def _node_ce(logits: torch.Tensor, graph: dict) -> torch.Tensor:
+    """Mean node NLL over the rows whose ``graph["labels"]`` is >= 0."""
+    return node_nll(logits, input_tensor(graph, "labels", logits.device))
 
 
 def _edges(params: ParamTree, graph: dict):
@@ -209,3 +213,15 @@ def pna_forward(params: ParamTree, cfg: PNAConfig, graph: dict, *,
         if li < len(layers) - 1:
             h = F.relu(h)
     return h
+
+
+def gcn_loss(params: ParamTree, cfg: GCNConfig, graph: dict, *, psum_axes=()):
+    return _node_ce(gcn_forward(params, cfg, graph, psum_axes=psum_axes), graph)
+
+
+def sage_loss(params: ParamTree, cfg: SAGEConfig, graph: dict, *, psum_axes=()):
+    return _node_ce(sage_forward(params, cfg, graph, psum_axes=psum_axes), graph)
+
+
+def pna_loss(params: ParamTree, cfg: PNAConfig, graph: dict, *, psum_axes=()):
+    return _node_ce(pna_forward(params, cfg, graph, psum_axes=psum_axes), graph)

@@ -17,9 +17,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import input_tensor, lecun_init
+from repro_torch.models.common import input_tensor, lecun_init, node_nll
 from repro_torch.models.gnn.graph import dst_sorted_edges
-from repro_torch.ops.segment import segment_softmax_dist, segment_sum
+from repro_torch.ops.segment import local_only, segment_softmax_dist, segment_sum
 
 
 @dataclass(frozen=True)
@@ -74,7 +74,8 @@ class GAT(nn.Module):
 
 def empty_params(cfg: GATConfig, device) -> GAT:
     """A ``GAT`` with uninitialised storage on ``device``, outside
-    autograd (this slice is inference)."""
+    autograd (the training step makes its leaves require grad:
+    ``train.tree.trainable``)."""
     with torch.device("meta"):
         model = GAT(cfg, dtype=getattr(torch, cfg.dtype))
     return model.to_empty(device=device).requires_grad_(False)
@@ -130,3 +131,12 @@ def forward(params: GAT, cfg: GATConfig, graph: dict) -> torch.Tensor:
         last = i == cfg.num_layers - 1
         h = _gat_layer(layer, cfg, h, src, dst, n, heads, d_out, last)
     return h
+
+
+def loss_fn(params: GAT, cfg: GATConfig, graph: dict, *,
+            psum_axes: tuple[str, ...] = ()) -> torch.Tensor:
+    """Mean node NLL over the rows whose ``graph["labels"]`` is >= 0.
+    ``psum_axes`` (the edge-sharded form) raises."""
+    local_only(psum_axes)
+    logits = forward(params, cfg, graph)
+    return node_nll(logits, input_tensor(graph, "labels", logits.device))

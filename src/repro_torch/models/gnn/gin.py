@@ -18,9 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import he_init, input_tensor, layer_norm
+from repro_torch.models.common import he_init, input_tensor, layer_norm, node_nll
 from repro_torch.models.gnn.graph import dst_sorted_edges, is_sorted
-from repro_torch.ops.segment import segment_sum
+from repro_torch.ops.segment import local_only, segment_sum
 
 
 @dataclass(frozen=True)
@@ -66,7 +66,8 @@ class GIN(nn.Module):
 
 def empty_params(cfg: GINConfig, device) -> GIN:
     """A ``GIN`` with uninitialised storage on ``device``, outside
-    autograd (this slice is inference)."""
+    autograd (the training step makes its leaves require grad:
+    ``train.tree.trainable``)."""
     with torch.device("meta"):
         model = GIN(cfg, dtype=getattr(torch, cfg.dtype))
     return model.to_empty(device=device).requires_grad_(False)
@@ -120,3 +121,12 @@ def forward(params: GIN, cfg: GINConfig, graph: dict) -> torch.Tensor:
                              indices_are_sorted=is_sorted(gid))
         return params.head(pooled)
     return params.head(hcat)
+
+
+def loss_fn(params: GIN, cfg: GINConfig, graph: dict, *,
+            psum_axes: tuple[str, ...] = ()) -> torch.Tensor:
+    """Mean node (or graph) NLL over the rows whose ``graph["labels"]``
+    is >= 0. ``psum_axes`` (the edge-sharded form) raises."""
+    local_only(psum_axes)
+    logits = forward(params, cfg, graph)
+    return node_nll(logits, input_tensor(graph, "labels", logits.device))

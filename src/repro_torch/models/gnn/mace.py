@@ -1,5 +1,5 @@
 """MACE (higher-order equivariant message passing), arXiv:2206.07697, the
-port of ``repro/models/gnn/mace.py`` (inference).
+port of ``repro/models/gnn/mace.py``: forward and ``loss_fn``.
 
 l_max = 2 irreps, correlation order 3, a Bessel radial basis with a
 polynomial cutoff, real-basis CG tensor products (``so3.py``), and
@@ -270,3 +270,11 @@ def forward(params: ParamTree, cfg: MACEConfig, graph: dict, *,
     gid = input_tensor(graph, "graph_ids", dev)
     return segment_sum(energy_nodes, gid, int(graph["num_graphs"]),
                        indices_are_sorted=is_sorted(gid))
+
+
+def loss_fn(params: ParamTree, cfg: MACEConfig, graph: dict, *,
+            psum_axes: tuple[str, ...] = (), constrain=None) -> torch.Tensor:
+    """Mean squared error of the energies against ``graph["labels"]``."""
+    pred = forward(params, cfg, graph, psum_axes=psum_axes, constrain=constrain)
+    target = input_tensor(graph, "labels", pred.device).float()
+    return torch.mean((pred - target) ** 2)

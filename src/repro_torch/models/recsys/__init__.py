@@ -1,2 +1,2 @@
 """RecSys models of the port: xDeepFM of ``repro.models.recsys``
-(inference)."""
+(serving and its loss)."""

@@ -1,6 +1,6 @@
 """xDeepFM (arXiv:1803.05170): linear + CIN + DNN over field embeddings,
-the port of ``repro/models/recsys/xdeepfm.py`` (inference; ``loss_fn``
-comes with the training slice, ROADMAP queue 1, item 16).
+the port of ``repro/models/recsys/xdeepfm.py``: forward, serving and
+``loss_fn``.
 
 Config: 39 sparse fields, embed_dim 10, CIN 200-200-200, MLP 400-400.
 The embedding tables are ONE stacked (n_fields * vocab, dim) table on
@@ -169,6 +169,16 @@ def forward(params: ParamTree, cfg: XDeepFMConfig, batch: dict) -> torch.Tensor:
     hidden = _dnn_hidden(params, emb.reshape(b, -1))
     dnn_logit = (hidden @ params["mlp_out"])[:, 0]
     return linear + cin_logit + dnn_logit + params["bias"]
+
+
+def loss_fn(params: ParamTree, cfg: XDeepFMConfig, batch: dict) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against
+    ``batch["labels"]``, in the numerically stable form
+    ``max(l, 0) - l y + log1p(exp(-|l|))``."""
+    logits = forward(params, cfg, batch).float()
+    labels = input_tensor(batch, "labels", logits.device).float()
+    return torch.mean(torch.clamp(logits, min=0.0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def serve_step(params: ParamTree, cfg: XDeepFMConfig, batch: dict) -> torch.Tensor:

@@ -6,6 +6,7 @@ from repro_torch.models.transformer.model import (
     hidden_states,
     init_kv_cache,
     init_params,
+    loss_fn,
     prefill,
     serve_step,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "TransformerLM",
     "init_params",
     "forward",
+    "loss_fn",
     "hidden_states",
     "init_kv_cache",
     "cache_length",

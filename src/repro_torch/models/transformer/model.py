@@ -7,10 +7,13 @@ The parameters are one ``TransformerLM`` module (its layers in
 ``lax.scan``): the leading dense layers (every layer of a dense model,
 ``num_dense_layers`` of an MoE one), then the MoE layers, then
 DeepSeek-V3's ``mtp_layer`` and ``mtp_norm``. The functions take it as
-``params`` in the reference's argument order. The model serves and does
-not train yet (``loss_fn`` with its MTP loss and the optimizer wait for
-ROADMAP queue 1, item 16), so ``init_params`` returns parameters that do
-not require grad. Every entry point runs where the parameters live:
+``params`` in the reference's argument order. ``init_params`` returns
+parameters that do not require grad (the serving path); the training
+step (``repro_torch.train``) makes them require grad, and ``loss_fn``
+is the reference's, MTP loss included, with each layer recomputed in
+the backward when ``cfg.remat`` (``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint``). Every entry point runs where the
+parameters live:
 ``init_params`` allocates on the card unless the caller passes
 ``device="cpu"``, and tokens go to the parameters' device.
 """
@@ -22,9 +25,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import activation_fn, rms_norm
+from repro_torch.models.common import activation_fn, rms_norm, softmax_cross_entropy
 from repro_torch.models.transformer.attention import (
     GQAttention,
     MLAttention,
@@ -191,18 +195,37 @@ def _dense_ffn(p: DenseFFN, cfg: TransformerConfig, x: torch.Tensor) -> torch.Te
     return F.linear(h.to(x.dtype), p.w_down.weight)
 
 
+class _UnembedF32(torch.autograd.Function):
+    """``x (N, d) @ w (V, d)^T`` of bf16 operands summed and written in
+    float32 (one GEMM on the card). Its backward rounds the float32
+    cotangent to the operands' dtype once and takes ``dx = g w`` and
+    ``dw = g^T x`` in it, the usual mixed-precision VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return torch.mm(g, w), torch.mm(g.t(), x)
+
+
 def _unembed(params: TransformerLM, cfg: TransformerConfig,
              x: torch.Tensor) -> torch.Tensor:
     """The unembedding; float32 logits. As the reference's
     ``preferred_element_type=float32``, a bf16 product is summed and
     written in float32, never rounded to bf16: on the card one GEMM with
-    float32 output, on the CPU (which has no such GEMM) the same product
-    of the operands widened to float32, whose products are exact."""
+    float32 output (``_UnembedF32``, which carries the gradient), on the
+    CPU (which has no such GEMM) the same product of the operands
+    widened to float32, whose products are exact."""
     w = params.embed if cfg.tie_embeddings else params.unembed.weight
     if x.dtype == torch.float32:
         return F.linear(x, w)
     if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        out = _UnembedF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[0])
     return F.linear(x.float(), w.float())
 
@@ -235,14 +258,20 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def hidden_states(params: TransformerLM, cfg: TransformerConfig, tokens, *,
                   mesh=None) -> torch.Tensor:
     """The trunk: tokens (B, S) -> the last layer's output (B, S, d),
-    before the final norm (what the MTP head reads)."""
+    before the final norm (what the MTP head reads). With grad mode on
+    and ``cfg.remat``, each layer keeps only its input and is recomputed
+    in the backward."""
     no_mesh(mesh)
     tokens = as_tokens(params, tokens)
     b, s = tokens.shape
     x = embed_lookup(params, cfg, tokens)
     positions = _positions(b, s, x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for _, _, layer in params.layers():
-        x = _layer_fwd(layer, cfg, x, positions)
+        if remat:
+            x = checkpoint(_layer_fwd, layer, cfg, x, positions, use_reentrant=False)
+        else:
+            x = _layer_fwd(layer, cfg, x, positions)
     return x
 
 
@@ -260,8 +289,8 @@ def _mtp_logits(params: TransformerLM, cfg: TransformerConfig,
     the reference: the MTP block reads the trunk's hidden states
     ``x_final`` (``hidden_states``) normed by ``mtp_norm`` plus the
     embedding of ``tokens``, and its dense layer's output is unembedded
-    without the final norm). Returns float32 logits (B, S, V); the MTP
-    loss that consumes them waits for item 16."""
+    without the final norm). Returns float32 logits (B, S, V), which
+    ``loss_fn``'s MTP term reads."""
     no_mesh(mesh)
     tokens = as_tokens(params, tokens)
     b, s = tokens.shape
@@ -269,6 +298,27 @@ def _mtp_logits(params: TransformerLM, cfg: TransformerConfig,
     h = rms_norm(x_final, params.mtp_norm) + emb_next
     h = _layer_fwd(params.mtp_layer, cfg, h, _positions(b, s, h.device))
     return _unembed(params, cfg, h)
+
+
+def loss_fn(params: TransformerLM, cfg: TransformerConfig, batch: dict, *,
+            mesh=None, rules=None, mtp_weight: float = 0.1) -> torch.Tensor:
+    """batch: ``tokens`` (B, S), ``labels`` (B, S) with -1 = ignore. The
+    mean next-token cross-entropy, plus ``mtp_weight`` times the MTP
+    head's (labels shifted left by one, padded with -1) for a config with
+    ``mtp_depth``. ``rules`` (the reference's sharding rules) means
+    nothing on one card; a ``mesh`` raises."""
+    del rules
+    no_mesh(mesh)
+    tokens = as_tokens(params, batch["tokens"])
+    labels = as_tokens(params, batch["labels"])
+    x = hidden_states(params, cfg, tokens)
+    loss = softmax_cross_entropy(_logits(params, cfg, x), labels)
+    if cfg.mtp_depth and params.mtp_layer is not None:
+        pad = labels.new_full((labels.shape[0], 1), -1)
+        mtp_labels = torch.cat([labels[:, 1:], pad], dim=1)
+        mtp_logits = _mtp_logits(params, cfg, x, tokens)
+        loss = loss + mtp_weight * softmax_cross_entropy(mtp_logits, mtp_labels)
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -24,11 +24,16 @@ Usage::
   already done), so the span's duration covers the device work it
   launched.
 
+* **Timer spans.** ``span(..., timer=True)`` returns a real timing
+  span even when tracing is disabled (it times, and waits with
+  ``device=True``, but records nothing): the training loop's straggler
+  watchdog reads ``sp.duration`` (seconds) after the block, as the
+  reference's does.
 * **Instant events.** ``event(name, **attrs)`` records a Chrome-trace
   marker (``ph="i"``), as the serving scheduler does at a quarantine.
 
-The reference's profiler and timer modes and file export wait for the
-slices that first call them (the benchmark runner).
+The reference's profiler mode and file export wait for the slice that
+first calls them (the benchmark runner).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ class _NullSpan:
     """The shared disabled-path span: every method is a no-op."""
 
     __slots__ = ()
+    duration = 0.0
 
     def __enter__(self):
         return self
@@ -72,15 +78,16 @@ def _wait_for(value) -> None:
 class Span:
     """One live span. Use as a context manager; see module docstring."""
 
-    __slots__ = ("_tracer", "name", "attrs", "device", "_blockee", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "device", "_blockee", "_t0", "duration")
 
     def __init__(self, tracer, name, attrs, device):
-        self._tracer = tracer
+        self._tracer = tracer  # None: a timer-only span (tracing disabled)
         self.name = name
         self.attrs = attrs
         self.device = device
         self._blockee = None
         self._t0 = 0
+        self.duration = 0.0
 
     def tag(self, **attrs) -> "Span":
         """Attach attributes the host has ALREADY read -- never pass a
@@ -102,9 +109,11 @@ class Span:
         if self.device and self._blockee is not None:
             _wait_for(self._blockee)
         end = time.perf_counter_ns()
-        if exc_type is not None:
-            self.attrs.setdefault("exception", exc_type.__name__)
-        self._tracer._record(self.name, self._t0, end, self.attrs)
+        self.duration = (end - self._t0) * 1e-9
+        if self._tracer is not None:
+            if exc_type is not None:
+                self.attrs.setdefault("exception", exc_type.__name__)
+            self._tracer._record(self.name, self._t0, end, self.attrs)
         return False
 
 
@@ -141,11 +150,13 @@ class Tracer:
         self.events = []
         self._origin = time.perf_counter_ns()
 
-    def span(self, name: str, *, device: bool = False, **attrs):
+    def span(self, name: str, *, device: bool = False, timer: bool = False, **attrs):
         """A context-managed span; the no-op singleton when tracing is
-        disabled."""
+        disabled, unless ``timer=True`` (see module docstring)."""
         if not self.enabled:
-            return _NULL_SPAN
+            if not timer:
+                return _NULL_SPAN
+            return Span(None, name, attrs, device)
         return Span(self, name, attrs, device)
 
     def event(self, name: str, **attrs) -> None:

@@ -155,7 +155,9 @@ def segment_softmax(
     return expd / seg_den[ids]
 
 
-def _local_only(axes) -> None:
+def local_only(axes) -> None:
+    """Raise unless ``axes`` is empty: the edge-sharded reductions (and
+    the GNN losses' ``psum_axes``) wait for the sharded training half."""
     if axes:
         raise NotImplementedError(
             f"sharded segment reductions over axes {tuple(axes)} are not "
@@ -171,7 +173,7 @@ def segment_sum_dist(
     *,
     indices_are_sorted: bool = False,
 ) -> torch.Tensor:
-    _local_only(axes)
+    local_only(axes)
     return segment_sum(data, segment_ids, num_segments,
                        indices_are_sorted=indices_are_sorted)
 
@@ -182,7 +184,7 @@ def segment_max_dist(
     num_segments: int,
     axes: tuple[str, ...] = (),
 ) -> torch.Tensor:
-    _local_only(axes)
+    local_only(axes)
     return segment_max(data, segment_ids, num_segments)
 
 
@@ -198,7 +200,7 @@ def segment_softmax_dist(
     caller divides after aggregating the weighted messages. Unlike the
     reference it takes ``indices_are_sorted``, so a forward over
     dst-sorted edges sums its denominators without a sort."""
-    _local_only(axes)
+    local_only(axes)
     expd, seg_den, _ = _softmax_parts(logits, segment_ids, num_segments,
                                       indices_are_sorted)
     return expd, seg_den

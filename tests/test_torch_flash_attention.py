@@ -230,30 +230,44 @@ class _Built(Exception):
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_kernel_route_refuses_inputs_that_require_grad(monkeypatch, which):
-    # The CUDA route (forced by the patch) on an input that requires
-    # grad raises naming item 16, before any build or launch; under
-    # no_grad the same call goes on to the build.
-    from repro_torch.kernels import build
+    # (The name is kept from the slices before the backward kernel, when
+    # this route raised.) The kernel route (forced by the patch) on an
+    # input that requires grad goes through the autograd Function: its
+    # forward launch and, in the backward, the backward kernel's, both
+    # patched to their plain versions here; the gradient is
+    # attention_vjp_ref's. Under no_grad the same call is one forward
+    # launch with no grad_fn.
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
 
     monkeypatch.setattr(ops, "resolve_impl", lambda impl, x: "cuda")
-    built = []
+    calls = []
 
-    def fake_function(*args, **kwargs):
-        built.append(args)
-        raise _Built
+    def fwd(q, k, v, causal, window):
+        calls.append("fwd")
+        with torch.no_grad():
+            return attention_ref(q, k, v, causal=causal, window=window)
 
-    monkeypatch.setattr(build, "function", fake_function)
+    def bwd(q, k, v, out, dout, causal, window):
+        calls.append("bwd")
+        return attention_vjp_ref(q, k, v, dout, causal=causal, window=window)
+
+    monkeypatch.setattr(ops, "_forward_kernel", fwd)
+    monkeypatch.setattr(ops, "_backward_kernel", bwd)
     _, (q, k, v) = _qkv(0, 1, 4, 2, 16, 16, 16, "float32")
     inputs = {"q": q, "k": k, "v": v}
     inputs[which] = inputs[which].clone().requires_grad_()
-    before = dict(launch_counts)
-    with pytest.raises(RuntimeError, match="ROADMAP queue 1, item 16"):
-        flash_attention(inputs["q"], inputs["k"], inputs["v"])
-    assert built == [] and dict(launch_counts) == before
-    with torch.no_grad(), pytest.raises(_Built):
-        flash_attention(inputs["q"], inputs["k"], inputs["v"])
-    assert len(built) == 1 and dict(launch_counts) == before
+    out = flash_attention(inputs["q"], inputs["k"], inputs["v"], window=5)
+    assert out.grad_fn is not None and calls == ["fwd"]
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(3))
+    out.backward(dout)
+    assert calls == ["fwd", "bwd"]
+    want = attention_vjp_ref(q, k, v, dout, window=5)["qkv".index(which)]
+    torch.testing.assert_close(inputs[which].grad, want, rtol=0, atol=0)
+    with torch.no_grad():
+        plain = flash_attention(inputs["q"], inputs["k"], inputs["v"], window=5)
+    assert plain.grad_fn is None and calls == ["fwd", "bwd", "fwd"]
+    torch.testing.assert_close(plain, out.detach(), rtol=0, atol=0)
 
 
 def test_plain_route_keeps_autograd():

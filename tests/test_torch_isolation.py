@@ -37,7 +37,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     ).stdout)
     assert len(out["names"]) >= 20, "walked too few modules"
     # the walk reaches every subpackage, the sharded graph engine, the
-    # GNN, sampler and RecSys modules and the MoE LMs' modules too
+    # GNN, sampler and RecSys modules, the MoE LMs' modules and the
+    # training package too
     assert {"repro_torch.distributed", "repro_torch.distributed.graph",
             "repro_torch.ops.neighbor_sampler", "repro_torch.ops.embedding_bag",
             "repro_torch.data.recsys", "repro_torch.models.tree",
@@ -48,7 +49,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.configs.recsys_family", "repro_torch.configs.xdeepfm",
             "repro_torch.models.transformer.moe", "repro_torch.data.lm",
             "repro_torch.data.pipeline", "repro_torch.configs.mixtral_8x7b",
-            "repro_torch.configs.deepseek_v3",
+            "repro_torch.configs.deepseek_v3", "repro_torch.train",
+            "repro_torch.train.optimizer", "repro_torch.train.compression",
+            "repro_torch.train.checkpoint", "repro_torch.train.loop",
+            "repro_torch.train.tree",
             } <= set(out["names"])
     assert out["bad"] == []
 

@@ -129,14 +129,40 @@ def test_cuda_impl_on_a_cpu_tensor_raises():
         segment_sum_sorted(torch.ones(3, 2), seg, 1, impl="pallas")
 
 
-def test_grad_requiring_input_raises():
-    seg = torch.zeros(3, dtype=torch.int32)
-    data = torch.ones(3, 2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        segment_sum_sorted(data, seg, 1)
+def test_grad_requiring_input_raises(monkeypatch):
+    # (The name is kept from the slices before the autograd Function,
+    # when this raised.) A data tensor that requires grad now has a
+    # gradient on both routes: the plain one by autograd, the kernel's
+    # (forced by the patch, its launch patched to the plain version)
+    # through the Function, whose backward is the gather grad[ids] with
+    # zero rows for dropped ids. Under no_grad the same call has no
+    # grad_fn.
+    from repro_torch.kernels.segment_sum import ops
+
+    seg = torch.tensor([-1, 0, 0, 2, 3], dtype=torch.int32)
+    grad = torch.tensor([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0]])
+    want = torch.tensor([[0, 0], [1, 2], [1, 2], [5, 6], [0, 0]], dtype=torch.float32)
+    data = torch.ones(5, 2, requires_grad=True)
+    segment_sum_sorted(data, seg, 3).backward(grad)
+    np.testing.assert_array_equal(data.grad.numpy(), want.numpy())
+    monkeypatch.setattr(ops, "resolve_impl", lambda impl, x: "cuda")
+    launched = []
+
+    def launch(d, ids, n):
+        launched.append(n)
+        with torch.no_grad():
+            return ops.segment_sum_sorted_ref(d, ids, n), None
+
+    monkeypatch.setattr(ops, "segment_sum_and_pointers", launch)
+    data.grad = None
+    out = segment_sum_sorted(data, seg, 3)
+    assert out.grad_fn is not None and launched == [3]
+    np.testing.assert_array_equal(out.detach().numpy(), [[2, 2], [0, 0], [1, 1]])
+    out.backward(grad)
+    np.testing.assert_array_equal(data.grad.numpy(), want.numpy())
     with torch.no_grad():
-        out = segment_sum_sorted(data, seg, 1)
-    np.testing.assert_array_equal(out.numpy(), [[3, 3]])
+        out = segment_sum_sorted(data, seg, 3)
+    assert out.grad_fn is None and launched == [3, 3]
 
 
 def test_mismatched_lengths_raise():
