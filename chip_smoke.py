@@ -485,6 +485,23 @@ ATTN_TOL = {"torch.bfloat16": 3e-2, "torch.float32": 2e-3}
 # mixtral's prefill) and MLA's (D, Dv) = (192, 128) (deepseek-v3's).
 ATTN_ENTRIES = {"D=128": "attn_tc_kernelILi128ELi128EE",
                 "MLA D=192 Dv=128": "attn_tc_kernelILi192ELi128EE"}
+# The backward's wgmma instances (csrc/flash_attention_bwd.cu), each
+# printed; those that must not spill: D = 128 (qwen3-4b's training).
+ATTN_BWD_ENTRIES = {"pass 1 DP=128": "attn_bwd_dq_tcILi128EE",
+                    "pass 2 DP=128": "attn_bwd_dkdv_tcILi128EE",
+                    "pass 1 DP=64": "attn_bwd_dq_tcILi64EE",
+                    "pass 2 DP=64": "attn_bwd_dkdv_tcILi64EE"}
+ATTN_BWD_NO_SPILL = ("pass 1 DP=128", "pass 2 DP=128")
+# The forward's log-sum-exp against attention_lse_ref's, absolute, on rows
+# with a live key (rows without one must be +inf in both). The backward's
+# P is exp(s - lse), so an error e in lse is a relative error e in P: these
+# sit well below P's bf16 rounding (2^-9) and float32's 2e-3.
+ATTN_LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
+# The forward with lse written against the forward without, at shape (a):
+# at most this much slower (the same call in turns within one run).
+ATTN_LSE_SLOWDOWN = 1.02
+ATTN_LSE_ROUNDS = 6
+ATTN_LSE_ITERS = 200
 # (B, S, causal) of phase 10's sweep at Hq=32, Hkv=8, D=128: B * S tokens
 # near shape (a)'s, from short rows to long.
 ATTN_SWEEP = ((8, 1024, True), (4, 2048, True), (2, 4096, False), (1, 8192, True),
@@ -1249,17 +1266,23 @@ def phase_segment_ops(dev) -> None:
 
 def check_attention_build() -> None:
     """The ptxas report of the bf16 attention kernel's prefill instances
-    (``ATTN_ENTRIES``): printed, and no spill allowed."""
+    (``ATTN_ENTRIES``) and of the backward's wgmma instances
+    (``ATTN_BWD_ENTRIES``): printed, and no spill allowed in the prefill
+    instances and in ``ATTN_BWD_NO_SPILL``."""
     from repro_torch.kernels import build
 
-    report = build.ptxas_kernels("flash_attention")
-    for label, name in ATTN_ENTRIES.items():
-        entries = {e: v for e, v in report.items() if name in e}
-        check(len(entries) == 1, f"one {name} entry in the ptxas report")
-        (entry, info), = entries.items()
-        print(f"ptxas flash_attention bf16 {label} ({entry}): {info}")
-        check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
-              f"no spill in the bf16 {label} attention kernel: {info}")
+    for lib, table, no_spill in (
+            ("flash_attention", ATTN_ENTRIES, tuple(ATTN_ENTRIES)),
+            ("flash_attention_bwd", ATTN_BWD_ENTRIES, ATTN_BWD_NO_SPILL)):
+        report = build.ptxas_kernels(lib)
+        for label, name in table.items():
+            entries = {e: v for e, v in report.items() if name in e}
+            check(len(entries) == 1, f"one {name} entry in the ptxas report")
+            (entry, info), = entries.items()
+            print(f"ptxas {lib} bf16 {label} ({entry}): {info}")
+            if label in no_spill:
+                check(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+                      f"no spill in {lib}'s bf16 {label} kernel: {info}")
 
 
 def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1593,6 +1616,40 @@ def phase_serving(params, cfg, slots: int, max_len: int, n_requests: int,
     return tokens / secs, steps, secs * 1e3 / steps, peak_gb, idle
 
 
+def forward_with_lse(q, k, v) -> None:
+    """Phase 10: the forward writing each row's log-sum-exp (as
+    ``_Attention`` calls it) against the forward without, at shape (a):
+    the same output bits, and its median time over ``ATTN_LSE_ROUNDS``
+    rounds of turns (without, with, with, without) within
+    ``ATTN_LSE_SLOWDOWN`` of the forward's without. Each turn is
+    ``ATTN_LSE_ITERS`` calls from Python (the card, not the host, sets
+    their pace at this shape), so both sides reuse the same cached
+    output buffers; one short turn of the same call spreads by 3-6% on
+    an H100 (PERF.md section 7)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention_lse
+
+    out, lse = flash_attention_lse(q, k, v, impl="cuda")
+    check(torch.equal(out, flash_attention(q, k, v, impl="cuda")),
+          "(a) the forward writing lse gives the output's bits")
+    check(bool(torch.isfinite(lse).all()), "(a) every row's lse is finite")
+    without = lambda: flash_attention(q, k, v, impl="cuda")  # noqa: E731
+    with_lse = lambda: flash_attention_lse(q, k, v, impl="cuda")  # noqa: E731
+    turns = {without: [], with_lse: []}
+    for _ in range(ATTN_LSE_ROUNDS):
+        for fn in (without, with_lse, with_lse, without):
+            turns[fn].append(cuda_ms(fn, iters=ATTN_LSE_ITERS, warmup=3))
+    plain_ms, lse_ms = median(turns[without]), median(turns[with_lse])
+    print(f"time flash_attention (a) with lse written: ms={lse_ms} without: ms={plain_ms} "
+          f"ratio={lse_ms / plain_ms} (medians of {2 * ATTN_LSE_ROUNDS} turns each; with "
+          f"{turns[with_lse]}, without {turns[without]}); outputs bit-equal")
+    check(lse_ms <= ATTN_LSE_SLOWDOWN * plain_ms,
+          f"the forward writing lse within {ATTN_LSE_SLOWDOWN}x of the forward without")
+    del out, lse
+
+
 def attention_times(shape_a, dev):
     """Phase 10: the kernel's device time at shape (a) and at S=32768,
     the time per Python call, the plain version's and SDPA's. Returns
@@ -1608,6 +1665,7 @@ def attention_times(shape_a, dev):
     hkv = k.shape[1]
     bound_ms, flops, nbytes = attention_bound_ms(b, hq, hkv, s, s, d, True, None, 2)
     ms = graph_ms(lambda: flash_attention(q, k, v, impl="cuda"))
+    forward_with_lse(q, k, v)
     eager_ms = cuda_ms(lambda: flash_attention(q, k, v, impl="cuda"), iters=20)
     # The plain version allocates ~13 GB a call: timed from Python, where
     # at 20+ ms a call the host's share is small.
@@ -4179,9 +4237,14 @@ ATTN_BWD_TOL = {"bfloat16": 3e-2, "float32": 2e-3}
 ATTN_BWD_CASES = (  # (label, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, dtype)
     ("qwen3-4b training shape", 1, 32, 8, 4096, 4096, 128, 128, True, None, "bfloat16"),
     ("mixtral window=4096 S=8192", 1, 4, 1, 8192, 8192, 128, 128, True, 4096, "bfloat16"),
+    ("short window=100 S=1000", 1, 32, 8, 1000, 1000, 128, 128, True, 100, "bfloat16"),
     ("MLA (192, 128) S=1024", 1, 8, 8, 1024, 1024, 192, 128, True, None, "bfloat16"),
     ("GQA S=300", 2, 4, 2, 300, 300, 64, 64, True, None, "float32"),
     ("non-causal ragged S=777", 1, 4, 4, 777, 777, 96, 96, False, None, "bfloat16"),
+    ("Sq=129 Sk=1000 causal", 1, 8, 2, 129, 1000, 128, 128, True, None, "bfloat16"),
+) + tuple(
+    (f"head_dim={d} S=1000", 1, 8, 2, 1000, 1000, d, d, True, None, "bfloat16")
+    for d in (16, 32)
 ) + tuple(
     (f"rows without a live key Sq=300 Sk=100 window=64", 1, 4, 2, 300, 100, 64, 64,
      True, 64, dt) for dt in ("bfloat16", "float32")
@@ -4232,34 +4295,62 @@ def grad_within(name: str, got, want, dtype_name: str) -> float:
     return err
 
 
+def lse_within(name: str, got, want, dtype_name: str) -> float:
+    """The forward's log-sum-exp against ``attention_lse_ref``'s: +inf on
+    the same rows (those with no live key), elsewhere within
+    ``ATTN_LSE_TOL``. Returns the worst absolute error on finite rows."""
+    import torch
+
+    dead = torch.isinf(want)
+    check(bool(torch.equal(torch.isinf(got), dead)) and bool((got[dead] > 0).all()),
+          f"{name}: lse is +inf exactly on the rows with no live key")
+    err = float((got[~dead] - want[~dead]).abs().max()) if bool((~dead).any()) else 0.0
+    print(f"flash_attention lse {name}: max_abs_err={err} rows_without_live_key="
+          f"{int(dead.sum())} tol={ATTN_LSE_TOL[dtype_name]}")
+    check(err <= ATTN_LSE_TOL[dtype_name], f"{name}: lse within {ATTN_LSE_TOL[dtype_name]}")
+    return err
+
+
 def phase_attention_bwd(dev) -> float:
-    """Phase 17 (a): the backward kernel against ``attention_vjp_ref`` at
-    ``ATTN_BWD_CASES``; at the training shape also two calls bit-equal and
-    the autograd Function's gradients equal to the direct call's.
-    Returns the largest max_abs_err."""
+    """Phase 17 (a): at each of ``ATTN_BWD_CASES`` the forward's log-sum-exp
+    against ``attention_lse_ref`` and the backward kernel, on the design
+    ``bwd_design`` names, against ``attention_vjp_ref``; at the training
+    shape also two calls bit-equal and the autograd Function's gradients
+    equal to the direct call's. Returns the largest max_abs_err of the
+    gradients by design."""
     import torch
 
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
-    from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
+    from repro_torch.kernels.flash_attention.ops import (
+        bwd_design,
+        flash_attention_bwd,
+        flash_attention_lse,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref, attention_vjp_ref
 
     gen = torch.Generator(dev).manual_seed(17)
-    errs = []
+    errs, lse_errs, designs = {}, [], set()
     for label, b, hq, hkv, sq, sk, d, dv, causal, window, dt in ATTN_BWD_CASES:
         dtype = getattr(torch, dt)
         q, k, v, dout = (torch.randn(b, h, s, w, device=dev, generator=gen).to(dtype)
                          for h, s, w in ((hq, sq, d), (hkv, sk, d), (hkv, sk, dv),
                                          (hq, sq, dv)))
-        out = flash_attention(q, k, v, causal=causal, window=window, impl="cuda")
-        got = flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
-        want = attention_vjp_ref(q, k, v, dout, causal=causal, window=window)
+        design = bwd_design(dtype, d, dv)
+        designs.add(design)
         name = (f"{label} B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} "
-                f"causal={causal} window={window} {dt}")
+                f"causal={causal} window={window} {dt} [{design}]")
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window, impl="cuda")
+        lse_errs.append(lse_within(name, lse, attention_lse_ref(
+            q, k, causal=causal, window=window), dt))
+        got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = attention_vjp_ref(q, k, v, dout, causal=causal, window=window)
         for grad_name, g, w in zip(("dq", "dk", "dv"), got, want):
-            errs.append(grad_within(f"{name} {grad_name}", g, w, dt))
+            errs[design] = max(errs.get(design, 0.0),
+                               grad_within(f"{name} {grad_name}", g, w, dt))
         if label.startswith("qwen3-4b"):
-            again = flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+            again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
             check(all(torch.equal(x, y) for x, y in zip(got, again)),
                   "the backward kernel: two calls give the same bits")
             leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -4272,42 +4363,94 @@ def phase_attention_bwd(dev) -> float:
             print("flash_attention.bwd: two calls bit-equal; the autograd Function "
                   "gives the direct call's bits")
             del again, leaves, o
-        del q, k, v, dout, out, got, want
+        del q, k, v, dout, out, lse, got, want
+    check(designs == {"wgmma", "wmma"}, f"phase 17 (a) holds both designs: {designs}")
+    print(f"flash_attention.bwd: {len(ATTN_BWD_CASES)} cases on the designs {sorted(designs)}; "
+          f"worst lse error {max(lse_errs)}, worst gradient error by design {errs}")
     torch.cuda.empty_cache()
-    return max(errs)
+    return errs
 
 
-def attention_bwd_times(dev, card: str) -> tuple:
-    """Phase 17 (a)'s times at qwen3-4b's training shape: the backward
-    kernel, its plain version, SDPA's backward (the yardstick; the port
-    never calls it) and the FLOP bound. Returns ``(ms, plain_ms,
-    library_ms, bound_ms)``."""
+def sdpa_backward_ms(q, k, v, dout) -> tuple:
+    """``(ms, backend)``: the backward of one causal SDPA call at these
+    inputs (the yardstick; the port never calls it), with PyTorch's own
+    choice of backend where Dv = D, else the first of flash, cuDNN and
+    efficient whose forward and backward take the shapes; ``(None, why)``
+    where none does."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    gqa = q.shape[1] != k.shape[1]
+    if q.shape[-1] == v.shape[-1]:
+        choices = [None]
+    else:
+        choices = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                   SDPBackend.EFFICIENT_ATTENTION]
+    for backend in choices:
+        ctx = contextlib.nullcontext() if backend is None else sdpa_kernel([backend])
+        try:
+            with ctx:
+                o = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=gqa)
+                torch.autograd.grad(o, leaves, dout, retain_graph=True)
+                torch.cuda.synchronize()
+                ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+                             iters=10, warmup=2)
+            return ms, "default" if backend is None else backend.name
+        except RuntimeError as err:
+            print(f"sdpa backward {backend.name} refuses (D, Dv) = ({q.shape[-1]}, "
+                  f"{v.shape[-1]}): {str(err).splitlines()[0][:160]}")
+    return None, "no backend takes the shapes"
+
+
+def backward_passes(call) -> tuple:
+    """``(pass 1 ms, pass 2 ms)`` of one backward call, by their device
+    time in a profile."""
+    _, _, _, ranked, _ = device_share(call, top=50)
+    times = [sum(ms for name, ms in ranked if tag in name)
+             for tag in ("attn_bwd_dq_", "attn_bwd_dkdv_")]
+    check(all(ms > 0 for ms in times), f"both passes in the profile: {ranked}")
+    return tuple(times)
+
+
+def attention_bwd_times(dev, card: str, shape=ATTN_BWD_SHAPE, dv=None) -> tuple:
+    """Phase 17 (a)'s times at ``shape`` (B, Hq, Hkv, S, D; causal; Dv =
+    ``dv`` or D): the backward kernel (and each of its passes), its plain
+    version, the SDPA backward that takes the shape (the yardstick; the
+    port never calls it) and the FLOP bound. Returns ``(ms, plain_ms,
+    library_ms, bound_ms)``."""
+    import torch
 
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import (
+        bwd_design,
+        flash_attention_bwd,
+        flash_attention_lse,
+    )
     from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
 
-    b, hq, hkv, s, d = ATTN_BWD_SHAPE
+    b, hq, hkv, s, d = shape
+    dv = d if dv is None else dv
     gen = torch.Generator(dev).manual_seed(18)
-    q, k, v, dout = (torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
-                     for h in (hq, hkv, hkv, hq))
-    out = flash_attention(q, k, v, impl="cuda")
-    bound_ms, flops, nbytes = attention_bwd_bound_ms(b, hq, hkv, s, s, d, d, True, None, 2)
-    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, dout), iters=10, warmup=2)
+    q, k, v, dout = (torch.randn(b, h, s, w, device=dev, generator=gen).to(torch.bfloat16)
+                     for h, w in ((hq, d), (hkv, d), (hkv, dv), (hq, dv)))
+    out, lse = flash_attention_lse(q, k, v, impl="cuda")
+    bound_ms, flops, nbytes = attention_bwd_bound_ms(b, hq, hkv, s, s, d, dv, True, None, 2)
+    call = lambda: flash_attention_bwd(q, k, v, out, dout, lse)  # noqa: E731
+    ms = cuda_ms(call, iters=10, warmup=2)
+    pass1, pass2 = backward_passes(call)
     plain_ms = cuda_ms(lambda: attention_vjp_ref(q, k, v, dout), iters=3, warmup=1)
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    o = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
-                     iters=10, warmup=2)
+    lib_ms, backend = sdpa_backward_ms(q, k, v, dout)
     fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, impl="cuda"), iters=10, warmup=2)
-    print(f"time flash_attention.bwd B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 causal: "
-          f"ms={ms} plain_ms={plain_ms} library_ms(sdpa backward)={lib_ms} "
-          f"bound_ms={bound_ms} flops={flops} bytes={nbytes} "
+    print(f"time flash_attention.bwd [{bwd_design(q.dtype, d, dv)}] B={b} Hq={hq} Hkv={hkv} "
+          f"S={s} D={d} Dv={dv} bf16 causal: ms={ms} pass1_dq_ms={pass1} "
+          f"pass2_dkdv_ms={pass2} plain_ms={plain_ms} library_ms(sdpa backward, "
+          f"{backend})={lib_ms} bound_ms={bound_ms} flops={flops} bytes={nbytes} "
           f"share_of_bound={bound_ms / ms} tflops={flops / ms / 1e9} "
+          f"seven_product_bound_ms={bound_ms * (4 * d + 3 * dv) / (3 * d + 2 * dv)} "
           f"forward_kernel_ms={fwd_ms} [{card}]")
-    del q, k, v, dout, out, leaves, o
+    del q, k, v, dout, out, lse
     torch.cuda.empty_cache()
     return ms, plain_ms, lib_ms, bound_ms
 
@@ -4319,6 +4462,14 @@ TRAIN_LM_LR = 1e-3
 TRAIN_CUT_LAYERS = 2  # the cut on which the two routes' gradients are held
 TRAIN_GRAD_TOL = 3e-2  # bf16 gradients of the two routes, per leaf in norm
 TRAIN_MICRO_TOL = 1e-3  # the 2-microbatch step against the mean of its halves
+# Phase 17 (e): deepseek-v3 at full width cut to its 3 dense layers and
+# the MTP layer, one loss-and-gradients step at B=1: its MLA attention,
+# (D, Dv) = (192, 128), is the backward's wmma design on the main path. S
+# is cut to 2048 so that the plain route's (1, 128, S, S) float32 scores
+# and their autograd (~2.1 GB each) fit beside the model.
+TRAIN_MLA_ARCH = "deepseek-v3-671b"
+TRAIN_MLA_S = 2048
+TRAIN_MLA_ATTN = (1, 128, 128, TRAIN_MLA_S, 192)  # its attention: B, Hq, Hkv, S, D (Dv 128)
 TRAIN_GNN_STEPS = 3
 TRAIN_GNN_LR = 1e-3
 TRAIN_GNN_TOL = 2e-3  # float32 gradients against the index_add_ forward's
@@ -4344,12 +4495,12 @@ def attention_on_plain_route():
         attention.flash_attention = flash_attention
 
 
-def lm_train_batch(dev, b: int, seed: int, vocab: int) -> dict:
+def lm_train_batch(dev, b: int, seed: int, vocab: int, s: int = TRAIN_LM_S) -> dict:
     import torch
 
     from repro_torch.data.lm import lm_batch
 
-    batch = lm_batch(b, TRAIN_LM_S, vocab, seed=seed)
+    batch = lm_batch(b, s, vocab, seed=seed)
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
@@ -4460,6 +4611,62 @@ def phase_train_lm(dev, card: str) -> dict:
     return {"step_s": steady, "tps": TRAIN_LM_S / steady, "peak_gb": peak_gb,
             "idle": idle, "bwd_share": bwd_ms / busy_ms, "losses": losses,
             "counts": counts, "secs": time.perf_counter() - t_phase}
+
+
+def phase_train_mla(dev, card: str) -> dict:
+    """Phase 17 (e): ``TRAIN_MLA_ARCH`` at full width, its dense layers and
+    the MTP layer, B=1, S=``TRAIN_MLA_S``: one ``value_and_grads`` on the
+    kernel route, its launches counted from 0 (MLA's attention: a forward
+    launch a layer, one more in each remat recompute, and a backward
+    launch a layer on its wmma design), its gradients against the
+    ``impl="torch"`` route's, and its wall time."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.loop import value_and_grads
+    from repro_torch.train.tree import leaf_name, named_leaves, trainable
+
+    t_phase = time.perf_counter()
+    full = get_arch(TRAIN_MLA_ARCH).config
+    cfg = dataclasses.replace(full, num_layers=full.num_dense_layers)
+    params = trainable(init_params(cfg, device=dev,
+                                   generator=torch.Generator(dev).manual_seed(0)))
+    mla_loss = lambda p, b: loss_fn(p, cfg, b)  # noqa: E731
+    batch = lm_train_batch(dev, 1, 2, cfg.vocab_size, TRAIN_MLA_S)
+    value_and_grads(mla_loss, params, batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_k, grads_k = value_and_grads(mla_loss, params, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    dense, mtp = cfg.num_dense_layers_effective(), cfg.mtp_depth
+    want = {"flash_attention": dense * (2 if cfg.remat else 1) + mtp,
+            "flash_attention.bwd.wmma": dense + mtp, "flash_attention.bwd": 0}
+    check(all(counts[k] == v for k, v in want.items()),
+          f"the MLA step went through the forward and the wmma backward: {counts}, "
+          f"want {want}")
+    with attention_on_plain_route():
+        loss_t, grads_t = value_and_grads(mla_loss, params, batch)
+    errs = leaf_norm_errs(grads_k, grads_t)
+    names = [leaf_name(p) for p, _ in named_leaves(params)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    print(f"train {TRAIN_MLA_ARCH} {dense} dense layers + MTP at full width B=1 "
+          f"S={TRAIN_MLA_S}: "
+          f"loss kernel={float(loss_k)} plain={float(loss_t)} wall_ms={secs * 1e3} "
+          f"launches={counts}; gradients of {len(errs)} leaves, kernel route vs "
+          f"impl=\"torch\" in norm: worst {errs[worst]} ({names[worst]}), median "
+          f"{median(errs)} [{card}]")
+    check(abs(float(loss_k) - float(loss_t)) <= 1e-2 * abs(float(loss_t)),
+          "the two routes' MLA losses agree")
+    check(max(errs) <= TRAIN_GRAD_TOL,
+          f"every MLA gradient within {TRAIN_GRAD_TOL} in norm of the plain route's")
+    del params, grads_k, grads_t, batch
+    torch.cuda.empty_cache()
+    return {"counts": counts, "secs": time.perf_counter() - t_phase, "step_s": secs}
 
 
 def phase_train_gnn(dev, ogb: dict, card: str) -> dict:
@@ -4697,9 +4904,11 @@ def main() -> int:
     # Phase 17: single-device training; launches counted from 0 in each
     # train() run.
     t17 = time.perf_counter()
-    bwd_err = phase_attention_bwd(dev)
-    bwd_ms, bwd_plain, bwd_lib, bwd_bound = attention_bwd_times(dev, card)
+    bwd_errs = phase_attention_bwd(dev)
+    bwd_times = {"wgmma": attention_bwd_times(dev, card),
+                 "wmma": attention_bwd_times(dev, card, TRAIN_MLA_ATTN, dv=128)}
     train_lm = phase_train_lm(dev, card)
+    train_mla = phase_train_mla(dev, card)
     train_gnn = phase_train_gnn(dev, ogb, card)
     del ogb
     train_secs = time.perf_counter() - t17
@@ -4781,19 +4990,25 @@ def main() -> int:
         print(f"time segment_sum MoE combine (record, {name} ({t * k}, {d}) bf16): "
               f"ms={c_ms} eager_ms={c_eager} plain_ms={c_plain} "
               f"library_ms(segment_reduce)={c_lib} bound_ms={c_bound} [{card}]")
-    records.append({
-        "name": "flash_attention.bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": KERNELS["flash_attention"][1],
-        "launches": train_lm["counts"]["flash_attention.bwd"],
-        "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain,
-        "bound_ms": bwd_bound, "bound_by": "operations", "library_ms": bwd_lib,
-    })
-    b_, hq_, hkv_, s_, d_ = ATTN_BWD_SHAPE
-    print(f"time flash_attention.bwd (record, B={b_} Hq={hq_} Hkv={hkv_} S={s_} D={d_} "
-          f"bf16 causal): ms={bwd_ms} plain_ms={bwd_plain} "
-          f"library_ms(sdpa backward)={bwd_lib} bound_ms={bwd_bound} "
-          f"share_of_bound={bwd_bound / bwd_ms} [{card}]")
+    # The backward's two designs: wgmma at qwen3-4b's training shape (its
+    # launches in phase 17 (b)'s train()), wmma at MLA's (its launches in
+    # phase 17 (e)'s step).
+    for design, name, shape, launched in (
+            ("wgmma", "flash_attention.bwd", ATTN_BWD_SHAPE, train_lm["counts"]),
+            ("wmma", "flash_attention.bwd.wmma", TRAIN_MLA_ATTN, train_mla["counts"])):
+        ms, plain_ms, lib_ms, bound_ms = bwd_times[design]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": KERNELS["flash_attention"][1], "launches": launched[name],
+            "max_abs_err": bwd_errs[design], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms,
+        })
+        b_, hq_, hkv_, s_, d_ = shape
+        print(f"time {name} (record, {design} design, B={b_} Hq={hq_} Hkv={hkv_} S={s_} "
+              f"D={d_}{' Dv=128' if design == 'wmma' else ''} bf16 causal): ms={ms} "
+              f"plain_ms={plain_ms} library_ms(sdpa backward)={lib_ms} "
+              f"bound_ms={bound_ms} share_of_bound={bound_ms / ms} [{card}]")
     print("flash_attention.bwd has no Pallas counterpart: the reference takes the VJP "
           "of _attn_kernel's function by autodiff")
     records.append({
@@ -4897,7 +5112,9 @@ def main() -> int:
     print(f"e2e train gin-tu {GNN_SHAPE}: step_ms={train_gnn['step_s'] * 1e3} "
           f"edges_per_s={train_gnn['eps']} peak_memory_gb={train_gnn['peak_gb']} "
           f"loss_first={train_gnn['losses'][0]} loss_last={train_gnn['losses'][-1]} [{card}]")
-    print(f"e2e train phase_s={train_secs} (lm {train_lm['secs']}, gnn "
+    print(f"e2e train {TRAIN_MLA_ARCH} dense layers + MTP B=1 S={TRAIN_MLA_S}: "
+          f"value_and_grads_ms={train_mla['step_s'] * 1e3} [{card}]")
+    print(f"e2e train phase_s={train_secs} (lm {train_lm['secs']}, mla {train_mla['secs']}, gnn "
           f"{train_gnn['secs']}) [{card}]")
     print(f"chip_smoke total_s={time.perf_counter() - start}")
     print(f"card: {card_line()}")

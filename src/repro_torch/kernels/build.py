@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` (Hopper) at first use.
-The library's file name carries a hash of its source and of the
-compiler flags, so an edited source is rebuilt and an unchanged one is
+The library's file name carries a hash of its source, of the ``csrc``
+headers it includes by quoted name (``sources``), and of the compiler
+flags, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is. The build directory ``kernels/_build/`` is listed in
 ``.gitignore``. ``build()`` starts one ``nvcc`` per source, all at once,
 and waits for all of them; ``ptxas_report(name)`` returns what
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -53,9 +55,25 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file it includes by quoted name,
+    directly or through another such file, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in sources(name)) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -70,48 +70,27 @@
 // float32: no tensor cores (TF32 would break the 2e-3 tolerance): scores and
 // the accumulator are float32 FMA, with S and acc in shared memory, BK = 32,
 // 64 query rows a block, on contiguous inputs, Dv = D.
+//
+// Saved for a backward (ops.py::_Attention), both kernels also write each
+// row's log-sum-exp, lse = log sum_j exp(score(i, j)) in natural log units,
+// +inf for a row with no live key: the backward's P is exp(score - lse), so
+// it never rebuilds the row's softmax. With a null lse pointer (prefill and
+// serving) nothing more is stored and the output's bits are the same.
 
-#include <cuda.h>  // CUtensorMap and the encoder's types; libcuda is not linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper_attention.cuh"
 
 namespace {
-
-constexpr float kMasked = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// The K/V tiles [lo, hi] that hold a live key for query rows [q0, q1].
-__device__ __forceinline__ void kv_tile_range(int sk, int causal, int window, int q0, int q1,
-                                              int bk, int& lo, int& hi) {
-  lo = 0;
-  hi = (sk + bk - 1) / bk - 1;
-  // A row with no live key weighs every key equally: visit them all.
-  if (window > 0 && q1 >= sk + window - 1) return;
-  if (causal) hi = min(hi, q1 / bk);
-  if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / bk;
-}
-
-__device__ __forceinline__ bool masked(int causal, int window, int qpos, int kpos) {
-  return (causal && kpos > qpos) || (window > 0 && qpos - kpos >= window);
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma and TMA
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockM = 128;          // query rows a block
-constexpr int kWarpgroup = 128;       // threads
-constexpr int kTcThreads = 3 * kWarpgroup;
-constexpr int kConsumerWarps = 8;     // arrivals that free a stage
 constexpr int kStages = 2;            // K/V ring stages
-constexpr int kPanel = 64;            // bf16 columns in one 128-byte swizzle row
-constexpr int kProducerRegs = 24;     // setmaxnreg: 128 * 24 + 256 * 240 = 384 * 168
-constexpr int kConsumerRegs = 240;
 
 struct TcParams {
   __nv_bfloat16* o;
+  float* lse;                  // (B, Hq, Sq) or null: see row_lse
   long long o_sb, o_sh, o_ss;  // out's strides in elements (batch, head, row)
   int hq, hkv, sq, sk, dv, causal, window;
   float scale2;                // log2(e) / sqrt(D)
@@ -134,304 +113,15 @@ struct TcShape {
   static_assert(SMEM <= 227 * 1024, "a block's shared memory is at most 227 KB");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// One arrival that also expects `bytes` of TMA transfers on the barrier.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of `bar` with this parity to complete.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// A (64 columns x rows) box of a 4-d (D, S, H, B) tensor map into shared
-// memory, completing `bytes` on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (all >> 4), layout 1 = 128B.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(sbo >> 4) << 32 |
-         1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes, so the compiler
-// neither reads them before the wait nor reuses them while it runs.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
-
-// Two floats as a bf16 pair: lo in the low half, the lower column index.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The wgmma instructions, one function per shape. The accumulator of
-// m64nN is N / 2 floats a thread: for each 8 columns c, {d[4c], d[4c + 1]}
-// are row lane / 4 and {d[4c + 2], d[4c + 3]} row lane / 4 + 8 of the warp's
-// 16 rows, at columns 8c + 2 (lane % 4) + {0, 1}. Inline PTX takes no arrays,
-// so the operand lists are written out.
-
-// d (64 x 64, float32) {=, +=} a (64 x 16, smem) * b (16 x 64, smem),
-// both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128, float32) {=, +=} a (64 x 16, smem) * b (16 x 128, smem),
-// both K-major.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, float32) {=, +=} a (64 x 16, registers) * b (16 x 64, smem,
-// MN-major: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4], uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128, float32) {=, +=} a (64 x 16, registers) * b (16 x 128, smem,
-// MN-major: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4], uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 256, float32) {=, +=} a (64 x 16, registers) * b (16 x 256, smem,
-// MN-major: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                              const uint32_t (&a)[4], uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-
-template <int N>
-struct Wgmma;
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    wgmma_ss_n64(d, a, b, acc);
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-    wgmma_rs_n64(d, a, b, 1);
-  }
-};
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-    wgmma_ss_n128(d, a, b, acc);
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-    wgmma_rs_n128(d, a, b, 1);
-  }
-};
-template <>
-struct Wgmma<256> {
-  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-    wgmma_rs_n256(d, a, b, 1);
-  }
-};
-
-// S = Q K^T for one tile, issued: D / 16 steps of 16 columns, both
-// operands K-major, 8-row groups 1024 bytes apart, a step 32 bytes into the
-// swizzled row.
-template <int DP, int BK>
-__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_rows, uint32_t k_tile) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const uint32_t step = (kk % 4) * 32;
-    Wgmma<BK>::ss(sc, smem_desc(q_rows + (kk / 4) * kBlockM * 128 + step, 16, 1024),
-                  smem_desc(k_tile + (kk / 4) * BK * 128 + step, 16, 1024), kk > 0);
-  }
-}
-
-// O += P V for one tile, issued: BK / 16 steps of 16 keys. V is MN-major:
-// 64-column panels BK * 128 bytes apart (leading offset), 8-key groups 1024
-// bytes apart.
-template <int DV, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&pa)[BK / 16][4],
-                                         uint32_t v_tile) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    Wgmma<DV>::rs(o, pa[kk], smem_desc(v_tile + kk * 16 * 128, BK * 128, 1024));
-}
-
-// 2^x on the special-function unit (exp2f adds a range fix-up that these
-// arguments, at most 0, do not need; -inf gives 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // What the online softmax reads of the call.
+// A row's log-sum-exp of its scaled scores, in natural log units, from the
+// online softmax's m and l, which are in log2 units (m the largest score
+// times log2(e) / sqrt(D), l the row's sum of 2^(s - m)); +inf for a row with
+// no live key, whose m is the mask value. The backward reads it as its P.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m <= 0.5f * kMasked ? INFINITY : (m + log2f(l)) * kLn2;
+}
+
 struct SoftmaxArgs {
   int sk, causal, window, q0, q1;
   float scale2;
@@ -497,18 +187,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m_run)
   for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
 }
 
-// P as the A operand: the accumulator's columns 16kk..16kk+15 are the
-// m16n8k16 A fragment of step kk, taken pairwise to bf16.
-template <int BK>
-__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
 
 // P's rounding residual as the A operand, in place: pa (P rounded to bf16,
 // from pack_p) becomes bf16(p - pa), so that P V + residual V is P V to about
@@ -638,7 +316,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     mbar_wait(bar_q, 0);
     mbar_wait(full_k, 0);
     wgmma_fence();
-    issue_qk<DP, BK>(sc, q_rows, k_s);
+    issue_ss<BK, DP / 16>(sc, q_rows, kBlockM * 128, k_s, BK * 128);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(sc);
@@ -653,12 +331,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       reg_fence(sc);
       reg_fence(pa);
       wgmma_fence();
-      issue_qk<DP, BK>(sc, q_rows, k_s + s * Shape::K_BYTES);
+      issue_ss<BK, DP / 16>(sc, q_rows, kBlockM * 128, k_s + s * Shape::K_BYTES, BK * 128);
       wgmma_commit();
       reg_fence(o);
       rescale<DV>(o, alpha);
       wgmma_fence();
-      issue_pv<DV, BK>(o, pa, v_s + sp * Shape::V_BYTES);
+      issue_rs<DV, BK / 16>(o, pa, v_s + sp * Shape::V_BYTES, BK * 128);
       wgmma_commit();
       wgmma_wait<1>();
       reg_fence(sc);
@@ -679,7 +357,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     reg_fence(o);
     reg_fence(pa);
     wgmma_fence();
-    issue_pv<DV, BK>(o, pa, v_s + sl * Shape::V_BYTES);
+    issue_rs<DV, BK / 16>(o, pa, v_s + sl * Shape::V_BYTES, BK * 128);
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(o);
@@ -693,7 +371,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       pack_p_residual<BK>(sc, pa);
       reg_fence(pa);
       wgmma_fence();
-      issue_pv<DV, BK>(o, pa, v_s + sl * Shape::V_BYTES);
+      issue_rs<DV, BK / 16>(o, pa, v_s + sl * Shape::V_BYTES, BK * 128);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(o);
@@ -711,6 +389,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (row + 8 * r >= p.sq) continue;
+      if (p.lse != nullptr && lane % 4 == 0) {
+        p.lse[static_cast<long long>(bh) * p.sq + row + 8 * r] = row_lse(m_run[r], l_run[r]);
+      }
       __nv_bfloat16* orow = og + (row + 8 * r) * p.o_ss;
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j) {
@@ -735,6 +416,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Sq) or null
   int hq, hkv, sq, sk, causal, window;
   float scale;
 };
@@ -841,59 +523,16 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(Params p) {
     const int r = i / D;
     if (q0 + r < p.sq) og[i] = O[i] / l_run[r];
   }
+  if (p.lse != nullptr && tid < kBlockQ && q0 + tid < p.sq) {
+    p.lse[static_cast<long long>(bh) * p.sq + q0 + tid] =
+        m_run[tid] <= 0.5f * kMasked ? INFINITY : m_run[tid] + logf(l_run[tid]);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-// What flash_attention_fwd returns when a tensor map cannot be encoded
-// (outside the range of cudaError_t).
-constexpr int kEncodeFailed = 10000;
-
-// cuTensorMapEncodeTiled's signature (cuda.h), reached through the runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
-
-// The tensor map of a (B, H, S, D) bf16 tensor with element strides
-// st = (batch, head, row) and 1, read in boxes of 64 columns x `rows` rows
-// with the 128-byte swizzle; elements out of bounds read as zeros.
-bool encode(CUtensorMap* map, const void* ptr, int d, int s, int h, int b,
-            const long long* st, int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
-                                 static_cast<cuuint64_t>(st[1]) * 2,
-                                 static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {kPanel, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // st: the element strides (batch, head, row) of q, k and v, in that order;
 // d: the head dim of q and k.
@@ -931,6 +570,9 @@ int launch(Kernel kernel, size_t smem, const Params& p, int batch_heads,
 
 }  // namespace
 
+// lse: null, or float32 (B, Hq, Sq), contiguous, for each row's
+// log-sum-exp of its scaled scores (natural log; +inf for a row with no live
+// key), which a backward reads; with null nothing more is stored.
 // dtype: 0 = float32 (contiguous inputs and output; the strides are not
 // read), 1 = bfloat16. d: the head dim of q and k, dv: that of v and out.
 // window: 0 for none. Strides are in elements, for the batch, head and row
@@ -938,7 +580,7 @@ int launch(Kernel kernel, size_t smem, const Params& p, int batch_heads,
 // launch (cudaErrorInvalidValue for head dims or a dtype without an
 // instance), or kEncodeFailed.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int batch, int hq, int hkv, int sq, int sk,
+                                   void* lse, int dtype, int batch, int hq, int hkv, int sq, int sk,
                                    int d, int dv, int causal, int window, long long q_sb,
                                    long long q_sh, long long q_ss, long long k_sb,
                                    long long k_sh, long long k_ss, long long v_sb,
@@ -950,8 +592,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (sq <= 0 || sk <= 0 || batch <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const TcParams tp{static_cast<__nv_bfloat16*>(o), o_sb, o_sh, o_ss, hq, hkv, sq, sk, dv,
-                      causal, window, kLog2e / sqrtf(static_cast<float>(d))};
+    const TcParams tp{static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), o_sb, o_sh,
+                      o_ss, hq, hkv, sq, sk, dv, causal, window,
+                      kLog2e / sqrtf(static_cast<float>(d))};
     const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
     if (dv != d) {
       if (d == 192 && dv == 128) return run_tc<192, 128>(q, k, v, batch, d, st, tp, s);
@@ -968,7 +611,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     }
   }
   if (dv != d) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q, k, v, o, hq, hkv, sq, sk, causal, window,
+  const Params p{q, k, v, o, static_cast<float*>(lse), hq, hkv, sq, sk, causal, window,
                  1.0f / sqrtf(static_cast<float>(d))};
   const int bh = batch * hq;
   switch (d) {

@@ -19,47 +19,76 @@
 // reference's softmax of all -1e30 gives: it adds dO / Sk to every dV row
 // and nothing to dQ or dK.
 //
-// Bound on this card: operations. The five S^2 D products (two of them
-// Dv wide), causal-halved, at qwen3-4b's training shape (B=1, Hq=32, Hkv=8,
-// S=4096, D=128) are 3.4e11 FLOPs, 0.35 ms at 989 TFLOP/s; the bytes
-// (q, k, v, out, dout read, dq, dk, dv written) take 0.03 ms at 3.35 TB/s.
-// This first kernel is simple and right, not fast: it runs eight S^2 D
-// products, not five, on wmma (mma.sync) tiles that go through shared
-// memory, and its time against the bound is in PERF.md.
+// P is never rebuilt from the scores' row maxima: the forward wrote each
+// row's log-sum-exp (flash_attention.cu, row_lse; +inf for a row with no
+// live key) and P = exp(s - lse). So each pass recomputes S = Q K^T and
+// dP = dO V^T and runs its own products: seven S^2 D products in all, where
+// the least work is five.
 //
-// Schedule (FlashAttention-2's, without atomics: two calls give the same
-// bits):
+// Bound on this card: operations. The five products, causal-halved, at
+// qwen3-4b's training shape (B=1, Hq=32, Hkv=8, S=4096, D=128) are 3.4e11
+// FLOPs, 0.35 ms at 989 TFLOP/s (the seven run: 0.49 ms); the bytes (q, k,
+// v, out, dout read, dq, dk, dv written) take 0.03 ms at 3.35 TB/s. Its time
+// against the bound is in PERF.md.
+//
+// Two designs, chosen in flash_attention_bwd below (ops.py::bwd_design
+// states the same choice). No atomics in either: every call gives the same
+// bits.
+//
+// "wgmma": bfloat16 with D = Dv in {16, 32, 64, 96, 128}, the forward's
+// warp-specialised shape (hopper_attention.cuh): a producer warpgroup feeds
+// a two-stage TMA ring on mbarriers, two consumer warpgroups (setmaxnreg
+// 24/240) run wgmma with float32 accumulators in registers; a head dim below
+// a multiple of 64 loads as the next multiple (TMA fills zeros).
+//   1. attn_bwd_dq_tc, one block a (b * Hq + h, query tile of 128 rows), the
+//      longest causal rows first. The producer loads Q and dO once and
+//      streams K and V tiles of 128 keys (kv_tile_range, the forward's
+//      schedule). Each consumer owns 64 rows: it takes D_i = rowsum(dO o O)
+//      and the rows' lse in its prologue (and writes both for pass 2, the
+//      lse in log2 units), then per tile S = Q K^T and dP = dO V^T (both operands
+//      in shared memory), P = 2^(S scale log2(e) - lse log2(e)) and dS =
+//      P o (dP - D_i) scale in registers, and dQ += dS K with dS as the
+//      register A operand and K read MN-major (as the forward reads V).
+//      Three products.
+//   2. attn_bwd_dkdv_tc, one block a (b * Hkv + KV head, key tile of 128
+//      keys), the first key tiles first. K and V stay resident; the producer
+//      streams 64-row tiles of Q and dO, with their (lse, D_i), for each of
+//      the group's query heads and each query tile that holds a live pair
+//      for the key tile (bwd_tile_plan in ops.py). Each consumer owns 64
+//      keys: S^T = K Q^T and dP^T = V dO^T in shared memory, P^T and dS^T in
+//      registers with lse and D_i indexed by column, dV += P^T dO and dK +=
+//      dS^T Q with Q and dO read MN-major. dK and dV stay in float32
+//      registers across all of the group's heads. Four products.
+//   Only the tiles that need it take the mask: one crossing the causal
+//   diagonal, one at the window's lower edge, one holding key Sk - 1. Rows
+//   past Sq read zeros and an lse of +inf, so they add nothing unmasked.
+//
+// "wmma" (the first design, kept for bf16 D = 256, bf16 (D, Dv) = (192, 128)
+// and float32 at every head dim): FlashAttention-2's schedule on 256-thread
+// blocks whose products are block_mm, wmma m16n16k16 tiles through shared
+// memory (bf16 operands, float32 accumulators; P and dS rounded to bf16 as
+// operands) or float32 FMA (TF32 would break the 2e-3 tolerance).
 //   1. attn_bwd_dq_kernel, one block a (b, h, query tile of BQ rows): loads
-//      Q, dO and O's rows, takes D_i = rowsum(dO o O); sweeps the K tiles
-//      that hold a live key for the tile's rows to get each row's
-//      log-sum-exp; sweeps K and V again for dS and dQ += dS K. Writes dq,
-//      and the rows' lse and D_i for pass 2 (lse = +inf marks a row with
-//      no live key).
+//      Q, dO and O's rows, takes D_i; sweeps the K and V tiles that hold a
+//      live key for the tile's rows for dS and dQ += dS K. Writes dq and D_i.
 //   2. attn_bwd_dkdv_kernel, one block a (b, KV head, key tile of BK keys):
 //      keeps K and V and the float32 dK, dV accumulators in shared memory
 //      and walks the group's query heads and the query tiles that hold a
 //      row with a live key in the tile (all of them where a row has no live
-//      key): S = Q K^T and dP = dO V^T again, P and dS from lse and D_i,
-//      dV += P^T dO, dK += dS^T Q. Writes dk and dv.
-// Each product is block_mm: a block's warps share the 16 x 16 output tiles
-// of C += op(A) op(B), all three in shared memory. In bfloat16 a tile is
-// wmma m16n16k16 (bf16 operands, float32 accumulators; P and dS are
-// rounded to bf16 as operands, as FlashAttention does); in float32 it is
-// FMA (TF32 would break the 2e-3 tolerance), with tiles of 16.
+//      key): S and dP again, P and dS from lse and D_i, dV += P^T dO,
+//      dK += dS^T Q. Writes dk and dv.
 //
 // Inputs: q, k, v, out, dout as (B, H, S, D) with any strides whose last
-// is 1, 16-byte aligned (the wrapper copies what is not); outputs dq, dk,
-// dv contiguous (B, H, S, D) in the inputs' type. bfloat16: D = Dv in
-// {16, 32, 64, 96, 128, 256} and (D, Dv) = (192, 128); float32: D = Dv in
-// the same six.
+// is 1, 16-byte aligned (the wrapper copies what is not); the forward's lse
+// (B, Hq, Sq) float32; outputs dq, dk, dv contiguous (B, H, S, D) in the
+// inputs' type. bfloat16: D = Dv in {16, 32, 64, 96, 128, 256} and (D, Dv)
+// = (192, 128); float32: D = Dv in the same six.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <mma.h>
-#include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper_attention.cuh"
 
 namespace {
 
@@ -78,8 +107,8 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  float* lse;    // (B, Hq, Sq): each row's log-sum-exp, +inf with no live key
-  float* delta;  // (B, Hq, Sq): rowsum(dout o out)
+  const float* lse;  // (B, Hq, Sq): the forward's log-sum-exp, +inf with no live key
+  float* delta;      // (B, Hq, Sq): rowsum(dout o out), written by pass 1
   // Element strides (batch, head, row) of q, k, v, out and dout.
   long long st[15];
   int hq, hkv, sq, sk, causal, window;
@@ -151,13 +180,6 @@ __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloa
 __device__ __forceinline__ bool live(const Params& p, int i, int key) {
   return key < p.sk && !(p.causal && key > i) &&
          !(p.window > 0 && static_cast<long long>(i) - key >= p.window);
-}
-
-template <int TPR>
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 template <int TPR>
@@ -235,6 +257,10 @@ __device__ __forceinline__ void key_tiles(const Params& p, int q0, int q1, int b
   if (p.window > 0 && q0 - p.window + 1 > 0) lo = (q0 - p.window + 1) / bk;
 }
 
+// ---------------------------------------------------------------------------
+// "wmma": bf16 D = 256, bf16 (192, 128), float32
+// ---------------------------------------------------------------------------
+
 // Pass 1: one block a (b * Hq + h, query tile); the longest causal rows
 // first.
 template <typename T, int D, int DV>
@@ -281,43 +307,11 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq_kernel(const Params p
   int lo, hi;
   key_tiles(p, q0, min(q0 + BQ, p.sq) - 1, BK, lo, hi);
 
-  // Sweep 1: each row's log-sum-exp over its live keys.
-  float m = -INFINITY, l = 0.f;
-  for (int j = lo; j <= hi; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // sK and sS are free
-    load_tile<T, BK, D>(sK, C::LDD, kg, st[5], k0, p.sk);
-    __syncthreads();
-    block_mm<T, BQ, BK, D, false, true>(sS, C::LDS, sQ, C::LDD, sK, C::LDD, false);
-    __syncthreads();
-    float tmax = -INFINITY;
-    for (int c = g; c < BK; c += TPR) {
-      if (live(p, row, k0 + c)) tmax = fmaxf(tmax, sS[r * C::LDS + c] * p.scale);
-    }
-    tmax = row_max<TPR>(tmax);
-    const float mnew = fmaxf(m, tmax);
-    // A row with no live key yet keeps m = -inf; the shuffles below run on
-    // every lane all the same (a warp holds several rows).
-    float s = 0.f;
-    if (mnew > -INFINITY) {
-      for (int c = g; c < BK; c += TPR) {
-        if (live(p, row, k0 + c)) s += expf(sS[r * C::LDS + c] * p.scale - mnew);
-      }
-    }
-    s = row_sum<TPR>(s);
-    if (mnew > -INFINITY) {
-      l = l * expf(m - mnew) + s;
-      m = mnew;
-    }
-  }
-  const float lse = m == -INFINITY ? INFINITY : m + logf(l);
-  if (row < p.sq && g == 0) {
-    const long long at = static_cast<long long>(bh) * p.sq + row;
-    p.lse[at] = lse;
-    p.delta[at] = delta;
-  }
+  const float lse = row < p.sq ? p.lse[static_cast<long long>(bh) * p.sq + row] : INFINITY;
+  if (row < p.sq && g == 0) p.delta[static_cast<long long>(bh) * p.sq + row] = delta;
 
-  // Sweep 2: dQ += dS K over the same tiles (a row with no live key adds 0).
+  // dQ += dS K over the tiles that hold a live key (a row with no live key
+  // adds 0).
   for (int j = lo; j <= hi; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // sK, sV and sdS are free
@@ -467,47 +461,569 @@ int run(const Params& p, int batch, cudaStream_t stream) {
   return launch(attn_bwd_dkdv_kernel<T, D, DV>, dkdv_smem_bytes<T, D, DV>(), grid_k, p, stream);
 }
 
-template <typename T>
-int run_square(int d, const Params& p, int batch, cudaStream_t stream) {
-  switch (d) {
-    case 16: return run<T, 16, 16>(p, batch, stream);
-    case 32: return run<T, 32, 32>(p, batch, stream);
-    case 64: return run<T, 64, 64>(p, batch, stream);
-    case 96: return run<T, 96, 96>(p, batch, stream);
-    case 128: return run<T, 128, 128>(p, batch, stream);
-    case 256: return run<T, 256, 256>(p, batch, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// ---------------------------------------------------------------------------
+// "wgmma": bf16, D = Dv in {16, 32, 64, 96, 128}
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRowsQ = 128;  // pass 1: query rows a block (64 a consumer)
+constexpr int kTcKeys = 128;   // keys a K/V tile (pass 1) and a block (pass 2, 64 a consumer)
+constexpr int kTcRowsK = 64;   // pass 2: query rows a Q/dO tile (ops.py's BWD_STAT_ROWS)
+constexpr int kDqStages = 2;   // pass 1's K/V ring stages
+constexpr int kDkdvStages = 2; // pass 2's Q/dO ring stages
+
+struct TcParams {
+  const bf16* o;      // out, for D_i
+  const bf16* dout;   // dout, for D_i
+  long long o_sb, o_sh, o_ss, do_sb, do_sh, do_ss;  // their element strides
+  const float* lse;   // (B, Hq, Sq): the forward's, natural log
+  float* stats;       // pass 1 -> pass 2: per (b * Hq + h, tile of kTcRowsK rows)
+                      // the rows' lse log2(e), then their D_i (rows padded to sq_pad)
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  int hq, hkv, sq, sk, sq_pad, d, causal, window;
+  float scale, scale2;  // 1 / sqrt(D) and log2(e) / sqrt(D)
+};
+
+// DP: D rounded up to a multiple of 64 (the width loaded and multiplied).
+template <int DP>
+struct TcDq {
+  static constexpr int NP = DP / kPanel;
+  static constexpr uint32_t Q_BYTES = kTcRowsQ * DP * 2;  // Q, and dO alike
+  static constexpr uint32_t K_BYTES = kTcKeys * DP * 2;   // K, and V alike
+  // 1024 to align the tiles; Q, dO; the K and V rings; 1 + 4 * kDqStages
+  // mbarriers.
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + kDqStages * 2 * K_BYTES + 8 * (1 + 4 * kDqStages);
+  static_assert(SMEM <= 227 * 1024, "a block's shared memory is at most 227 KB");
+};
+
+template <int DP>
+struct TcDkdv {
+  static constexpr int NP = DP / kPanel;
+  static constexpr uint32_t K_BYTES = kTcKeys * DP * 2;   // K, and V alike
+  static constexpr uint32_t Q_BYTES = kTcRowsK * DP * 2;  // a Q tile, and a dO tile alike
+  static constexpr uint32_t STAT_BYTES = 2 * kTcRowsK * sizeof(float);  // lse, then D_i
+  // 1024 to align the tiles; K, V; the Q, dO and stats rings; 1 + 2 *
+  // kDkdvStages mbarriers.
+  static constexpr size_t SMEM = 1024 + 2 * K_BYTES + kDkdvStages * (2 * Q_BYTES + STAT_BYTES) +
+                                 8 * (1 + 2 * kDkdvStages);
+  static_assert(SMEM <= 227 * 1024, "a block's shared memory is at most 227 KB");
+};
+
+// Pass 2's walk over the query tiles of one key tile [k0, k1], the same for
+// each query head of the group (ops.py::bwd_tile_plan): from the first tile
+// with a live pair (causal: the one holding row k0, if any) to the last with one,
+// then, where rows with no live key exist (a window and Sq >= Sk + window),
+// on from the first tile holding such a row to the end, since those rows
+// weigh every key.
+struct QueryWalk {
+  int first, live_hi, dead_lo, last;
+
+  __device__ QueryWalk(const TcParams& p, int k0, int k1) {
+    last = (p.sq - 1) / kTcRowsK;
+    live_hi = last;
+    dead_lo = last + 1;
+    if (p.window > 0) {
+      const long long hi = min(static_cast<long long>(p.sq) - 1,
+                               static_cast<long long>(k1) + p.window - 1);
+      live_hi = static_cast<int>(hi / kTcRowsK);
+      const long long dead = static_cast<long long>(p.sk) + p.window - 1;
+      if (dead <= p.sq - 1) dead_lo = static_cast<int>(dead / kTcRowsK);
+    }
+    // Causal: from the tile holding row k0, none where there is no such row.
+    first = !p.causal ? 0 : k0 >= p.sq ? last + 1 : skip(k0 / kTcRowsK);
   }
+  __device__ int skip(int qt) const { return qt > live_hi && qt < dead_lo ? dead_lo : qt; }
+  __device__ int next(int qt) const { return skip(qt + 1); }
+};
+
+// Pass 1's P in place of S: 2^(s scale2 - lse2) for the thread's rows row
+// and row + 8 (lse2 their lse in log2 units; +inf gives 0), 0 where masked
+// or past Sk.
+template <int N>
+__device__ __forceinline__ void probs_by_row(float (&sc)[N / 2], const float (&lse2)[2],
+                                             const TcParams& p, bool need_mask, int k0, int row,
+                                             int col) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fast_exp2(fmaf(sc[4 * j + e], p.scale2, -lse2[e >> 1]));
+      if (need_mask) {
+        const int kpos = k0 + 8 * j + col + (e & 1);
+        if (kpos >= p.sk || masked(p.causal, p.window, row + 8 * (e >> 1), kpos)) x = 0.f;
+      }
+      sc[4 * j + e] = x;
+    }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    attn_bwd_dq_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   const TcParams p) {
+  using Shape = TcDq<DP>;
+  constexpr int NP = Shape::NP;
+  extern __shared__ unsigned char smem_raw[];
+  // Q and dO (NP panels of 128 rows x 128 bytes each), then the K and V
+  // rings (kDqStages stages of NP panels of kTcKeys rows), 1024-aligned.
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + Shape::Q_BYTES;
+  const uint32_t k_s = do_s + Shape::Q_BYTES;
+  const uint32_t v_s = k_s + kDqStages * Shape::K_BYTES;
+  const uint32_t bar_q = v_s + kDqStages * Shape::K_BYTES;
+  const uint32_t full_k = bar_q + 8;  // stage s at + 8 s
+  const uint32_t full_v = full_k + 8 * kDqStages;
+  const uint32_t empty_k = full_v + 8 * kDqStages;
+  const uint32_t empty_v = empty_k + 8 * kDqStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.hq;
+  const int h = bh % p.hq;
+  const int kvh = h / (p.hq / p.hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRowsQ;  // longest rows first
+  const int q1 = min(q0 + kTcRowsQ, p.sq) - 1;
+  int lo, hi;
+  kv_tile_range(p.sk, p.causal, p.window, q0, q1, kTcKeys, lo, hi);
+  const int n_tiles = hi - lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, kConsumerWarps);
+      mbar_init(empty_v + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWarpgroup) {
+    // Producer: Q and dO once, then K and V, last tile first.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, 2 * Shape::Q_BYTES);
+#pragma unroll
+      for (int pp = 0; pp < NP; ++pp) {
+        tma_load(q_s + pp * kTcRowsQ * 128, &tq, pp * kPanel, q0, h, b, bar_q);
+        tma_load(do_s + pp * kTcRowsQ * 128, &tdo, pp * kPanel, q0, h, b, bar_q);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int k0 = (hi - i) * kTcKeys;
+        const int s = i % kDqStages;
+        const uint32_t parity = ((i / kDqStages) & 1) ^ 1;
+        const uint32_t off = s * Shape::K_BYTES;
+        mbar_wait(empty_k + 8 * s, parity);
+        mbar_expect_tx(full_k + 8 * s, Shape::K_BYTES);
+#pragma unroll
+        for (int pp = 0; pp < NP; ++pp)
+          tma_load(k_s + off + pp * kTcKeys * 128, &tk, pp * kPanel, k0, kvh, b, full_k + 8 * s);
+        mbar_wait(empty_v + 8 * s, parity);
+        mbar_expect_tx(full_v + 8 * s, Shape::K_BYTES);
+#pragma unroll
+        for (int pp = 0; pp < NP; ++pp)
+          tma_load(v_s + off + pp * kTcKeys * 128, &tv, pp * kPanel, k0, kvh, b, full_v + 8 * s);
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns query rows q0 + 64 c .. q0 + 64 c + 63.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = threadIdx.x / kWarpgroup - 1;
+    const int t = threadIdx.x % kWarpgroup;
+    const int lane = t % 32;
+    const int row = q0 + 64 * c + 16 * (t / 32) + lane / 4;  // and row + 8
+    const int col = 2 * (lane % 4);                          // and col + 1, + 8j
+
+    // Prologue, while the producer's loads are in flight: D_i over the quad
+    // (each lane a quarter of the row's columns) and lse, in log2 units, for
+    // rows row and row + 8; both written out for pass 2, rows past Sq as
+    // (+inf, 0).
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = row + 8 * r;
+      float acc = 0.f;
+      if (rr < p.sq) {
+        const int c0 = (lane % 4) * (p.d / 4);
+        const bf16* orow = p.o + b * p.o_sb + h * p.o_sh + rr * p.o_ss + c0;
+        const bf16* drow = p.dout + b * p.do_sb + h * p.do_sh + rr * p.do_ss + c0;
+        for (int j = 0; j < p.d / 4; j += 4) {
+          const uint2 ov = *reinterpret_cast<const uint2*>(orow + j);
+          const uint2 dv = *reinterpret_cast<const uint2*>(drow + j);
+          const float2 o01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov.x));
+          const float2 o23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov.y));
+          const float2 d01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dv.x));
+          const float2 d23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dv.y));
+          acc = fmaf(o01.x, d01.x, acc);
+          acc = fmaf(o01.y, d01.y, acc);
+          acc = fmaf(o23.x, d23.x, acc);
+          acc = fmaf(o23.y, d23.y, acc);
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      delta[r] = acc;
+      lse2[r] = rr < p.sq ? p.lse[static_cast<long long>(bh) * p.sq + rr] * kLog2e : INFINITY;
+      if (lane % 4 == 0 && rr < p.sq_pad) {
+        float* tile = p.stats + (static_cast<long long>(bh) * p.sq_pad + rr / kTcRowsK * kTcRowsK) * 2;
+        tile[rr % kTcRowsK] = lse2[r];
+        tile[kTcRowsK + rr % kTcRowsK] = delta[r];
+      }
+    }
+
+    float dq[DP / 2];
+    float sc[kTcKeys / 2];
+    float dp[kTcKeys / 2];
+    uint32_t pa[kTcKeys / 16][4];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTcKeys / 2; ++i) sc[i] = dp[i] = 0.f;
+    const uint32_t q_rows = q_s + 64 * c * 128;
+    const uint32_t do_rows = do_s + 64 * c * 128;
+    mbar_wait(bar_q, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int k0 = (hi - i) * kTcKeys;
+      const int s = i % kDqStages;
+      const uint32_t phase = (i / kDqStages) & 1;
+      const uint32_t k_tile = k_s + s * Shape::K_BYTES;
+      const uint32_t v_tile = v_s + s * Shape::K_BYTES;
+      const bool need_mask = (p.causal && k0 + kTcKeys - 1 > q0) ||
+                             (p.window > 0 && q1 - k0 >= p.window) || k0 + kTcKeys > p.sk;
+      // S = Q K^T and dP = dO V^T, two groups; P while dP runs.
+      mbar_wait(full_k + 8 * s, phase);
+      reg_fence(sc);
+      wgmma_fence();
+      issue_ss<kTcKeys, DP / 16>(sc, q_rows, kTcRowsQ * 128, k_tile, kTcKeys * 128);
+      wgmma_commit();
+      mbar_wait(full_v + 8 * s, phase);
+      reg_fence(dp);
+      wgmma_fence();
+      issue_ss<kTcKeys, DP / 16>(dp, do_rows, kTcRowsQ * 128, v_tile, kTcKeys * 128);
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(sc);
+      probs_by_row<kTcKeys>(sc, lse2, p, need_mask, k0, row, col);
+      wgmma_wait<0>();
+      reg_fence(dp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_v + 8 * s);
+      // dS = P o (dP - D_i) scale, as the A operand of dQ += dS K.
+#pragma unroll
+      for (int j = 0; j < kTcKeys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - delta[e >> 1]) * p.scale;
+      pack_p<kTcKeys>(dp, pa);
+      reg_fence(pa);
+      reg_fence(dq);
+      wgmma_fence();
+      issue_rs<DP, kTcKeys / 16>(dq, pa, k_tile, kTcKeys * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dq);
+      reg_fence(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_k + 8 * s);
+    }
+
+    bf16* dqg = p.dq + static_cast<long long>(bh) * p.sq * p.d;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row + 8 * r >= p.sq) continue;
+      bf16* qrow = dqg + static_cast<long long>(row + 8 * r) * p.d;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        if (8 * j < p.d) {
+          *reinterpret_cast<uint32_t*>(qrow + 8 * j + col) =
+              pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    attn_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const TcParams p) {
+  using Shape = TcDkdv<DP>;
+  constexpr int NP = Shape::NP;
+  extern __shared__ unsigned char smem_raw[];
+  // K and V (NP panels of 128 keys x 128 bytes each), then the Q and dO
+  // rings (kDkdvStages stages of NP panels of 64 rows), the (lse, D_i) ring,
+  // 1024-aligned.
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = base;
+  const uint32_t v_s = k_s + Shape::K_BYTES;
+  const uint32_t q_s = v_s + Shape::K_BYTES;
+  const uint32_t do_s = q_s + kDkdvStages * Shape::Q_BYTES;
+  const uint32_t st_s = do_s + kDkdvStages * Shape::Q_BYTES;
+  const uint32_t bar_kv = st_s + kDkdvStages * Shape::STAT_BYTES;
+  const uint32_t full = bar_kv + 8;  // stage s at + 8 s
+  const uint32_t empty = full + 8 * kDkdvStages;
+  const float* stats = reinterpret_cast<const float*>(smem_raw + (st_s - smem_u32(smem_raw)));
+
+  const int bhk = blockIdx.x;
+  const int b = bhk / p.hkv;
+  const int hk = bhk % p.hkv;
+  const int group = p.hq / p.hkv;
+  const int k0 = blockIdx.y * kTcKeys;  // the first key tiles (longest columns) first
+  const int k1 = min(k0 + kTcKeys, p.sk) - 1;
+  const QueryWalk walk(p, k0, k1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kDkdvStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWarpgroup) {
+    // Producer: K and V once, then Q, dO and (lse, D_i) tiles, head by head.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_kv, 2 * Shape::K_BYTES);
+#pragma unroll
+      for (int pp = 0; pp < NP; ++pp) {
+        tma_load(k_s + pp * kTcKeys * 128, &tk, pp * kPanel, k0, hk, b, bar_kv);
+        tma_load(v_s + pp * kTcKeys * 128, &tv, pp * kPanel, k0, hk, b, bar_kv);
+      }
+      int i = 0;
+      for (int hg = 0; hg < group; ++hg) {
+        const int h = hk * group + hg;
+        const float* rows = p.stats + (static_cast<long long>(b) * p.hq + h) * p.sq_pad * 2;
+        for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt), ++i) {
+          const int s = i % kDkdvStages;
+          const uint32_t full_s = full + 8 * s;
+          mbar_wait(empty + 8 * s, ((i / kDkdvStages) & 1) ^ 1);
+          mbar_expect_tx(full_s, 2 * Shape::Q_BYTES + Shape::STAT_BYTES);
+#pragma unroll
+          for (int pp = 0; pp < NP; ++pp) {
+            const uint32_t off = s * Shape::Q_BYTES + pp * kTcRowsK * 128;
+            tma_load(q_s + off, &tq, pp * kPanel, qt * kTcRowsK, h, b, full_s);
+            tma_load(do_s + off, &tdo, pp * kPanel, qt * kTcRowsK, h, b, full_s);
+          }
+          bulk_load(st_s + s * Shape::STAT_BYTES, rows + qt * 2 * kTcRowsK, Shape::STAT_BYTES,
+                    full_s);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns keys k0 + 64 c .. k0 + 64 c + 63, the rows
+    // of its accumulators; the columns are the tile's query rows.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = threadIdx.x / kWarpgroup - 1;
+    const int t = threadIdx.x % kWarpgroup;
+    const int lane = t % 32;
+    const int key = k0 + 64 * c + 16 * (t / 32) + lane / 4;  // and key + 8
+    const int col = 2 * (lane % 4);                          // and col + 1, + 8j
+    const float uniform = 1.f / static_cast<float>(p.sk);
+
+    float dk[DP / 2];
+    float dv[DP / 2];
+    float st[kTcRowsK / 2];
+    float dpt[kTcRowsK / 2];
+    uint32_t pa[kTcRowsK / 16][4];
+    uint32_t pb[kTcRowsK / 16][4];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTcRowsK / 2; ++i) st[i] = dpt[i] = 0.f;
+    const uint32_t k_rows = k_s + 64 * c * 128;
+    const uint32_t v_rows = v_s + 64 * c * 128;
+    mbar_wait(bar_kv, 0);
+    int i = 0;
+    for (int hg = 0; hg < group; ++hg) {
+      for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt), ++i) {
+        const int s = i % kDkdvStages;
+        const int q0 = qt * kTcRowsK;
+        const int q1 = min(q0 + kTcRowsK, p.sq) - 1;
+        const uint32_t q_tile = q_s + s * Shape::Q_BYTES;
+        const uint32_t do_tile = do_s + s * Shape::Q_BYTES;
+        const float2* lse2 = reinterpret_cast<const float2*>(stats + s * 2 * kTcRowsK);
+        const float2* delta = lse2 + kTcRowsK / 2;
+        const bool need_mask = (p.causal && k0 + kTcKeys - 1 > q0) ||
+                               (p.window > 0 && q1 - k0 >= p.window) || k0 + kTcKeys > p.sk;
+        // S^T = K Q^T and dP^T = V dO^T, two groups.
+        mbar_wait(full + 8 * s, (i / kDkdvStages) & 1);
+        reg_fence(st);
+        reg_fence(dpt);
+        wgmma_fence();
+        issue_ss<kTcRowsK, DP / 16>(st, k_rows, kTcKeys * 128, q_tile, kTcRowsK * 128);
+        wgmma_commit();
+        issue_ss<kTcRowsK, DP / 16>(dpt, v_rows, kTcKeys * 128, do_tile, kTcRowsK * 128);
+        wgmma_commit();
+        wgmma_wait<1>();
+        reg_fence(st);
+        // P^T, while dP^T runs: 2^(s scale2 - lse2) by column, packed
+        // pairwise as the A operand of dV += P^T dO; where the tile takes the
+        // mask, 0 where masked or past Sk, and for a row with no live key
+        // (lse = +inf) 1/Sk in the dV operand and 0 in st, so its dS is 0.
+#pragma unroll
+        for (int j = 0; j < kTcRowsK / 8; ++j) {
+          const float2 l2 = lse2[4 * j + col / 2];  // columns 8j + col, + 1
+          float pv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float l = (e & 1) ? l2.y : l2.x;
+            float x = fast_exp2(fmaf(st[4 * j + e], p.scale2, -l));
+            pv[e] = x;
+            if (need_mask) {
+              const int kpos = key + 8 * (e >> 1);
+              const int qpos = q0 + 8 * j + col + (e & 1);
+              if (l == INFINITY) {
+                pv[e] = kpos < p.sk ? uniform : 0.f;
+                x = 0.f;
+              } else if (kpos >= p.sk || masked(p.causal, p.window, qpos, kpos)) {
+                pv[e] = x = 0.f;
+              }
+            }
+            st[4 * j + e] = x;
+          }
+          pa[j / 2][2 * (j % 2)] = pack_bf16(pv[0], pv[1]);
+          pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pv[2], pv[3]);
+        }
+        reg_fence(pa);
+        reg_fence(dv);
+        wgmma_fence();
+        issue_rs<DP, kTcRowsK / 16>(dv, pa, do_tile, kTcRowsK * 128);
+        wgmma_commit();
+        wgmma_wait<1>();
+        reg_fence(dpt);
+        // dS^T = P^T o (dP^T - D_i) scale.
+#pragma unroll
+        for (int j = 0; j < kTcRowsK / 8; ++j) {
+          const float2 di = delta[4 * j + col / 2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? di.y : di.x)) * p.scale;
+        }
+        pack_p<kTcRowsK>(dpt, pb);
+        reg_fence(pb);
+        reg_fence(dk);
+        wgmma_fence();
+        issue_rs<DP, kTcRowsK / 16>(dk, pb, q_tile, kTcRowsK * 128);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dv);
+        reg_fence(dk);
+        reg_fence(pa);
+        reg_fence(pb);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+    }
+
+    const long long at = static_cast<long long>(bhk) * p.sk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (key + 8 * r >= p.sk) continue;
+      bf16* krow = p.dk + (at + key + 8 * r) * p.d;
+      bf16* vrow = p.dv + (at + key + 8 * r) * p.d;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        if (8 * j < p.d) {
+          *reinterpret_cast<uint32_t*>(krow + 8 * j + col) =
+              pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(vrow + 8 * j + col) =
+              pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// st: the element strides (batch, head, row) of q, k, v, out and dout.
+template <int DP>
+int run_tc(const void* q, const void* k, const void* v, int batch, const long long* st,
+           const TcParams& tp, cudaStream_t stream) {
+  const int d = tp.d;
+  CUtensorMap tq128, tdo128, tq64, tdo64, tk, tv;
+  if (!encode(&tq128, q, d, tp.sq, tp.hq, batch, st, kTcRowsQ) ||
+      !encode(&tdo128, tp.dout, d, tp.sq, tp.hq, batch, st + 12, kTcRowsQ) ||
+      !encode(&tq64, q, d, tp.sq, tp.hq, batch, st, kTcRowsK) ||
+      !encode(&tdo64, tp.dout, d, tp.sq, tp.hq, batch, st + 12, kTcRowsK) ||
+      !encode(&tk, k, d, tp.sk, tp.hkv, batch, st + 3, kTcKeys) ||
+      !encode(&tv, v, d, tp.sk, tp.hkv, batch, st + 6, kTcKeys)) {
+    return kEncodeFailed;
+  }
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_tc<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(TcDq<DP>::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(TcDkdv<DP>::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(batch * tp.hq, (tp.sq + kTcRowsQ - 1) / kTcRowsQ);
+  attn_bwd_dq_tc<DP><<<grid_q, kTcThreads, TcDq<DP>::SMEM, stream>>>(tq128, tk, tv, tdo128, tp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_k(batch * tp.hkv, (tp.sk + kTcKeys - 1) / kTcKeys);
+  attn_bwd_dkdv_tc<DP><<<grid_k, kTcThreads, TcDkdv<DP>::SMEM, stream>>>(tq64, tk, tv, tdo64, tp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. d: the head dim of q and k, dvd: that
 // of v, out and dout. window: 0 for none. st: the element strides (batch,
-// head, row) of q, k, v, out and dout, in that order. lse and delta are
-// float32 scratch of B * Hq * Sq each. dq, dk and dv are contiguous.
-// Returns the cudaGetLastError() after the launches
-// (cudaErrorInvalidValue for head dims or a dtype without an instance).
+// head, row) of q, k, v, out and dout, in that order. lse: the forward's
+// (B, Hq, Sq) float32 log-sum-exp. stats: float32 scratch of B * Hq *
+// round_up(Sq, 64) * 2. dq, dk and dv are contiguous. The design is chosen
+// here: "wgmma" for bf16 with D = Dv <= 128, "wmma" for the rest
+// (ops.py::bwd_design). Returns the cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for head dims or a dtype without an instance), or
+// kEncodeFailed.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                   const void* dout, void* dq, void* dk, void* dv, void* lse,
-                                   void* delta, int dtype, int batch, int hq, int hkv, int sq,
-                                   int sk, int d, int dvd, int causal, int window,
-                                   const long long* st, void* stream) {
+                                   const void* dout, void* dq, void* dk, void* dv,
+                                   const void* lse, void* stats, int dtype, int batch, int hq,
+                                   int hkv, int sq, int sk, int d, int dvd, int causal,
+                                   int window, const long long* st, void* stream) {
   if ((dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (sq <= 0 || sk <= 0 || batch <= 0) return 0;
-  Params p{q, k, v, o, dout, dq, dk, dv, static_cast<float*>(lse), static_cast<float*>(delta),
-           {}, hq, hkv, sq, sk, causal, window, 1.0f / sqrtf(static_cast<float>(d))};
-  for (int i = 0; i < 15; ++i) p.st[i] = st[i];
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (dvd != d) {
-      if (d == 192 && dvd == 128) return run<bf16, 192, 128>(p, batch, s);
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && dvd == d && d <= 128) {
+    const TcParams tp{static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+                      st[9], st[10], st[11], st[12], st[13], st[14],
+                      static_cast<const float*>(lse), static_cast<float*>(stats),
+                      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                      hq, hkv, sq, sk, (sq + kTcRowsK - 1) / kTcRowsK * kTcRowsK, d, causal,
+                      window, scale, kLog2e * scale};
+    switch (d) {
+      case 16:
+      case 32:
+      case 64: return run_tc<64>(q, k, v, batch, st, tp, s);
+      case 96:
+      case 128: return run_tc<128>(q, k, v, batch, st, tp, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    return run_square<bf16>(d, p, batch, s);
+  }
+  Params p{q, k, v, o, dout, dq, dk, dv, static_cast<const float*>(lse),
+           static_cast<float*>(stats), {}, hq, hkv, sq, sk, causal, window, scale};
+  for (int i = 0; i < 15; ++i) p.st[i] = st[i];
+  if (dtype == 1) {
+    if (d == 256 && dvd == 256) return run<bf16, 256, 256>(p, batch, s);
+    if (d == 192 && dvd == 128) return run<bf16, 192, 128>(p, batch, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dvd != d) return static_cast<int>(cudaErrorInvalidValue);
-  return run_square<float>(d, p, batch, s);
+  switch (d) {
+    case 16: return run<float, 16, 16>(p, batch, s);
+    case 32: return run<float, 32, 32>(p, batch, s);
+    case 64: return run<float, 64, 64>(p, batch, s);
+    case 96: return run<float, 96, 96>(p, batch, s);
+    case 128: return run<float, 128, 128>(p, batch, s);
+    case 256: return run<float, 256, 256>(p, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -25,10 +25,14 @@ view. ``kv_tile_plan`` states the kernel's tile schedule.
 
 Gradients: on the card, inputs that require grad go through
 ``_Attention``, a ``torch.autograd.Function`` whose forward is the
-kernel above and whose backward is a second hand kernel
-(``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd`` here): the
-reference takes that VJP by autodiff, and no card path runs the plain
-version. ``ref.py::attention_vjp_ref`` is its plain counterpart.
+kernel above, writing each row's log-sum-exp beside the output, and
+whose backward is a second hand kernel (``csrc/flash_attention_bwd.cu``,
+``flash_attention_bwd`` here) that reads it: the reference takes that
+VJP by autodiff, and no card path runs the plain version.
+``ref.py::attention_vjp_ref`` is its plain counterpart,
+``attention_bwd_ref`` the same function written as the kernel computes
+it. The backward has two designs (``bwd_design``); ``bwd_tile_plan``
+states the schedule of the wgmma design's second pass.
 """
 from __future__ import annotations
 
@@ -37,13 +41,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import check_status, launch_counts, resolve_impl
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_lse_ref, attention_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# q, k, v, out; dtype, batch, hq, hkv, sq, sk, d, dv, causal, window; the
-# (batch, head, row) strides of q, k, v and out; the stream.
-_ARGTYPES = (_P, _P, _P, _P, *(_I,) * 10, *(_L,) * 12, _P)
-# q, k, v, out, dout, dq, dk, dv, lse, delta; dtype, batch, hq, hkv, sq,
+# q, k, v, out, lse (or null); dtype, batch, hq, hkv, sq, sk, d, dv,
+# causal, window; the (batch, head, row) strides of q, k, v and out; the
+# stream.
+_ARGTYPES = (_P, _P, _P, _P, _P, *(_I,) * 10, *(_L,) * 12, _P)
+# q, k, v, out, dout, dq, dk, dv, lse, stats; dtype, batch, hq, hkv, sq,
 # sk, d, dv, causal, window; a pointer to the 15 (batch, head, row)
 # strides of q, k, v, out and dout; the stream.
 _BWD_ARGTYPES = (*(_P,) * 10, *(_I,) * 10, _P, _P)
@@ -62,6 +67,77 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # limit.
 BLOCK_Q = 128
 MAX_GRID_Y = 65_535
+
+
+# The backward's wgmma design (bf16, D = Dv): its head dims, and its
+# tiles: pass 1 takes query tiles of BWD_BLOCK_Q rows against K/V tiles of
+# BWD_BLOCK_K keys (kv_tile_plan's schedule), pass 2 key tiles of
+# BWD_BLOCK_K keys against Q/dO tiles of BWD_STAT_ROWS rows (bwd_tile_plan),
+# whose (lse, D_i) rows it reads from a scratch padded to BWD_STAT_ROWS.
+BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128)
+BWD_BLOCK_Q = 128
+BWD_BLOCK_K = 128
+BWD_STAT_ROWS = 64
+
+
+def bwd_design(dtype: torch.dtype, d: int, dv: int) -> str:
+    """The backward kernel's design for an instance the forward takes, as
+    ``csrc/flash_attention_bwd.cu`` chooses it: ``"wgmma"`` (the
+    forward's warp-specialised wgmma and TMA shape, seven products) for
+    bfloat16 with D = Dv in ``BWD_WGMMA_HEAD_DIMS``, ``"wmma"`` (wmma tiles
+    through shared memory, or float32 FMA) for bf16 D = 256, bf16 (192,
+    128) and float32. Raises ``ValueError`` on what the forward does not
+    take."""
+    if dtype not in _DTYPES or not (
+            (d == dv and d in HEAD_DIMS)
+            or ((d, dv) in SPLIT_HEAD_DIMS and dtype == torch.bfloat16)):
+        raise ValueError(
+            f"flash_attention has no instance for (D, Dv) = ({d}, {dv}) in {dtype}")
+    if dtype == torch.bfloat16 and d == dv and d in BWD_WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "wmma"
+
+
+def bwd_tile_plan(
+    sq: int, sk: int, causal: bool, window: int | None,
+    block_q: int, block_k: int,
+) -> list[list[tuple[int, bool]]]:
+    """The wgmma design's second pass, as ``csrc/flash_attention_bwd.cu``
+    runs it (``QueryWalk``): for each key tile ``j`` (keys ``[j * block_k,
+    min((j + 1) * block_k, sk))``), the query tiles of ``block_q`` rows it
+    visits for each query head of its KV head, in its order (first
+    first), each with whether it takes the mask.
+
+    A key tile visits the query tiles that hold a live pair with one of
+    its keys and, where rows with no live key exist (only with a window
+    and ``Sq >= Sk + window``), every tile from the first that holds such
+    a row: the reference gives those rows ``1 / Sk`` on every key. A tile
+    runs without a mask only where every score in it is live: below the
+    causal diagonal, inside the window, below ``Sk``."""
+    last = -(-sq // block_q) - 1
+    plan = []
+    for k0 in range(0, sk, block_k):
+        k1 = min(k0 + block_k, sk) - 1
+        live_hi, dead_lo = last, last + 1
+        if window is not None:
+            live_hi = min(sq - 1, k1 + window - 1) // block_q
+            if sk + window - 1 <= sq - 1:
+                dead_lo = (sk + window - 1) // block_q
+
+        def skip(t):
+            return dead_lo if live_hi < t < dead_lo else t
+
+        # Causal: from the tile holding row k0, none where there is no such row.
+        tiles, t = [], (last + 1 if k0 >= sq else skip(k0 // block_q)) if causal else 0
+        while t <= last:
+            q0 = t * block_q
+            q1 = min(q0 + block_q, sq) - 1
+            tiles.append((t, (causal and k0 + block_k - 1 > q0)
+                          or (window is not None and q1 - k0 >= window)
+                          or k0 + block_k > sk))
+            t = skip(t + 1)
+        plan.append(tiles)
+    return plan
 
 
 def block_k(v_head_dim: int) -> int:
@@ -187,6 +263,36 @@ def _empty_out(q: torch.Tensor, dv: int) -> torch.Tensor:
     return out.permute(*sorted(range(4), key=order.index))
 
 
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int | None) -> None:
+    """Raise ``ValueError`` unless ``q``, ``k``, ``v`` are ``(B, Hq, Sq,
+    D)``, ``(B, Hkv, Sk, D)``, ``(B, Hkv, Sk, Dv)`` with Hq a multiple of
+    Hkv, and ``window`` is None or at least 1."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(
+            "flash_attention takes q (B, Hq, Sq, D), k (B, Hkv, Sk, D) and "
+            f"v (B, Hkv, Sk, Dv); got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}"
+        )
+    b, hq, _, d = q.shape
+    hkv = k.shape[1]
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
+            "need the same batch and head_dim, and Hq a multiple of Hkv"
+        )
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+
+
+def _kernel_window(q, k, window: int | None) -> int | None:
+    """``window`` as the kernels take it: None where it masks nothing (at
+    least Sq + Sk; a C int would wrap past 2**31)."""
+    if window is not None and window >= q.shape[2] + k.shape[2]:
+        return None
+    return window
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Hq, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
@@ -206,34 +312,49 @@ def flash_attention(
     requires grad, the call goes through ``_Attention``: the same
     forward launch, and ``flash_attention_bwd``'s kernel for the
     gradients."""
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
-        raise ValueError(
-            "flash_attention takes q (B, Hq, Sq, D), k (B, Hkv, Sk, D) and "
-            f"v (B, Hkv, Sk, Dv); got {tuple(q.shape)}, {tuple(k.shape)}, "
-            f"{tuple(v.shape)}"
-        )
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
-        raise ValueError(
-            f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
-            "need the same batch and head_dim, and Hq a multiple of Hkv"
-        )
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    _check_shapes(q, k, v, window)
     if resolve_impl(impl, q) == "torch":
         return attention_ref(q, k, v, causal=causal, window=window)
     check_kernel_inputs(q, k, v)
-    if window is not None and window >= sq + sk:
-        window = None  # masks nothing; a C int would wrap past 2**31
+    window = _kernel_window(q, k, window)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         check_backward_grid(q, k, v)
         return _Attention.apply(q, k, v, causal, window)
     return _forward_kernel(q, k, v, causal, window)
 
 
-def _forward_kernel(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
-    """The forward kernel's launch on checked inputs."""
+def flash_attention_lse(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,  # (B, Hkv, Sk, Dv)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``: ``flash_attention``'s output and each row's
+    log-sum-exp of its scaled scores, ``(B, Hq, Sq)`` float32 in natural
+    log units, ``+inf`` for a row with no live key -- what ``_Attention``
+    saves for ``flash_attention_bwd``. On the card one forward launch
+    (counted) that writes both; on CPU tensors ``attention_ref`` and
+    ``attention_lse_ref``. No autograd."""
+    _check_shapes(q, k, v, window)
+    if resolve_impl(impl, q) == "torch":
+        with torch.no_grad():
+            return (attention_ref(q, k, v, causal=causal, window=window),
+                    attention_lse_ref(q, k, causal=causal, window=window))
+    check_kernel_inputs(q, k, v)
+    window = _kernel_window(q, k, window)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    with torch.no_grad():
+        return _forward_kernel(q, k, v, causal, window, lse), lse
+
+
+def _forward_kernel(q, k, v, causal: bool, window: int | None,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
+    """The forward kernel's launch on checked inputs; where ``lse`` (a
+    contiguous ``(B, Hq, Sq)`` float32 tensor) is given, the kernel also
+    writes each row's log-sum-exp into it."""
     from repro_torch.kernels.build import function
 
     b, hq, sq, d = q.shape
@@ -243,11 +364,14 @@ def _forward_kernel(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
     dv = v.shape[3]
     out = _empty_out(q, dv)
     if out.numel() == 0 or sk == 0:  # no key: zeros, as attention_ref
+        if lse is not None:
+            lse.fill_(float("inf"))
         return out.zero_()
     o_st = tuple(out.stride()[:3])
     fn = function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     check_status("flash_attention", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         _DTYPES[dtype], b, hq, hkv, sq, sk, d, dv, int(causal),
         0 if window is None else int(window),
         *q_st, *k_st, *v_st, *o_st,
@@ -259,20 +383,22 @@ def _forward_kernel(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
 
 class _Attention(torch.autograd.Function):
     """``flash_attention`` on the card with gradients: the forward kernel,
-    then ``flash_attention_bwd``'s kernel on the saved ``q, k, v`` and
-    output."""
+    writing each row's log-sum-exp beside the output, then
+    ``flash_attention_bwd``'s kernel on the saved ``q, k, v``, output and
+    log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _forward_kernel(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = _forward_kernel(q, k, v, causal, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = _backward_kernel(q, k, v, out, dout, ctx.causal, ctx.window)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward_kernel(q, k, v, out, dout, lse, ctx.causal, ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -291,12 +417,15 @@ def _bwd_operand(x: torch.Tensor):
 
 
 def check_backward_grid(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise ``ValueError`` where the backward kernel's grids (query tiles,
-    key tiles on grid.y) would pass their limit. Its tiles: (query rows,
-    keys) = (64, 64) in bfloat16, (64, 32) for a head dim of 256, (16, 16)
-    in float32."""
+    """Raise ``ValueError`` where the backward kernel's grids (query tiles
+    of pass 1, key tiles of pass 2, on grid.y) would pass their limit.
+    Their tiles (query rows, keys): the wgmma design's (``BWD_BLOCK_Q``,
+    ``BWD_BLOCK_K``) = (128, 128); the wmma design's (64, 64) in bfloat16,
+    (64, 32) for a head dim of 256, (16, 16) in float32."""
     sq, sk = q.shape[2], k.shape[2]
-    if q.dtype == torch.bfloat16:
+    if bwd_design(q.dtype, q.shape[3], v.shape[3]) == "wgmma":
+        bq, bk = BWD_BLOCK_Q, BWD_BLOCK_K
+    elif q.dtype == torch.bfloat16:
         bq, bk = 64, 32 if max(q.shape[3], v.shape[3]) > 192 else 64
     else:
         bq, bk = 16, 16
@@ -313,6 +442,7 @@ def flash_attention_bwd(
     v: torch.Tensor,     # (B, Hkv, Sk, Dv)
     out: torch.Tensor,   # (B, Hq, Sq, Dv): flash_attention(q, k, v)
     dout: torch.Tensor,  # (B, Hq, Sq, Dv)
+    lse: torch.Tensor,   # (B, Hq, Sq) float32: flash_attention_lse's
     *,
     causal: bool = True,
     window: int | None = None,
@@ -320,9 +450,10 @@ def flash_attention_bwd(
     """The backward kernel's launch on CUDA tensors: ``(dq, dk, dv)``,
     contiguous, in the inputs' dtype, the VJP of ``attention_ref`` at
     ``dout`` (``attention_vjp_ref``'s function; dK and dV summed over
-    each KV head's query heads in float32). Takes the instances the
-    forward takes and raises, before anything is built, on the others.
-    Counts the launch."""
+    each KV head's query heads in float32), from the forward's ``out``
+    and ``lse`` (``flash_attention_lse``). Takes the instances the
+    forward takes, on the design ``bwd_design`` names, and raises, before
+    anything is built, on the others. Counts the launch."""
     resolve_impl("cuda", q)  # raises for tensors off the card
     check_kernel_inputs(q, k, v)
     b, hq, sq, d = q.shape
@@ -333,13 +464,17 @@ def flash_attention_bwd(
                 f"flash_attention_bwd: {name} must be {(b, hq, sq, dv)} {q.dtype} on "
                 f"{q.device}; got {tuple(x.shape)} {x.dtype} on {x.device}"
             )
+    if (tuple(lse.shape) != (b, hq, sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(
+            f"flash_attention_bwd: lse must be {(b, hq, sq)} torch.float32 on {q.device}; "
+            f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}"
+        )
     check_backward_grid(q, k, v)
-    if window is not None and window >= sq + sk:
-        window = None
-    return _backward_kernel(q, k, v, out, dout, causal, window)
+    return _backward_kernel(q, k, v, out, dout, lse, causal, _kernel_window(q, k, window))
 
 
-def _backward_kernel(q, k, v, out, dout, causal: bool, window: int | None):
+def _backward_kernel(q, k, v, out, dout, lse, causal: bool, window: int | None):
     """The backward kernel's launch on checked inputs."""
     from repro_torch.kernels.build import function
 
@@ -353,15 +488,19 @@ def _backward_kernel(q, k, v, out, dout, causal: bool, window: int | None):
         return dq.zero_(), dk.zero_(), dv_.zero_()
     operands = [_bwd_operand(x) for x in (q, k, v, out, dout)]
     strides = (ctypes.c_longlong * 15)(*(s for _, st in operands for s in st))
-    lse = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    lse = lse.contiguous()
+    # Pass 1 writes each row's (lse, D_i) here for pass 2 (the wmma design:
+    # D_i alone), rows padded to BWD_STAT_ROWS.
+    stats = torch.empty(b * hq * -(-sq // BWD_STAT_ROWS) * BWD_STAT_ROWS * 2,
+                        dtype=torch.float32, device=q.device)
     fn = function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
     check_status("flash_attention_bwd", fn(
         *(x.data_ptr() for x, _ in operands), dq.data_ptr(), dk.data_ptr(),
-        dv_.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dv_.data_ptr(), lse.data_ptr(), stats.data_ptr(),
         _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv, int(causal),
         0 if window is None else int(window), ctypes.addressof(strides),
         torch.cuda.current_stream(q.device).cuda_stream,
     ))
-    launch_counts["flash_attention.bwd"] += 1
+    design = bwd_design(q.dtype, d, dv)
+    launch_counts["flash_attention.bwd" if design == "wgmma" else "flash_attention.bwd.wmma"] += 1
     return dq, dk, dv_

@@ -9,14 +9,37 @@ dtype. A row with no live key (only reachable with ``q_offset``, or with
 a window and ``Sq >= Sk + window``) gets equal weights on every key: the
 mean of ``v``.
 
-``attention_vjp_ref`` is the VJP of ``attention_ref`` by autograd, the
-plain version of the backward kernel (``csrc/flash_attention_bwd.cu``).
+``attention_lse_ref`` is the plain version of the forward kernel's second
+output, each row's log-sum-exp. ``attention_vjp_ref`` is the VJP of
+``attention_ref`` by autograd, the plain version of the backward kernel
+(``csrc/flash_attention_bwd.cu``) that the card check holds it to;
+``attention_bwd_ref`` is the same function written as the kernel
+computes it, from the forward's output and log-sum-exp.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def _scores(q, k, causal, window, q_offset):
+    """attention_ref's float32 scores, scaled by ``1 / sqrt(D)`` and set to
+    ``NEG_INF`` where masked, and its mask ``(Sq, Sk)``, True where a
+    (query, key) pair scores."""
+    _, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    kr = k.repeat_interleave(hq // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float())
+    s = s.div_(d ** 0.5)
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return s.masked_fill_(~mask, NEG_INF), mask
 
 
 def attention_ref(
@@ -28,24 +51,65 @@ def attention_ref(
     window: int | None = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    _, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    group = hq // hkv
-    kr = k.repeat_interleave(group, dim=1)
-    vr = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float())
-    s = s.div_(d ** 0.5)
-    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
-    s = s.masked_fill_(~mask, NEG_INF)
+    s, _ = _scores(q, k, causal, window, q_offset)
     p = torch.softmax(s, dim=-1)
+    vr = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     # torch's einsum does not promote mixed dtypes (JAX's does): cast v.
     return torch.einsum("bhqk,bhkd->bhqd", p, vr.float()).to(q.dtype)
+
+
+def attention_lse_ref(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """``(B, Hq, Sq)`` float32: each row's log-sum-exp of ``attention_ref``'s
+    scaled scores over its live keys, in natural log units, and ``+inf``
+    for a row with no live key. The plain version of what the forward
+    kernel writes beside its output for a backward."""
+    s, mask = _scores(q, k, causal, window, q_offset)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.where(mask.any(dim=-1), lse, torch.full_like(lse, float("inf")))
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,     # (B, Hq, Sq, D)
+    k: torch.Tensor,     # (B, Hkv, Sk, D)
+    v: torch.Tensor,     # (B, Hkv, Sk, Dv)
+    out: torch.Tensor,   # (B, Hq, Sq, Dv): attention_ref(q, k, v)
+    dout: torch.Tensor,  # (B, Hq, Sq, Dv)
+    lse: torch.Tensor,   # (B, Hq, Sq): attention_lse_ref(q, k)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` as the backward kernel takes them, from the
+    forward's ``out`` and ``lse``, in float32 and then the inputs' dtypes:
+    P = exp(S - lse) on live pairs, ``1 / Sk`` on every key of a row with
+    no live key (``lse = +inf``) and 0 elsewhere; D_i = rowsum(dout o
+    out); dS = P o (dout V^T - D_i) on live pairs, 0 elsewhere; dq = dS K /
+    sqrt(D), dk = dS^T Q / sqrt(D) and dv = P^T dout, dk and dv summed over
+    each KV head's query heads. The same function as
+    ``attention_vjp_ref``, written as the kernel computes it."""
+    b, hq, sq, d = q.shape
+    hkv, sk, dv_dim = k.shape[1], k.shape[2], v.shape[3]
+    group = hq // hkv
+    s, mask = _scores(q, k, causal, window, 0)
+    dead = torch.isinf(lse)[..., None]
+    live = mask & ~dead
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    p = torch.where(dead, 1.0 / sk, p)
+    dof = dout.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float().repeat_interleave(group, dim=1))
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = torch.where(live, p * (dp - delta), 0.0) / d ** 0.5
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float().repeat_interleave(group, dim=1))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).reshape(b, hkv, group, sk, d).sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).reshape(b, hkv, group, sk, dv_dim).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_vjp_ref(

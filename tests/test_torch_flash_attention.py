@@ -1,12 +1,15 @@
 """The port's flash_attention wrapper on the CPU, where it runs its plain
 PyTorch version: against ``repro``'s ``attention_ref`` and its Pallas
 kernel (interpret mode) on the ``test_flash_attention_sweep`` grid, on
-ragged and unequal lengths, and the wrapper contract."""
+ragged and unequal lengths, and the wrapper contract; the plain log-sum-exp
+against ``jax.nn.logsumexp`` of the reference's scores; the backward's
+designs and its second pass's schedule."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention.ops import (  # noqa: E402
@@ -235,21 +238,29 @@ def test_kernel_route_refuses_inputs_that_require_grad(monkeypatch, which):
     # input that requires grad goes through the autograd Function: its
     # forward launch and, in the backward, the backward kernel's, both
     # patched to their plain versions here; the gradient is
-    # attention_vjp_ref's. Under no_grad the same call is one forward
-    # launch with no grad_fn.
+    # attention_vjp_ref's. The Function hands the forward a log-sum-exp to
+    # write (under no_grad none) and the backward the same tensor, filled.
+    # Under no_grad the same call is one forward launch with no grad_fn.
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import attention_vjp_ref
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref, attention_vjp_ref
 
     monkeypatch.setattr(ops, "resolve_impl", lambda impl, x: "cuda")
-    calls = []
+    calls, handed = [], []
 
-    def fwd(q, k, v, causal, window):
+    def fwd(q, k, v, causal, window, lse=None):
         calls.append("fwd")
+        handed.append(lse)
         with torch.no_grad():
+            if lse is not None:
+                assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+                lse.copy_(attention_lse_ref(q, k, causal=causal, window=window))
             return attention_ref(q, k, v, causal=causal, window=window)
 
-    def bwd(q, k, v, out, dout, causal, window):
+    def bwd(q, k, v, out, dout, lse, causal, window):
         calls.append("bwd")
+        assert lse is handed[0]
+        torch.testing.assert_close(
+            lse, attention_lse_ref(q, k, causal=causal, window=window), rtol=0, atol=0)
         return attention_vjp_ref(q, k, v, dout, causal=causal, window=window)
 
     monkeypatch.setattr(ops, "_forward_kernel", fwd)
@@ -266,7 +277,7 @@ def test_kernel_route_refuses_inputs_that_require_grad(monkeypatch, which):
     torch.testing.assert_close(inputs[which].grad, want, rtol=0, atol=0)
     with torch.no_grad():
         plain = flash_attention(inputs["q"], inputs["k"], inputs["v"], window=5)
-    assert plain.grad_fn is None and calls == ["fwd", "bwd", "fwd"]
+    assert plain.grad_fn is None and calls == ["fwd", "bwd", "fwd"] and handed[1] is None
     torch.testing.assert_close(plain, out.detach(), rtol=0, atol=0)
 
 
@@ -277,3 +288,139 @@ def test_plain_route_keeps_autograd():
     assert out.grad_fn is not None
     out.sum().backward()
     assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+
+
+# --- the forward's log-sum-exp; the backward's designs and schedule ---------
+
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    BWD_BLOCK_K,
+    BWD_BLOCK_Q,
+    BWD_STAT_ROWS,
+    HEAD_DIMS,
+    SPLIT_HEAD_DIMS,
+    bwd_design,
+    bwd_tile_plan,
+    flash_attention_lse,
+)
+from repro_torch.kernels.flash_attention.ref import attention_lse_ref  # noqa: E402
+
+
+def _reference_scores(q, k, causal, window):
+    """repro's ``attention_ref``'s float32 scores, scaled and masked as it
+    forms them before its softmax (masked scores -1e30)."""
+    hq, sq, d = q.shape[1:]
+    hkv, sk = k.shape[1:3]
+    kr = jnp.repeat(k, hq // hkv, axis=1)
+    s = jnp.einsum("bhqd,bhkd->bhqk", q.astype(jnp.float32), kr.astype(jnp.float32))
+    s = s / (d ** 0.5)
+    qpos = jnp.arange(sq)[:, None]
+    kpos = jnp.arange(sk)[None, :]
+    mask = jnp.ones((sq, sk), jnp.bool_)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return jnp.where(mask[None, None], s, -1e30), np.asarray(mask)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, Sq, Sk, D, causal, window)
+    (2, 4, 2, 24, 24, 16, True, None),     # GQA
+    (1, 4, 1, 40, 40, 32, True, 8),        # MQA, a sliding window
+    (1, 2, 2, 30, 30, 192, True, None),    # MLA's query/key head dim
+    (1, 2, 1, 21, 13, 16, False, None),    # non-causal, ragged lengths
+    (1, 2, 2, 30, 10, 16, True, 4),        # rows with no live key
+])
+def test_attention_lse_ref_matches_jax_logsumexp_of_the_reference_scores(case):
+    b, hq, hkv, sq, sk, d, causal, window = case
+    r = np.random.default_rng(sum(case[:6]))
+    q = r.normal(size=(b, hq, sq, d)).astype(np.float32)
+    k = r.normal(size=(b, hkv, sk, d)).astype(np.float32)
+    scores, mask = _reference_scores(jnp.asarray(q), jnp.asarray(k), causal, window)
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1))
+    got = attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k),
+                            causal=causal, window=window).numpy()
+    assert got.shape == (b, hq, sq) and got.dtype == np.float32
+    live = np.broadcast_to(mask.any(axis=1), got.shape)
+    assert (~live).any() == (window is not None and sq >= sk + window)
+    # A row with no live key: +inf, where the reference's -1e30 scores give
+    # about -1e30; the backward reads +inf as "weigh every key 1 / Sk".
+    assert np.isposinf(got[~live]).all()
+    np.testing.assert_allclose(got[live], want[live], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_flash_attention_lse_on_cpu_is_the_plain_pair(window):
+    _, (q, k, v) = _qkv(5, 1, 4, 2, 20, 20, 16, "float32")
+    out, lse = flash_attention_lse(q, k, v, window=window)
+    np.testing.assert_array_equal(out.numpy(),
+                                  flash_attention(q, k, v, window=window).numpy())
+    np.testing.assert_array_equal(lse.numpy(),
+                                  attention_lse_ref(q, k, window=window).numpy())
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        flash_attention_lse(q, k, v, window=0)
+
+
+def test_bwd_design_names_a_design_for_every_forward_instance():
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in HEAD_DIMS:
+            want = "wgmma" if dtype == torch.bfloat16 and d <= 128 else "wmma"
+            assert bwd_design(dtype, d, d) == want, (dtype, d)
+    for d, dv in SPLIT_HEAD_DIMS:
+        assert bwd_design(torch.bfloat16, d, dv) == "wmma"
+        with pytest.raises(ValueError, match="no instance"):
+            bwd_design(torch.float32, d, dv)
+    for dtype, d, dv in ((torch.bfloat16, 48, 48), (torch.float16, 64, 64),
+                         (torch.bfloat16, 128, 64)):
+        with pytest.raises(ValueError, match="no instance"):
+            bwd_design(dtype, d, dv)
+
+
+@pytest.mark.parametrize("bq,bk", [(BWD_STAT_ROWS, BWD_BLOCK_K), (64, 32), (16, 48)])
+@pytest.mark.parametrize("window", [None, 1, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_tile_plan_visits_every_live_pair_once(causal, window, bq, bk):
+    for sq in _LENGTHS:
+        for sk in _LENGTHS:
+            live = _live(sq, sk, causal, window)
+            dead = ~live.any(axis=1)  # rows with no live key: weigh every key
+            plan = bwd_tile_plan(sq, sk, causal, window, bq, bk)
+            n_q = -(-sq // bq)
+            assert len(plan) == -(-sk // bk)
+            for j, tiles in enumerate(plan):
+                visited = [t for t, _ in tiles]
+                # The kernel's order: first tile first, each once.
+                assert visited == sorted(set(visited)), (sq, sk, j)
+                for t in range(n_q):
+                    block = live[t * bq:(t + 1) * bq, j * bk:(j + 1) * bk]
+                    has_dead = bool(dead[t * bq:(t + 1) * bq].any())
+                    # Every live pair once a head; no tile without one or a
+                    # row with no live key.
+                    assert (t in visited) == (block.any() or has_dead), (sq, sk, j, t)
+                for t, needs_mask in tiles:
+                    if not needs_mask:
+                        # Run without a mask: every score live, below Sk.
+                        assert (j + 1) * bk <= sk, (sq, sk, j, t)
+                        assert live[t * bq:(t + 1) * bq, j * bk:(j + 1) * bk].all()
+                        assert not dead[t * bq:(t + 1) * bq].any()
+
+
+def test_bwd_schedules_at_the_training_shape():
+    # qwen3-4b: B=1, Hq=32, Hkv=8, S=4096, causal, on 132 SMs. Pass 2 has
+    # 8 * 32 = 256 blocks; the longest walks 4 heads x 64 query tiles, the
+    # mean per SM is the same 256 steps. Pass 1 has 32 * 32 = 1,024
+    # blocks, the longest 32 key tiles against a mean of 128 per SM.
+    hq, hkv, s, sms = 32, 8, 4096, 132
+    group = hq // hkv
+    plan = bwd_tile_plan(s, s, True, None, BWD_STAT_ROWS, BWD_BLOCK_K)
+    steps = [group * len(tiles) for tiles in plan]
+    assert hkv * len(plan) == 256
+    assert max(steps) == 256 and hkv * sum(steps) == 33_792
+    assert hkv * sum(steps) / sms == 256
+    # Only the two query tiles on the diagonal of each key tile are masked.
+    for j, tiles in enumerate(plan):
+        assert [t for t, _ in tiles] == list(range(2 * j, s // BWD_STAT_ROWS))
+        assert [t for t, masked in tiles if masked] == [2 * j, 2 * j + 1]
+    first = kv_tile_plan(s, s, True, None, BWD_BLOCK_Q, BWD_BLOCK_K)
+    assert hq * len(first) == 1_024 and max(len(tiles) for tiles in first) == 32
+    assert hq * sum(len(tiles) for tiles in first) / sms == 128

@@ -36,6 +36,8 @@ from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref,
+    attention_lse_ref,
     attention_ref,
     attention_vjp_ref,
 )
@@ -288,14 +290,17 @@ def _qkv(seed, b, hq, hkv, sq, sk, d, dv):
             for h, s, w in ((hq, sq, d), (hkv, sk, d), (hkv, sk, dv), (hq, sq, dv))]
 
 
-@pytest.mark.parametrize("case", [
+VJP_CASES = [
     # (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window)
     (2, 4, 2, 24, 24, 16, 16, True, None),     # GQA
     (1, 4, 1, 40, 40, 32, 32, True, 8),        # MQA, a sliding window
     (1, 2, 2, 30, 30, 192, 128, True, None),   # MLA's head dims
     (1, 2, 1, 20, 20, 16, 16, False, None),    # non-causal
     (1, 2, 2, 30, 10, 16, 16, True, 4),        # rows with no live key
-])
+]
+
+
+@pytest.mark.parametrize("case", VJP_CASES)
 def test_attention_vjp_ref_matches_jax_vjp_of_the_reference(case):
     b, hq, hkv, sq, sk, d, dv, causal, window = case
     q, k, v, dout = _qkv(sum(case[:7]), b, hq, hkv, sq, sk, d, dv)
@@ -308,20 +313,42 @@ def test_attention_vjp_ref_matches_jax_vjp_of_the_reference(case):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", VJP_CASES)
+def test_attention_bwd_ref_matches_jax_vjp_of_the_reference(case):
+    # The backward as the kernel computes it, from the forward's output and
+    # log-sum-exp (P = exp(S - lse); a row with no live key, lse = +inf,
+    # weighs every key 1 / Sk), is the reference's VJP.
+    b, hq, hkv, sq, sk, d, dv, causal, window = case
+    q, k, v, dout = _qkv(sum(case[:7]), b, hq, hkv, sq, sk, d, dv)
+    _, vjp = jax.vjp(lambda *x: jax_attention_ref(*x, causal=causal, window=window),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    q, k, v, dout = (torch.from_numpy(x) for x in (q, k, v, dout))
+    out = attention_ref(q, k, v, causal=causal, window=window)
+    lse = attention_lse_ref(q, k, causal=causal, window=window)
+    assert bool(torch.isinf(lse).any()) == (window is not None and sq >= sk + window)
+    got = attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
 def _patched_attention(monkeypatch):
     """The kernel route of ``flash_attention`` on CPU tensors, its two
     launches replaced by the plain versions (counting as the launches
-    do)."""
+    do): the forward writes the log-sum-exp where it is handed one, and
+    the backward takes it, as the kernels do."""
     monkeypatch.setattr(fa_ops, "resolve_impl", lambda impl, x: "cuda")
 
-    def fwd(q, k, v, causal, window):
+    def fwd(q, k, v, causal, window, lse=None):
         launch_counts["flash_attention"] += 1
         with torch.no_grad():
+            if lse is not None:
+                lse.copy_(attention_lse_ref(q, k, causal=causal, window=window))
             return attention_ref(q, k, v, causal=causal, window=window)
 
-    def bwd(q, k, v, out, dout, causal, window):
+    def bwd(q, k, v, out, dout, lse, causal, window):
         launch_counts["flash_attention.bwd"] += 1
-        return attention_vjp_ref(q, k, v, dout, causal=causal, window=window)
+        return attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window)
 
     monkeypatch.setattr(fa_ops, "_forward_kernel", fwd)
     monkeypatch.setattr(fa_ops, "_backward_kernel", bwd)
