@@ -321,8 +321,36 @@ of which raises on failure:
    the autograd of ``gnn_by_index_add``; ``train()`` for 3 steps (one
    ``segment_sum`` launch a layer a step), step ms, edges/s, peak
    memory. (d) the checkpoint ``train()`` wrote at its last step
-   restored, saved again from the card and restored: bit-equal. The
-   script's total seconds are printed at the end.
+   restored, saved again from the card and restored: bit-equal.
+18. Sharded training over NCCL at world size 1 (a one-rank group; every
+   collective runs with one participant), on ``make_test_mesh((1, 1))``:
+   (a) deepseek-v3 at full width, its 3 dense layers, 1 MoE layer (all
+   256 experts) and the MTP layer, bf16, ``remat``, B=1, S=2048: one
+   ``loss_fn(mesh=)`` and its backward with ``reduce_gradients`` (the MoE
+   layer on the expert-TP schedule, which a one-rank mesh picks, with
+   the meshless capacity) against the meshless route: the loss and
+   every gradient bit-equal, except any leaf whose meshless gradient
+   differs between two meshless runs (named, and held at 3e-2 in norm);
+   the meshless gradients wait on the host, as the card holds one
+   gradient set beside the 31.3 GB of weights. Then an AdamW step (bf16
+   moments) on the sharded parameters but the expert bank: the moments
+   of every leaf (twice the weights' bytes) do not fit beside the weights
+   and gradients; the line prints both figures. (b)
+   mixtral-8x7b's 4-layer cut at full width: ``forward(mesh=)`` logits at
+   B=1, S=4096 and four ``serve_step(mesh=)`` decode steps bit-equal to
+   the meshless ones. (c) gin-tu on ogb_products: one edge-parallel step
+   (``psum_axes=("data",)``) bit-equal to the meshless step, both with
+   ``torch.use_deterministic_algorithms(True)`` (the gathers' gradients
+   otherwise add by atomics in no fixed order). (d)
+   ``pipeline_apply`` on a 1-stage ``("pod",)`` mesh and
+   ``sharded_row_gather``, bit-equal to the sequential loop (microbatch
+   by microbatch) and to ``F.embedding``, their gradients within
+   ``assert_close``'s defaults; and the psum schedule's expert products
+   (bf16 GEMMs with float32 output) against the widened products at
+   deepseek-v3's widths. Each part's time beside the
+   meshless time, and the phase's launches of ``flash_attention``
+   (forward and backward) and ``segment_sum``, which must be nonzero.
+   The script's total seconds are printed at the end.
 
 Every profile prints the host's launch calls beside the device records
 it kept, and is used only if it kept one for each (``device_share``).
@@ -4471,6 +4499,9 @@ TRAIN_MLA_ARCH = "deepseek-v3-671b"
 TRAIN_MLA_S = 2048
 TRAIN_MLA_ATTN = (1, 128, 128, TRAIN_MLA_S, 192)  # its attention: B, Hq, Hkv, S, D (Dv 128)
 TRAIN_GNN_STEPS = 3
+SHARDED_S = 2048
+SHARDED_MIXTRAL_S = 4096
+SHARDED_DECODE_STEPS = 4
 TRAIN_GNN_LR = 1e-3
 TRAIN_GNN_TOL = 2e-3  # float32 gradients against the index_add_ forward's
 
@@ -4761,6 +4792,378 @@ def phase_train_gnn(dev, ogb: dict, card: str) -> dict:
             "counts": counts, "losses": losses, "secs": time.perf_counter() - t_phase}
 
 
+def sharded_lm_cfg():
+    """deepseek-v3 at full width: its dense layers, one MoE layer (all 256
+    experts), and the MTP layer."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch(TRAIN_MLA_ARCH).config
+    return dataclasses.replace(full, num_layers=full.num_dense_layers + 1)
+
+
+def lm_grads(params, cfg, batch, mesh=None, specs=None):
+    """``(loss, {name: gradient})`` of ``loss_fn`` (``.backward()``); on a
+    mesh each rank's gradients summed over the batch axes."""
+    import torch
+
+    from repro_torch.distributed.sharding import reduce_gradients
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.models.transformer.model import batch_axes
+
+    for p in params.parameters():
+        p.grad = None
+    loss = loss_fn(params, cfg, batch, mesh=mesh)
+    loss.backward()
+    if mesh is not None:
+        reduce_gradients(params, specs, mesh,
+                         batch_axes(mesh, batch["tokens"].shape[0]))
+    return loss.detach(), {n: p.grad for n, p in params.named_parameters()}
+
+
+def timed_call(fn):
+    """``(fn(), seconds)`` with the card (if any) synchronised around the
+    call."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def _expert_bank(name: str) -> bool:
+    return name.rsplit(".", 2)[-2:-1] == ["moe"] and name.endswith(
+        (".w_gate", ".w_up", ".w_down"))
+
+
+def sharded_lm_part(dev, mesh, card: str) -> dict:
+    """Phase 18 (a): see the module docstring."""
+    import torch
+
+    from repro_torch.configs.lm_family import lm_param_specs
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer.moe import moe_schedule
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
+    from repro_torch.train.tree import trainable
+
+    cfg = sharded_lm_cfg()
+    params = trainable(init_params(cfg, device=dev,
+                                   generator=torch.Generator(dev).manual_seed(0)))
+    batch = lm_train_batch(dev, 1, 4, cfg.vocab_size, SHARDED_S)
+    specs = lm_param_specs(params, cfg, mesh)
+    sharded = shard_tree(params, specs, mesh)  # one rank: views of the same storage
+    check(moe_schedule(cfg, mesh, SHARDED_S) == "expert_tp",
+          "a one-rank mesh runs the MoE layer on the expert-TP schedule")
+    weights_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    # One gradient set on the card at a time beside the weights: the
+    # meshless one waits on the host.
+    loss_ref, grads = lm_grads(params, cfg, batch)  # also the warm-up
+    ref = {n: g.detach().cpu() for n, g in grads.items()}
+    del grads
+    (loss_2, grads), plain_s = timed_call(lambda: lm_grads(params, cfg, batch))
+    unsteady = sorted(n for n, g in grads.items() if not torch.equal(g, ref[n].to(dev)))
+    del grads
+    for p in params.parameters():
+        p.grad = None
+    lm_grads(sharded, cfg, batch, mesh, specs)  # warm-up: the groups' first collectives
+    reset_launch_counts()
+    (loss_m, grads_m), mesh_s = timed_call(lambda: lm_grads(sharded, cfg, batch, mesh, specs))
+    counts = dict(launch_counts)
+    check(torch.equal(loss_m, loss_ref) and torch.equal(loss_2, loss_ref),
+          f"deepseek sharded loss {float(loss_m)} bit-equal to the meshless {float(loss_ref)}")
+    differ, worst = [], 0.0
+    for n, want in ref.items():
+        got, want = grads_m[n], want.to(dev)
+        if n in unsteady:
+            err = float((got.float() - want.float()).norm()
+                        / want.float().norm().clamp_min(1e-30))
+            worst = max(worst, err)
+            check(err <= TRAIN_GRAD_TOL, f"{n}: within {TRAIN_GRAD_TOL} in norm ({err})")
+        elif not torch.equal(got, want):
+            differ.append(n)
+        del want
+    check(not differ, f"gradients bit-equal to the meshless route's: {differ} differ")
+    print(f"sharded train {cfg.name} {cfg.num_dense_layers} dense + 1 MoE ({cfg.moe.num_experts} "
+          f"experts) + MTP at full width ({weights_gb} GB of weights), mesh (1, 1) over "
+          f"NCCL, B=1 S={SHARDED_S}: loss={float(loss_m)} bit-equal to the meshless loss; "
+          f"{len(ref)} gradients, {len(ref) - len(unsteady)} bit-equal, leaves whose "
+          f"meshless gradient differs between two meshless runs (held at "
+          f"{TRAIN_GRAD_TOL} in norm, worst {worst}): {unsteady}; value_and_grads "
+          f"mesh_s={mesh_s} meshless_s={plain_s} launches={counts} [{card}]")
+    del ref, grads_m
+    # AdamW's two bf16 moments of every leaf would take twice the
+    # weights' bytes beside the weights and their gradients: the step
+    # updates every leaf but the expert bank, whose gradients go first.
+    opt_cfg = AdamWConfig(moment_dtype="bfloat16")
+    moments_gb = 2 * weights_gb
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    rest = {}
+    for n, p in sharded.named_parameters():
+        if _expert_bank(n):
+            p.grad = None
+        else:
+            rest[n] = p
+    state = init_opt_state(rest, opt_cfg)
+    before = sharded.final_norm.detach().clone()
+    (_, _, metrics), adam_s = timed_call(lambda: adamw_update(
+        {n: p.grad for n, p in rest.items()}, state, rest, opt_cfg))
+    check(bool(torch.isfinite(metrics["grad_norm"])) and not torch.equal(
+        before, sharded.final_norm.detach()), "the AdamW step moved the parameters")
+    print(f"sharded train AdamW step (bf16 moments) on the sharded parameters but the "
+          f"expert bank ({len(rest)} leaves): the moments of every leaf need {moments_gb} "
+          f"GB; the weights and gradients hold {held_gb} GB, {free_gb} GB is free; "
+          f"grad_norm={float(metrics['grad_norm'])} step_s={adam_s} [{card}]")
+    del params, sharded, state, rest
+    torch.cuda.empty_cache()
+    return {"counts": counts, "mesh_s": mesh_s, "plain_s": plain_s, "unsteady": unsteady}
+
+
+def sharded_mixtral_part(dev, mesh, card: str) -> dict:
+    """Phase 18 (b): see the module docstring."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_family import lm_param_specs
+    from repro_torch.data.lm import lm_batch
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import (
+        forward,
+        init_kv_cache,
+        init_params,
+        serve_step,
+    )
+
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b").config, num_layers=4)
+    params = init_params(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    sharded = shard_tree(params, lm_param_specs(params, cfg, mesh), mesh)
+    tokens = torch.from_numpy(lm_batch(1, SHARDED_MIXTRAL_S, cfg.vocab_size, seed=5)[
+        "tokens"]).to(dev)
+    with torch.inference_mode():
+        forward(params, cfg, tokens)  # warm-up
+        want, plain_s = timed_call(lambda: forward(params, cfg, tokens))
+        reset_launch_counts()
+        got, mesh_s = timed_call(lambda: forward(sharded, cfg, tokens, mesh=mesh))
+        counts = dict(launch_counts)
+        check(torch.equal(got, want), "mixtral forward(mesh=) logits bit-equal")
+        del got, want
+        caches = (init_kv_cache(cfg, 1, 64, device=dev),
+                  init_kv_cache(cfg, 1, 64, device=dev, mesh=mesh))
+        for i in range(SHARDED_DECODE_STEPS):
+            a, _ = serve_step(params, cfg, caches[0], tokens[:, i:i + 1], i)
+            b, _ = serve_step(sharded, cfg, caches[1], tokens[:, i:i + 1], i, mesh=mesh)
+            check(torch.equal(a, b), f"mixtral serve_step(mesh=) logits bit-equal at {i}")
+    print(f"sharded forward mixtral-8x7b 4 of 32 layers at full width, mesh (1, 1), B=1 "
+          f"S={SHARDED_MIXTRAL_S}: logits bit-equal, {SHARDED_DECODE_STEPS} decode steps "
+          f"bit-equal; mesh_s={mesh_s} meshless_s={plain_s} launches={counts} [{card}]")
+    del params, sharded, caches
+    torch.cuda.empty_cache()
+    return {"counts": counts, "mesh_s": mesh_s, "plain_s": plain_s}
+
+
+def sharded_gnn_part(dev, mesh, ogb: dict, card: str) -> dict:
+    """Phase 18 (c): see the module docstring."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import reduce_gradients
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.gnn import gin
+    from repro_torch.train.tree import trainable
+
+    graph = gnn_on_card(ogb, dev)
+    graph["labels"] = torch.from_numpy(ogb["labels"]).to(dev)
+    cfg = get_arch("gin-tu").config_for(GNN_SHAPE)
+    params = trainable(gin.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                                       device=dev))
+
+    def step(axes):
+        for p in params.parameters():
+            p.grad = None
+        with mesh:
+            loss = gin.loss_fn(params, cfg, graph, psum_axes=axes)
+        loss.backward()
+        reduce_gradients(params, {}, mesh, axes)
+        return loss.detach(), [p.grad.clone() for p in params.parameters()]
+
+    # The gathers' gradients (index_select's backward, index_add_ on the
+    # card) add in no fixed order unless deterministic algorithms are on.
+    torch.use_deterministic_algorithms(True)
+    try:
+        loss_ref, grads_ref = step(())  # also the warm-up
+        step(("data",))  # warm-up
+        (_, _), plain_s = timed_call(lambda: step(()))
+        reset_launch_counts()
+        (loss_m, grads_m), mesh_s = timed_call(lambda: step(("data",)))
+        counts = dict(launch_counts)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    names = [n for n, _ in params.named_parameters()]
+    differ = [n for n, a, b in zip(names, grads_m, grads_ref) if not torch.equal(a, b)]
+    check(torch.equal(loss_m, loss_ref) and not differ,
+          f"gin-tu's edge-parallel step bit-equal to the meshless step ({differ} differ)")
+    print(f"sharded train gin-tu {GNN_SHAPE} edge-parallel (psum_axes=('data',)), mesh (1, 1), "
+          f"deterministic algorithms on: loss={float(loss_m)} and {len(grads_m)} gradients "
+          f"bit-equal; step mesh_s={mesh_s} meshless_s={plain_s} launches={counts} [{card}]")
+    del graph, params
+    torch.cuda.empty_cache()
+    return {"counts": counts, "mesh_s": mesh_s, "plain_s": plain_s}
+
+
+def sharded_small_part(dev, card: str) -> None:
+    """Phase 18 (d): see the module docstring."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.ops.sharded_lookup import sharded_row_gather
+
+    gen = torch.Generator(dev).manual_seed(7)
+    pod = make_test_mesh((1,), ("pod",))
+    w = (torch.randn(1, 2, 256, 256, device=dev, generator=gen) * 0.06).requires_grad_(True)
+    xs = torch.randn(4, 64, 256, device=dev, generator=gen).requires_grad_(True)
+    layer = lambda x, lp: torch.tanh(x @ lp["w"])  # noqa: E731
+    out, pipe_s = timed_call(lambda: pipeline_apply(layer, {"w": w}, xs, pod, "pod"))
+    out.square().sum().backward()
+    got = (out.detach(), w.grad.clone(), xs.grad.clone())
+    w.grad = xs.grad = None
+    ys = []
+    for x in xs:  # microbatch by microbatch, as the stage runs them
+        for i in range(2):
+            x = torch.tanh(x @ w[0, i])
+        ys.append(x)
+    y = torch.stack(ys)
+    y.square().sum().backward()
+    check(torch.equal(got[0], y.detach()),
+          "pipeline_apply on one stage bit-equal to the sequential loop")
+    for a, b in zip(got[1:], (w.grad, xs.grad)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    table = torch.randn(32000, 4096, device=dev, generator=gen).to(torch.bfloat16)
+    table.requires_grad_(True)
+    idx = torch.randint(0, 32000, (1, 4096), device=dev, generator=gen)
+    model = make_test_mesh((1, 1))
+    rows, gather_s = timed_call(lambda: sharded_row_gather(table, idx, model, "model"))
+    rows.float().sum().backward()
+    g = table.grad.clone()
+    table.grad = None
+    want = F.embedding(idx, table)
+    want.float().sum().backward()
+    check(torch.equal(rows, want), "sharded_row_gather bit-equal to F.embedding")
+    torch.testing.assert_close(g, table.grad)
+    print(f"sharded pipeline_apply 1 stage x 2 layers (4 microbatches of (64, 256)) and "
+          f"sharded_row_gather (32000, 4096) bf16 at (1, 4096): outputs bit-equal, "
+          f"gradients within assert_close's float32 / bf16 defaults; "
+          f"pipeline_s={pipe_s} gather_s={gather_s} [{card}]")
+    resident_experts_check(dev, gen, card)
+
+
+RESIDENT_EXPERTS, RESIDENT_TOKENS = 16, 8
+
+
+def resident_experts_widened(tokens, gate_local, p, act):
+    """``moe._resident_experts``' plain version: the products of operands
+    widened to float32, every resident expert's weights copied to float32
+    on each call."""
+    import torch
+
+    t32 = tokens.float()
+    h = act(torch.einsum("td,edf->tef", t32, p.w_gate.float())) * torch.einsum(
+        "td,edf->tef", t32, p.w_up.float())
+    y = torch.einsum("tef,efd->ted", h.to(tokens.dtype).float(), p.w_down.float())
+    return torch.einsum("ted,te->td", y, gate_local)
+
+
+def resident_experts_check(dev, gen, card: str) -> None:
+    """The psum schedule's expert products (``moe._resident_experts``, the
+    MoE layer of a decode on a mesh of several ranks), bf16 operands
+    summed and written in float32 by batched GEMMs, against the products
+    of the operands widened to float32: deepseek-v3's widths,
+    ``RESIDENT_EXPERTS`` resident experts, ``RESIDENT_TOKENS`` tokens.
+    The forward within 2^-8 in norm: the same exact products summed in
+    another order, so the hidden activations, rounded to bf16 between the
+    two GEMMs, may differ by one bf16 step (2^-8 of a value) where the
+    two sums straddle a rounding boundary (3.7e-4 on the card). The
+    gradients, whose cotangent the GEMMs round to bf16 once, within
+    ``TRAIN_GRAD_TOL``."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.transformer import moe
+
+    m, d = sharded_lm_cfg().moe, sharded_lm_cfg().d_model
+    f, e, t = m.d_ff_expert, RESIDENT_EXPERTS, RESIDENT_TOKENS
+
+    def leaf(*shape, scale):
+        x = torch.randn(*shape, device=dev, generator=gen) * scale
+        return x.to(torch.bfloat16).requires_grad_(True)
+
+    w = {"w_gate": leaf(e, d, f, scale=d ** -0.5), "w_up": leaf(e, d, f, scale=d ** -0.5),
+         "w_down": leaf(e, f, d, scale=f ** -0.5)}
+    tokens = leaf(t, d, scale=1.0)
+    gate = torch.rand(t, e, device=dev, generator=gen)
+    cot = torch.randn(t, d, device=dev, generator=gen)
+    p = types.SimpleNamespace(**w)
+
+    def run(fn):
+        out = fn(tokens, gate, p, F.silu)
+        grads = torch.autograd.grad((out * cot).sum(), [tokens, *w.values()])
+        return out.detach(), grads
+
+    run(moe._resident_experts)  # warm-ups
+    run(resident_experts_widened)
+    (got, got_g), secs = timed_call(lambda: run(moe._resident_experts))
+    (want, want_g), plain_s = timed_call(lambda: run(resident_experts_widened))
+    with torch.no_grad():
+        _, fwd_s = timed_call(lambda: moe._resident_experts(tokens, gate, p, F.silu))
+        _, fwd_plain_s = timed_call(lambda: resident_experts_widened(
+            tokens, gate, p, F.silu))
+    # the forward's least traffic: the weights read once
+    bound_s = sum(x.numel() * x.element_size() for x in w.values()) / HBM_BYTES_PER_S
+    rel = lambda a, b: float((a.float() - b.float()).norm()  # noqa: E731
+                             / b.float().norm().clamp_min(1e-30))
+    err, g_err = rel(got, want), max(rel(a, b) for a, b in zip(got_g, want_g))
+    check(got.dtype == torch.float32 and err <= 2 ** -8,
+          f"the resident experts' float32 products within 2^-8 in norm ({err})")
+    check(g_err <= TRAIN_GRAD_TOL,
+          f"their gradients within {TRAIN_GRAD_TOL} in norm of the widened route's ({g_err})")
+    print(f"sharded psum expert products {e} experts x {t} tokens at d={d} f={f}, "
+          f"bf16 GEMMs with float32 output against the widened products: forward in "
+          f"norm {err}, gradients worst {g_err}; value_and_grad s={secs} widened_s={plain_s}; "
+          f"forward s={fwd_s} widened_s={fwd_plain_s} bound_s={bound_s} (the weights read "
+          f"once) [{card}]")
+
+
+def phase_sharded_train(dev, ogb: dict, card: str) -> dict:
+    """Phase 18: (a)-(d) of the module docstring, on one mesh over NCCL.
+    Returns the launches of (a)-(c) summed, and each part's times."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_test_mesh((1, 1))
+    check(mesh.device.type == "cuda", "the mesh's ranks are on the card")
+    parts = {"lm": sharded_lm_part(dev, mesh, card),
+             "mixtral": sharded_mixtral_part(dev, mesh, card),
+             "gnn": sharded_gnn_part(dev, mesh, ogb, card)}
+    sharded_small_part(dev, card)
+    counts = {}
+    for part in parts.values():
+        for k, v in part["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    for name in ("flash_attention", "flash_attention.bwd.wmma", "segment_sum"):
+        check(counts.get(name, 0) > 0, f"phase 18 launched {name}: {counts}")
+    secs = time.perf_counter() - t0
+    print(f"sharded phase 18 launches={counts} phase_s={secs} [{card}]")
+    return {"counts": counts, "parts": parts, "secs": secs}
+
+
 def main() -> int:
     import torch
 
@@ -4910,10 +5313,17 @@ def main() -> int:
     train_lm = phase_train_lm(dev, card)
     train_mla = phase_train_mla(dev, card)
     train_gnn = phase_train_gnn(dev, ogb, card)
-    del ogb
     train_secs = time.perf_counter() - t17
+
+    # Phase 18: sharded training over NCCL at world size 1; launches
+    # counted from 0 in each part's mesh run.
+    sharded_train = phase_sharded_train(dev, ogb, card)
+    del ogb
     launches["flash_attention"] += train_lm["counts"]["flash_attention"]
     launches["segment_sum"] += train_gnn["counts"]["segment_sum"]
+    launches["segment_sum"] += sharded_train["counts"].get("segment_sum", 0)
+    mixtral_fa = sharded_train["parts"]["mixtral"]["counts"].get("flash_attention", 0)
+    launches["flash_attention"] += mixtral_fa
     errs["flash_attention"] = lm["max_abs_err"]
     records = []
     for name, (ms, plain_ms, eager_ms, nbytes) in times.items():
@@ -4970,7 +5380,8 @@ def main() -> int:
         "name": "flash_attention.mla_192_128", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": KERNELS["flash_attention"][1],
-        "launches": ds["counts"]["flash_attention"] + ds["mtp_launches"],
+        "launches": (ds["counts"]["flash_attention"] + ds["mtp_launches"]
+                     + sharded_train["counts"]["flash_attention"] - mixtral_fa),
         "max_abs_err": lm["mla_err"], "ms": mla_ms, "plain_ms": mla_plain,
         "bound_ms": mla_bound, "bound_by": "operations", "library_ms": mla_sdpa,
     })
@@ -5000,7 +5411,8 @@ def main() -> int:
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": KERNELS["flash_attention"][1], "launches": launched[name],
+            "replaces": KERNELS["flash_attention"][1],
+            "launches": launched[name] + sharded_train["counts"].get(name, 0),
             "max_abs_err": bwd_errs[design], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms,
         })
@@ -5116,6 +5528,10 @@ def main() -> int:
           f"value_and_grads_ms={train_mla['step_s'] * 1e3} [{card}]")
     print(f"e2e train phase_s={train_secs} (lm {train_lm['secs']}, mla {train_mla['secs']}, gnn "
           f"{train_gnn['secs']}) [{card}]")
+    for label, part in sharded_train["parts"].items():
+        print(f"e2e sharded train {label} (mesh (1, 1), NCCL): mesh_s={part['mesh_s']} "
+              f"meshless_s={part['plain_s']} [{card}]")
+    print(f"e2e sharded train phase_s={sharded_train['secs']} [{card}]")
     print(f"chip_smoke total_s={time.perf_counter() - start}")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))

@@ -3,8 +3,8 @@ vocab=129280, MoE 1 shared + 256 routed top-8, MTP depth 1.
 
 ``a2a_dtype`` (the fp8 payload of the dispatch all-to-all) is read from
 ``REPRO_OPT_LEVEL`` as the reference reads it, so the two configs are
-equal field for field; only the sharded MoE schedules read it, and those
-wait for ROADMAP queue 1, item 16.
+equal field for field; only the all_to_all MoE schedule reads it (with
+a mesh whose EP axes span more than one rank).
 """
 import os
 

@@ -1,8 +1,9 @@
 """Multi-rank engines on ``torch.distributed``: the port of
 ``repro.distributed``. ``graph`` holds the edge-partitioned graph engine
-(sharded connected components and list ranking); the model-sharding
-helpers of the reference (``sharding.py``, ``pipeline.py``) come with
-training."""
+(sharded connected components and list ranking); ``mesh`` the named
+meshes, ``collectives`` the collectives with their gradients,
+``sharding`` the sharding rules and layouts, and ``pipeline`` GPipe over
+a stage axis (sharded training)."""
 from repro_torch.distributed.graph import (
     EXCHANGES,
     GRAPH_AXIS,

@@ -118,12 +118,21 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``ignore_id``; logits (..., V) (taken in float32), labels (...).
     Labels are clipped at 0 before the gather, as the reference's, so an
     ignored position reads class 0 and is masked out."""
+    loss_sum, count = cross_entropy_sum(logits, labels, ignore_id)
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
+                      ignore_id: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+    """``softmax_cross_entropy``'s numerator and denominator: the summed
+    cross-entropy over the counted positions and their count (float32
+    scalars). A batch split over ranks sums both over the ranks, then
+    divides."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long().clamp(min=0)[..., None])[..., 0]
     mask = (labels != ignore_id).float()
-    total = torch.clamp(mask.sum(), min=1.0)
-    return ((lse - gold) * mask).sum() / total
+    return ((lse - gold) * mask).sum(), mask.sum()
 
 
 def node_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import input_tensor
 from repro_torch.models.gnn.graph import dst_sorted_edges, is_sorted
 from repro_torch.models.tree import ParamTree, empty_tree, generator_on, he_or_zero
-from repro_torch.ops.segment import segment_sum, segment_sum_dist
+from repro_torch.ops.segment import edge_parallel_loss, segment_sum, segment_sum_dist
 
 
 @dataclass(frozen=True)
@@ -120,4 +120,5 @@ def loss_fn(params: ParamTree, cfg: EGNNConfig, graph: dict, *,
     """Mean squared error of the readout against ``graph["labels"]``."""
     pred, _x = forward(params, cfg, graph, psum_axes=psum_axes)
     target = input_tensor(graph, "labels", pred.device).float()
-    return torch.mean((pred.squeeze(-1).float() - target) ** 2)
+    return edge_parallel_loss(
+        torch.mean((pred.squeeze(-1).float() - target) ** 2), psum_axes)

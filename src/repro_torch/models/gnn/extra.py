@@ -7,6 +7,10 @@ sorted by destination (``graph.dst_sorted_edges``: checked once a
 forward, sorted once if not): GCN one launch a layer, GraphSAGE one a
 layer (its mean), PNA two a layer (its sums and sums of squares); PNA's
 extremes and the degree counts are scatters, as in the reference.
+With ``psum_axes`` (edge-parallel: this rank's edges, every node) the
+partial sums, extremes and degree counts are reduced over those mesh
+axes; the reference counts GCN's and PNA's degrees on the local edges
+there, the port over every rank's.
 Parameters are ``ParamTree``s under the reference's keys, matrices
 ``(in, out)``. Like the reference, nothing registers these three in the
 architecture table.
@@ -23,7 +27,8 @@ from repro_torch.models.common import input_tensor, node_nll
 from repro_torch.models.gnn.graph import dst_sorted_edges
 from repro_torch.models.tree import ParamTree, empty_tree, generator_on, he_or_zero
 from repro_torch.ops.segment import (
-    segment_count,
+    edge_parallel_loss,
+    segment_count_dist,
     segment_max_dist,
     segment_mean,
     segment_sum_dist,
@@ -85,7 +90,7 @@ def gcn_forward(params: ParamTree, cfg: GCNConfig, graph: dict, *,
     """Logits (n, num_classes) on the parameters' device."""
     h, src, dst = _edges(params, graph)
     n = h.shape[0]
-    deg = segment_count(dst, n).float() + 1.0  # +self loop
+    deg = segment_count_dist(dst, n, psum_axes).float() + 1.0  # +self loop
     inv_sqrt = torch.rsqrt(deg)
     norm = inv_sqrt.index_select(0, src) * inv_sqrt.index_select(0, dst)
     layers = params["layers"]
@@ -185,7 +190,7 @@ def pna_forward(params: ParamTree, cfg: PNAConfig, graph: dict, *,
     segment's max and min (``-inf``/``+inf``) count as 0."""
     h, src, dst = _edges(params, graph)
     n = h.shape[0]
-    deg = segment_count(dst, n).float()
+    deg = segment_count_dist(dst, n, psum_axes).float()
     logd = torch.log1p(deg)[:, None]
     scalers = [
         torch.ones_like(logd),
@@ -216,12 +221,18 @@ def pna_forward(params: ParamTree, cfg: PNAConfig, graph: dict, *,
 
 
 def gcn_loss(params: ParamTree, cfg: GCNConfig, graph: dict, *, psum_axes=()):
-    return _node_ce(gcn_forward(params, cfg, graph, psum_axes=psum_axes), graph)
+    return edge_parallel_loss(
+        _node_ce(gcn_forward(params, cfg, graph, psum_axes=psum_axes), graph),
+        psum_axes)
 
 
 def sage_loss(params: ParamTree, cfg: SAGEConfig, graph: dict, *, psum_axes=()):
-    return _node_ce(sage_forward(params, cfg, graph, psum_axes=psum_axes), graph)
+    return edge_parallel_loss(
+        _node_ce(sage_forward(params, cfg, graph, psum_axes=psum_axes), graph),
+        psum_axes)
 
 
 def pna_loss(params: ParamTree, cfg: PNAConfig, graph: dict, *, psum_axes=()):
-    return _node_ce(pna_forward(params, cfg, graph, psum_axes=psum_axes), graph)
+    return edge_parallel_loss(
+        _node_ce(pna_forward(params, cfg, graph, psum_axes=psum_axes), graph),
+        psum_axes)

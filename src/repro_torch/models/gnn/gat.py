@@ -19,7 +19,11 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.common import input_tensor, lecun_init, node_nll
 from repro_torch.models.gnn.graph import dst_sorted_edges
-from repro_torch.ops.segment import local_only, segment_softmax_dist, segment_sum
+from repro_torch.ops.segment import (
+    edge_parallel_loss,
+    segment_softmax_dist,
+    segment_sum_dist,
+)
 
 
 @dataclass(frozen=True)
@@ -100,18 +104,18 @@ def init_params(cfg: GATConfig, *, generator: torch.Generator | None = None,
 
 
 def _gat_layer(layer: GATLayer, cfg: GATConfig, h, src, dst, n, heads, d_out,
-               last):
+               psum_axes, last):
     wh = layer.w(h).reshape(n, heads, d_out)
     s_src = torch.einsum("nhd,hd->nh", wh, layer.a_src)
     s_dst = torch.einsum("nhd,hd->nh", wh, layer.a_dst)
     e = F.leaky_relu(s_src.index_select(0, src) + s_dst.index_select(0, dst),
                      negative_slope=cfg.negative_slope)  # (m, heads)
-    num, den = segment_softmax_dist(e, dst, n, indices_are_sorted=True)
+    num, den = segment_softmax_dist(e, dst, n, psum_axes, indices_are_sorted=True)
     del e
     # (m, heads, d_out), weighted in place: the gather is a fresh tensor.
     msgs = wh.index_select(0, src).mul_(num[..., None])
     del num
-    agg = segment_sum(msgs, dst, n, indices_are_sorted=True)
+    agg = segment_sum_dist(msgs, dst, n, psum_axes, indices_are_sorted=True)
     del msgs
     out = agg / den[..., None]
     if last:
@@ -119,7 +123,8 @@ def _gat_layer(layer: GATLayer, cfg: GATConfig, h, src, dst, n, heads, d_out,
     return F.elu(out.reshape(n, heads * d_out) + layer.b)
 
 
-def forward(params: GAT, cfg: GATConfig, graph: dict) -> torch.Tensor:
+def forward(params: GAT, cfg: GATConfig, graph: dict, *,
+            psum_axes: tuple[str, ...] = ()) -> torch.Tensor:
     """graph: ``node_feats`` (n, d), ``src``/``dst`` (m,). Returns
     logits (n, num_classes) on the parameters' device."""
     dev = params.layers[0].w.weight.device
@@ -129,14 +134,14 @@ def forward(params: GAT, cfg: GATConfig, graph: dict) -> torch.Tensor:
     for i, (layer, (_d_in, heads, d_out)) in enumerate(
             zip(params.layers, layer_dims(cfg))):
         last = i == cfg.num_layers - 1
-        h = _gat_layer(layer, cfg, h, src, dst, n, heads, d_out, last)
+        h = _gat_layer(layer, cfg, h, src, dst, n, heads, d_out, psum_axes, last)
     return h
 
 
 def loss_fn(params: GAT, cfg: GATConfig, graph: dict, *,
             psum_axes: tuple[str, ...] = ()) -> torch.Tensor:
     """Mean node NLL over the rows whose ``graph["labels"]`` is >= 0.
-    ``psum_axes`` (the edge-sharded form) raises."""
-    local_only(psum_axes)
-    logits = forward(params, cfg, graph)
-    return node_nll(logits, input_tensor(graph, "labels", logits.device))
+    With ``psum_axes`` the edge-sharded form (see ``gin.loss_fn``)."""
+    logits = forward(params, cfg, graph, psum_axes=psum_axes)
+    loss = node_nll(logits, input_tensor(graph, "labels", logits.device))
+    return edge_parallel_loss(loss, psum_axes)

@@ -20,7 +20,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.common import he_init, input_tensor, layer_norm, node_nll
 from repro_torch.models.gnn.graph import dst_sorted_edges, is_sorted
-from repro_torch.ops.segment import local_only, segment_sum
+from repro_torch.ops.segment import edge_parallel_loss, segment_sum, segment_sum_dist
 
 
 @dataclass(frozen=True)
@@ -96,7 +96,8 @@ def init_params(cfg: GINConfig, *, generator: torch.Generator | None = None,
     return model
 
 
-def forward(params: GIN, cfg: GINConfig, graph: dict) -> torch.Tensor:
+def forward(params: GIN, cfg: GINConfig, graph: dict, *,
+            psum_axes: tuple[str, ...] = ()) -> torch.Tensor:
     """graph: ``node_feats`` (n, d), ``src``/``dst`` (m,), and for the
     graph readout ``graph_ids`` (n,) and ``num_graphs``. Returns logits
     (n, classes) for the node readout, (num_graphs, classes) for the
@@ -107,8 +108,8 @@ def forward(params: GIN, cfg: GINConfig, graph: dict) -> torch.Tensor:
     src, dst = dst_sorted_edges(graph, dev)
     reps = []
     for layer in params.layers:
-        agg = segment_sum(h.index_select(0, src), dst, n,
-                          indices_are_sorted=True)
+        agg = segment_sum_dist(h.index_select(0, src), dst, n, psum_axes,
+                               indices_are_sorted=True)
         eps = layer.eps if cfg.eps_learnable else 0.0
         z = (1.0 + eps) * h + agg
         z = layer.w2(F.relu(layer.w1(z)))
@@ -126,7 +127,9 @@ def forward(params: GIN, cfg: GINConfig, graph: dict) -> torch.Tensor:
 def loss_fn(params: GIN, cfg: GINConfig, graph: dict, *,
             psum_axes: tuple[str, ...] = ()) -> torch.Tensor:
     """Mean node (or graph) NLL over the rows whose ``graph["labels"]``
-    is >= 0. ``psum_axes`` (the edge-sharded form) raises."""
-    local_only(psum_axes)
-    logits = forward(params, cfg, graph)
-    return node_nll(logits, input_tensor(graph, "labels", logits.device))
+    is >= 0. With ``psum_axes`` (the edge-sharded form: this rank's
+    edges in ``graph``, every node) the layers sum their partial
+    aggregates over those mesh axes (see ``ops/segment.py``)."""
+    logits = forward(params, cfg, graph, psum_axes=psum_axes)
+    loss = node_nll(logits, input_tensor(graph, "labels", logits.device))
+    return edge_parallel_loss(loss, psum_axes)

@@ -38,7 +38,7 @@ from repro_torch.models.common import he_init, input_tensor
 from repro_torch.models.gnn.graph import dst_sorted_edges, is_sorted
 from repro_torch.models.gnn.so3 import cg_tensor, num_m, real_sph_harm
 from repro_torch.models.tree import ParamTree, empty_tree, generator_on
-from repro_torch.ops.segment import segment_sum, segment_sum_dist
+from repro_torch.ops.segment import edge_parallel_loss, segment_sum, segment_sum_dist
 
 
 @dataclass(frozen=True)
@@ -185,13 +185,13 @@ def forward(params: ParamTree, cfg: MACEConfig, graph: dict, *,
     (m,), ``graph_ids`` and ``num_graphs``. Returns per-graph energies
     (num_graphs,) in float32, on the parameters' device.
 
-    ``constrain`` is the reference's hook for pinning shardings; sharding
-    comes with ROADMAP queue 1, item 16, so anything but None raises."""
-    if constrain is not None:
-        raise NotImplementedError(
-            "MACE's constrain= hook pins shardings, which are not ported yet "
-            "(ROADMAP queue 1, item 16); pass constrain=None"
-        )
+    ``constrain(tensor, kind)``, kind in {"mix_in", "node", "edge"}, is
+    the reference's hook for pinning shardings, applied to the same
+    tensors (the layer's input features, the mixed node features, each
+    edge contribution, each aggregate). On explicit ranks a layout is
+    fixed where a tensor is made, so it is a layout hook whose result is
+    used in place of its input: values are unchanged."""
+    C_ = constrain or (lambda t, kind: t)
     dev = params["final_w1"].device
     species = input_tensor(graph, "species", dev)
     x = input_tensor(graph, "positions", dev).float()
@@ -214,7 +214,8 @@ def forward(params: ParamTree, cfg: MACEConfig, graph: dict, *,
     for ls_in, layer in zip(_layer_ls(cfg), params["layers"]):
         mpaths = _msg_paths(ls_in, cfg.l_max)
         rad = F.silu(rbf @ layer["rad_w1"] + layer["rad_b1"])  # (m, 64)
-        pre = [_mix(feats[i], layer["mix_pre"][i]) for i in range(len(ls_in))]
+        pre = [C_(_mix(C_(feats[i], "mix_in"), layer["mix_pre"][i]), "node")
+               for i in range(len(ls_in))]
 
         # ---- A-basis: message passing with CG couplings ----
         edge_sum = [None] * (cfg.l_max + 1)
@@ -226,7 +227,7 @@ def forward(params: ParamTree, cfg: MACEConfig, graph: dict, *,
             hj = pre[ls_in.index(l1)].index_select(0, src)  # (m, C, a)
             # The path's radial weights: its C columns of rad_w2, (m, C).
             rad_p = rad @ layer["rad_w2"][:, pi * c:(pi + 1) * c]
-            contrib = torch.bmm(hj, ycg) * rad_p[:, :, None]  # (m, C, z)
+            contrib = C_(torch.bmm(hj, ycg) * rad_p[:, :, None], "edge")  # (m, C, z)
             del hj, ycg, rad_p
             edge_sum[l3] = contrib if edge_sum[l3] is None else edge_sum[l3] + contrib
             del contrib
@@ -235,8 +236,8 @@ def forward(params: ParamTree, cfg: MACEConfig, graph: dict, *,
             if edge_sum[l] is None:
                 A.append(torch.zeros((n, c, num_m(l)), dtype=h0.dtype, device=dev))
             else:
-                A.append(segment_sum_dist(edge_sum[l], dst, n, psum_axes,
-                                          indices_are_sorted=True))
+                A.append(C_(segment_sum_dist(edge_sum[l], dst, n, psum_axes,
+                                             indices_are_sorted=True), "node"))
             edge_sum[l] = None
         del rad, pre
 
@@ -277,4 +278,4 @@ def loss_fn(params: ParamTree, cfg: MACEConfig, graph: dict, *,
     """Mean squared error of the energies against ``graph["labels"]``."""
     pred = forward(params, cfg, graph, psum_axes=psum_axes, constrain=constrain)
     target = input_tensor(graph, "labels", pred.device).float()
-    return torch.mean((pred - target) ** 2)
+    return edge_parallel_loss(torch.mean((pred - target) ** 2), psum_axes)

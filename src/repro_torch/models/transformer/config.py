@@ -2,10 +2,9 @@
 ``repro.models.transformer.config``.
 
 The dataclasses and param-count formulas are the reference's, field for
-field, so a config of either package describes the same model. The port
-runs every one of them on one card: ``MoEConfig``'s ``ep_axes`` and
-``a2a_dtype`` are read only by the sharded MoE schedules, which wait for
-ROADMAP queue 1, item 16.
+field, so a config of either package describes the same model.
+``MoEConfig``'s ``ep_axes`` and ``a2a_dtype`` are read only by the
+sharded MoE schedules (``moe.py``, with a mesh).
 """
 from __future__ import annotations
 

@@ -16,6 +16,21 @@ reference's ``jax.checkpoint``). Every entry point runs where the
 parameters live:
 ``init_params`` allocates on the card unless the caller passes
 ``device="cpu"``, and tokens go to the parameters' device.
+
+With a ``mesh`` (``repro_torch.launch.mesh``) every entry point runs
+this rank's share of the reference's sharded computation: ``params``
+holds this rank's blocks (``configs/lm_family.py::lm_param_specs`` and
+``distributed/sharding.py::shard_tree``), the inputs are the whole batch
+on every rank, and each rank takes its block of the batch over the
+``LM_RULES``' batch axes (``batch_axes``). Attention and the dense FFN are
+tensor-parallel over ``"model"`` (``attention.py``), the embedding is
+vocab-sharded through ``ops/sharded_lookup.py``, the unembedding's
+logits are gathered over ``"model"`` before the cross-entropy, and the
+MoE layers run ``moe.py``'s schedules. Outputs are this rank's block
+of the batch; ``loss_fn``'s loss is the whole batch's, summed over the
+batch axes before the division, on every rank, and each rank's
+gradients are its share until ``sharding.reduce_gradients`` sums them
+over the batch axes.
 """
 from __future__ import annotations
 
@@ -28,7 +43,21 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import activation_fn, rms_norm, softmax_cross_entropy
+from repro_torch.distributed.collectives import (
+    all_reduce,
+    chunk,
+    copy_to,
+    gather_from,
+    reduce_from,
+)
+from repro_torch.distributed.sharding import LM_RULES
+from repro_torch.ops.sharded_lookup import sharded_row_gather
+from repro_torch.models.common import (
+    activation_fn,
+    cross_entropy_sum,
+    rms_norm,
+    softmax_cross_entropy,
+)
 from repro_torch.models.transformer.attention import (
     GQAttention,
     MLAttention,
@@ -36,10 +65,12 @@ from repro_torch.models.transformer.attention import (
     gqa_decode,
     init_gqa_params,
     init_mla_params,
+    MODEL,
+    column,
     mla_attention,
     mla_decode,
-    no_mesh,
     normal_,
+    row,
 )
 from repro_torch.models.transformer.config import TransformerConfig
 from repro_torch.models.transformer.moe import MoE, init_moe_params, moe_ffn
@@ -179,9 +210,30 @@ def as_tokens(params: TransformerLM, tokens) -> torch.Tensor:
     return tokens.to(device=params.embed.device, dtype=torch.int64)
 
 
+def batch_axes(mesh, batch: int) -> tuple:
+    """The mesh axes the batch splits over: ``LM_RULES``' batch axes that
+    the mesh has, the last dropped while they do not divide ``batch``
+    (the reference's fallback for tiny or odd batches)."""
+    if mesh is None or mesh.empty:
+        return ()
+    ax = LM_RULES.for_mesh(mesh).batch
+    ax = () if ax is None else (ax,) if isinstance(ax, str) else tuple(ax)
+    while ax and batch % mesh.axis_size(ax):
+        ax = ax[:-1]
+    return ax
+
+
+def batch_block(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """This rank's block of dim 0 over ``axes`` (all of ``x`` without)."""
+    return chunk(x, mesh, axes, 0) if axes else x
+
+
 def embed_lookup(params: TransformerLM, cfg: TransformerConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    x = F.embedding(tokens, params.embed)
+                 tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    if params.embed.shape[0] != cfg.vocab_size:  # this rank's rows
+        x = sharded_row_gather(params.embed, tokens, mesh, MODEL)
+    else:
+        x = F.embedding(tokens, params.embed)
     if cfg.embed_scale:
         # The scale rounded to the activation dtype, as the reference's
         # jnp.asarray(sqrt(d), x.dtype).
@@ -189,10 +241,15 @@ def embed_lookup(params: TransformerLM, cfg: TransformerConfig,
     return x
 
 
-def _dense_ffn(p: DenseFFN, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
+def _dense_ffn(p: DenseFFN, cfg: TransformerConfig, x: torch.Tensor,
+               mesh=None) -> torch.Tensor:
+    """With a mesh, ``d_ff`` sliced over ``"model"`` and the down
+    projection summed over it."""
     act = activation_fn(cfg.activation)
-    h = act(F.linear(x, p.w_gate.weight)) * F.linear(x, p.w_up.weight)
-    return F.linear(h.to(x.dtype), p.w_down.weight)
+    f = cfg.d_ff
+    h = act(column(x, p.w_gate.weight, mesh, f, gather=False)) * column(
+        x, p.w_up.weight, mesh, f, gather=False)
+    return row(h.to(x.dtype), p.w_down.weight, mesh, f)
 
 
 class _UnembedF32(torch.autograd.Function):
@@ -214,14 +271,23 @@ class _UnembedF32(torch.autograd.Function):
 
 
 def _unembed(params: TransformerLM, cfg: TransformerConfig,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor, mesh=None) -> torch.Tensor:
     """The unembedding; float32 logits. As the reference's
     ``preferred_element_type=float32``, a bf16 product is summed and
     written in float32, never rounded to bf16: on the card one GEMM with
     float32 output (``_UnembedF32``, which carries the gradient), on the
     CPU (which has no such GEMM) the same product of the operands
-    widened to float32, whose products are exact."""
+    widened to float32, whose products are exact. With a mesh and a
+    vocab-sliced weight, this rank's columns of the logits, gathered
+    over ``"model"``."""
     w = params.embed if cfg.tie_embeddings else params.unembed.weight
+    if w.shape[0] != cfg.vocab_size:
+        logits = _unembed_rows(copy_to(x, mesh, MODEL), w)
+        return gather_from(logits, mesh, MODEL, -1)
+    return _unembed_rows(x, w)
+
+
+def _unembed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return F.linear(x, w)
     if x.is_cuda:
@@ -231,23 +297,25 @@ def _unembed(params: TransformerLM, cfg: TransformerConfig,
 
 
 def _logits(params: TransformerLM, cfg: TransformerConfig,
-            x: torch.Tensor) -> torch.Tensor:
+            x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Final norm and unembedding; float32 logits."""
-    return _unembed(params, cfg, rms_norm(x, params.final_norm))
+    return _unembed(params, cfg, rms_norm(x, params.final_norm), mesh)
 
 
-def _attn(p, cfg: TransformerConfig, x, positions):
+def _attn(p, cfg: TransformerConfig, x, positions, mesh=None):
     if cfg.attention == "mla":
-        return mla_attention(p, cfg, x, positions)
-    return gqa_attention(p, cfg, x, positions)
+        return mla_attention(p, cfg, x, positions, mesh=mesh)
+    return gqa_attention(p, cfg, x, positions, mesh=mesh)
 
 
-def _layer_fwd(layer: DecoderLayer, cfg: TransformerConfig, x, positions):
-    h = x + _attn(layer.attn, cfg, rms_norm(x, layer.ln1), positions)
+def _layer_fwd(layer: DecoderLayer, cfg: TransformerConfig, x, positions,
+               mesh=None, dp=()):
+    h = x + _attn(layer.attn, cfg, rms_norm(x, layer.ln1), positions, mesh)
     hn = rms_norm(h, layer.ln2)
     if layer.moe is not None:
-        return h + moe_ffn(layer.moe, cfg, hn, activation_fn(cfg.activation))
-    return h + _dense_ffn(layer.ffn, cfg, hn)
+        return h + moe_ffn(layer.moe, cfg, hn, activation_fn(cfg.activation),
+                           mesh=mesh, dp_axes=dp)
+    return h + _dense_ffn(layer.ffn, cfg, hn, mesh)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -255,32 +323,40 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return positions[None].expand(b, s)
 
 
-def hidden_states(params: TransformerLM, cfg: TransformerConfig, tokens, *,
-                  mesh=None) -> torch.Tensor:
-    """The trunk: tokens (B, S) -> the last layer's output (B, S, d),
-    before the final norm (what the MTP head reads). With grad mode on
-    and ``cfg.remat``, each layer keeps only its input and is recomputed
-    in the backward."""
-    no_mesh(mesh)
-    tokens = as_tokens(params, tokens)
+def _trunk(params: TransformerLM, cfg: TransformerConfig, tokens, mesh, dp):
+    """Embedding and every layer on this rank's tokens."""
     b, s = tokens.shape
-    x = embed_lookup(params, cfg, tokens)
+    x = embed_lookup(params, cfg, tokens, mesh)
     positions = _positions(b, s, x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for _, _, layer in params.layers():
         if remat:
-            x = checkpoint(_layer_fwd, layer, cfg, x, positions, use_reentrant=False)
+            x = checkpoint(_layer_fwd, layer, cfg, x, positions, mesh, dp,
+                           use_reentrant=False)
         else:
-            x = _layer_fwd(layer, cfg, x, positions)
+            x = _layer_fwd(layer, cfg, x, positions, mesh, dp)
     return x
+
+
+def hidden_states(params: TransformerLM, cfg: TransformerConfig, tokens, *,
+                  mesh=None) -> torch.Tensor:
+    """The trunk: tokens (B, S) -> the last layer's output (B, S, d),
+    before the final norm (what the MTP head reads); with a mesh, this
+    rank's block of the batch. With grad mode on and ``cfg.remat``, each
+    layer keeps only its input and is recomputed in the backward."""
+    tokens = as_tokens(params, tokens)
+    dp = batch_axes(mesh, tokens.shape[0])
+    return _trunk(params, cfg, batch_block(tokens, mesh, dp), mesh, dp)
 
 
 def forward(params: TransformerLM, cfg: TransformerConfig, tokens, *,
             mesh=None) -> torch.Tensor:
-    """tokens: (B, S) ints -> logits (B, S, V) float32. Each layer's
+    """tokens: (B, S) ints -> logits (B, S, V) float32 (with a mesh, this
+    rank's block of the batch, every vocab column). Each layer's
     attention is one ``flash_attention`` launch on the card, and each MoE
     layer's combine one ``segment_sum`` launch."""
-    return _logits(params, cfg, hidden_states(params, cfg, tokens, mesh=mesh))
+    x = hidden_states(params, cfg, tokens, mesh=mesh)
+    return _logits(params, cfg, x, mesh)
 
 
 def _mtp_logits(params: TransformerLM, cfg: TransformerConfig,
@@ -290,14 +366,19 @@ def _mtp_logits(params: TransformerLM, cfg: TransformerConfig,
     ``x_final`` (``hidden_states``) normed by ``mtp_norm`` plus the
     embedding of ``tokens``, and its dense layer's output is unembedded
     without the final norm). Returns float32 logits (B, S, V), which
-    ``loss_fn``'s MTP term reads."""
-    no_mesh(mesh)
+    ``loss_fn``'s MTP term reads. With a mesh, ``x_final`` and the
+    result are this rank's block of the batch, ``tokens`` the whole."""
     tokens = as_tokens(params, tokens)
+    dp = batch_axes(mesh, tokens.shape[0])
+    return _mtp_block(params, cfg, x_final, batch_block(tokens, mesh, dp), mesh)
+
+
+def _mtp_block(params, cfg, x_final, tokens, mesh):
     b, s = tokens.shape
-    emb_next = embed_lookup(params, cfg, tokens)
+    emb_next = embed_lookup(params, cfg, tokens, mesh)
     h = rms_norm(x_final, params.mtp_norm) + emb_next
-    h = _layer_fwd(params.mtp_layer, cfg, h, _positions(b, s, h.device))
-    return _unembed(params, cfg, h)
+    h = _layer_fwd(params.mtp_layer, cfg, h, _positions(b, s, h.device), mesh)
+    return _unembed(params, cfg, h, mesh)
 
 
 def loss_fn(params: TransformerLM, cfg: TransformerConfig, batch: dict, *,
@@ -305,19 +386,34 @@ def loss_fn(params: TransformerLM, cfg: TransformerConfig, batch: dict, *,
     """batch: ``tokens`` (B, S), ``labels`` (B, S) with -1 = ignore. The
     mean next-token cross-entropy, plus ``mtp_weight`` times the MTP
     head's (labels shifted left by one, padded with -1) for a config with
-    ``mtp_depth``. ``rules`` (the reference's sharding rules) means
-    nothing on one card; a ``mesh`` raises."""
-    del rules
-    no_mesh(mesh)
+    ``mtp_depth``. ``rules`` (the reference's sharding rules) may only be
+    ``LM_RULES``, the layout ``lm_param_specs`` gives the weights; any
+    other raises. With a mesh each mean is the whole batch's: the summed
+    losses and the counts are summed over the batch axes, then divided
+    (the reference's mean over ``labels != -1``), and the sum passes the
+    gradient through, so each rank's gradient is its share."""
+    if rules is not None and rules != LM_RULES:
+        raise ValueError(f"loss_fn lays the LM out by LM_RULES; got {rules}")
     tokens = as_tokens(params, batch["tokens"])
     labels = as_tokens(params, batch["labels"])
-    x = hidden_states(params, cfg, tokens)
-    loss = softmax_cross_entropy(_logits(params, cfg, x), labels)
+    dp = batch_axes(mesh, tokens.shape[0])
+    pad = labels.new_full((labels.shape[0], 1), -1)
+    mtp_labels = torch.cat([labels[:, 1:], pad], dim=1)
+    tokens, labels, mtp_labels = (batch_block(t, mesh, dp)
+                                  for t in (tokens, labels, mtp_labels))
+    x = _trunk(params, cfg, tokens, mesh, dp)
+
+    def mean(logits, lab):
+        if not dp:
+            return softmax_cross_entropy(logits, lab)
+        total, count = cross_entropy_sum(logits, lab)
+        total = reduce_from(total, mesh, dp)
+        return total / torch.clamp(all_reduce(count, mesh, dp), min=1.0)
+
+    loss = mean(_logits(params, cfg, x, mesh), labels)
     if cfg.mtp_depth and params.mtp_layer is not None:
-        pad = labels.new_full((labels.shape[0], 1), -1)
-        mtp_labels = torch.cat([labels[:, 1:], pad], dim=1)
-        mtp_logits = _mtp_logits(params, cfg, x, tokens)
-        loss = loss + mtp_weight * softmax_cross_entropy(mtp_logits, mtp_labels)
+        mtp_logits = _mtp_block(params, cfg, x, tokens, mesh)
+        loss = loss + mtp_weight * mean(mtp_logits, mtp_labels)
     return loss
 
 
@@ -332,68 +428,114 @@ def cache_length(cfg: TransformerConfig, max_len: int) -> int:
     return max_len
 
 
+class KVCache(dict):
+    """The stacked caches on a mesh: ``{"dense": ..., "moe": ...}`` as
+    ``init_kv_cache`` makes them, holding this rank's blocks, with the
+    specs they were laid out by (``lm_family._cache_specs``), the batch
+    axes, and for each group whether its positions are split over
+    ``"model"``."""
+
+    def __init__(self, groups: dict, specs: dict, batch_axes: tuple, mesh):
+        super().__init__(groups)
+        self.specs = specs
+        self.batch_axes = batch_axes
+        tp = mesh.shape.get(MODEL, 1)
+        self.seq_split = {g: tp > 1 and next(iter(sp.values()))[2] == MODEL
+                          for g, sp in specs.items()}
+
+
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
-                  device=None) -> dict:
+                  device=None, mesh=None) -> dict:
     """Zeroed stacked caches, one entry per layer group (``"dense"``,
     ``"moe"``) with ``L`` the group's layers and ``C = cache_length(cfg,
     max_len)``: for GQA ``{"k", "v"}`` each ``(L, B, C, Hkv, hd)``, for
     MLA the compressed latent ``"ckv"`` ``(L, B, C, kv_lora)`` and the
     rope keys ``"krope"`` ``(L, B, C, dr)``; on ``device`` (default: the
-    card)."""
-    kw = dict(dtype=torch_dtype(cfg), device=resolve_device(device))
+    card). With a ``mesh``, a ``KVCache`` of this rank's blocks under
+    ``lm_family._cache_specs`` (batch over the data axes when they
+    divide it, then key/value heads over ``"model"`` when it divides
+    them, else the positions), on the mesh's device."""
     clen = cache_length(cfg, max_len)
 
-    def stack(n):
+    def shapes(n):
         if cfg.attention == "mla":
-            return {
-                "ckv": torch.zeros((n, batch, clen, cfg.kv_lora_rank), **kw),
-                "krope": torch.zeros((n, batch, clen, cfg.qk_rope_head_dim), **kw),
-            }
+            return {"ckv": (n, batch, clen, cfg.kv_lora_rank),
+                    "krope": (n, batch, clen, cfg.qk_rope_head_dim)}
         shape = (n, batch, clen, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+        return {"k": shape, "v": shape}
 
-    cache = {}
-    for group, n in (("dense", cfg.num_dense_layers_effective()),
-                     ("moe", cfg.num_moe_layers())):
-        if n:
-            cache[group] = stack(n)
-    return cache
+    full = {group: shapes(n) for group, n in (
+        ("dense", cfg.num_dense_layers_effective()), ("moe", cfg.num_moe_layers()))
+        if n}
+    if mesh is None:
+        kw = dict(dtype=torch_dtype(cfg), device=resolve_device(device))
+        return {g: {k: torch.zeros(sh, **kw) for k, sh in c.items()}
+                for g, c in full.items()}
+    from repro_torch.configs.lm_family import _cache_specs
+
+    specs = _cache_specs(cfg, {g: {k: torch.empty(sh, device="meta")
+                                   for k, sh in c.items()} for g, c in full.items()},
+                         mesh, batch)
+    kw = dict(dtype=torch_dtype(cfg), device=mesh.device)
+    groups = {g: {k: torch.zeros(_block_shape(sh, specs[g][k], mesh), **kw)
+                  for k, sh in c.items()} for g, c in full.items()}
+    spec = next(iter(next(iter(specs.values())).values()))
+    dp = spec[1] or ()
+    return KVCache(groups, specs, (dp,) if isinstance(dp, str) else tuple(dp), mesh)
+
+
+def _block_shape(shape, spec, mesh) -> tuple:
+    return tuple(n // (mesh.axis_size(d) if d is not None else 1)
+                 for n, d in zip(shape, spec))
 
 
 def serve_step(params: TransformerLM, cfg: TransformerConfig, cache: dict,
                tokens, pos, *, mesh=None):
     """One decode step: tokens (B, 1) at index ``pos``; returns (logits
     (B, 1, V) float32, cache). The cache is updated in place (see
-    ``gqa_decode`` and ``mla_decode``) and returned."""
-    no_mesh(mesh)
+    ``gqa_decode`` and ``mla_decode``) and returned. With a ``mesh`` the
+    cache is ``init_kv_cache(..., mesh=mesh)``'s, ``tokens`` the whole
+    batch, and the logits this rank's block of it (the cache's layout
+    fixes the batch axes)."""
     pos = int(pos)
-    x = embed_lookup(params, cfg, as_tokens(params, tokens))
+    tokens = as_tokens(params, tokens)
+    dp, seq_split = (), {}
+    if mesh is not None:
+        if not isinstance(cache, KVCache):
+            raise ValueError("with a mesh, serve_step needs the KVCache of "
+                             "init_kv_cache(..., mesh=mesh)")
+        dp, seq_split = cache.batch_axes, cache.seq_split
+    x = embed_lookup(params, cfg, batch_block(tokens, mesh, dp), mesh)
     act = activation_fn(cfg.activation)
     for group, i, layer in params.layers():
         c = cache[group]
+        split = seq_split.get(group, False)
         hn = rms_norm(x, layer.ln1)
         if cfg.attention == "mla":
             attn_out, _, _ = mla_decode(layer.attn, cfg, hn, c["ckv"][i],
-                                        c["krope"][i], pos)
+                                        c["krope"][i], pos, mesh=mesh,
+                                        seq_split=split)
         else:
-            attn_out, _, _ = gqa_decode(layer.attn, cfg, hn, c["k"][i], c["v"][i], pos)
+            attn_out, _, _ = gqa_decode(layer.attn, cfg, hn, c["k"][i], c["v"][i],
+                                        pos, mesh=mesh, seq_split=split)
         h = x + attn_out
         hn2 = rms_norm(h, layer.ln2)
         if layer.moe is not None:
-            x = h + moe_ffn(layer.moe, cfg, hn2, act)
+            x = h + moe_ffn(layer.moe, cfg, hn2, act, mesh=mesh, dp_axes=dp)
         else:
-            x = h + _dense_ffn(layer.ffn, cfg, hn2)
-    return _logits(params, cfg, x), cache
+            x = h + _dense_ffn(layer.ffn, cfg, hn2, mesh)
+    return _logits(params, cfg, x, mesh), cache
 
 
 def prefill(params: TransformerLM, cfg: TransformerConfig, tokens,
             max_len: int, *, mesh=None):
     """Sequential prefill through ``serve_step``, one token at a time
     (the reference's simple serving path; it shares no attention code
-    with ``forward``). Returns (last logits (B, 1, V), cache)."""
+    with ``forward``). Returns (last logits (B, 1, V), cache); with a
+    mesh, this rank's block of the logits and its ``KVCache``."""
     tokens = as_tokens(params, tokens)
     b, s = tokens.shape
-    cache = init_kv_cache(cfg, b, max_len, device=tokens.device)
+    cache = init_kv_cache(cfg, b, max_len, device=tokens.device, mesh=mesh)
     logits = None
     for i in range(s):
         logits, cache = serve_step(params, cfg, cache, tokens[:, i:i + 1], i,

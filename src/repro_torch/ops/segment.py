@@ -19,15 +19,26 @@ The kernel sums float32 and bfloat16 rows; a float16 sum is widened to
 float32 around it and rounded once. float64, which JAX computes only
 with x64 enabled, has no kernel: on the card it raises.
 
-The ``_dist`` variants are the edge-sharded forms: with ``axes=()``
-they are the local reductions. Sharded axes raise until the sharded
-graph engine and ``torch.distributed`` training are ported (ROADMAP
-queue 1, items 11 and 16).
+The ``_dist`` variants are the edge-sharded forms: each rank reduces
+its own edges (a float sum through the ``segment_sum`` kernel), then the
+partials are summed (or maxed) over the named mesh axes, which resolve
+against ``mesh=`` or the mesh entered with ``with mesh:``. With
+``axes=()`` they are the local reductions. Their backward sums the
+gradient over the axes too (``collectives.psum_linear``): every rank
+uses the reduced nodes alike, so an edge-parallel loss scales its
+gradient by one over the axis size (the GNN losses' ``psum_axes`` do).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.collectives import (
+    all_reduce,
+    grad_scale,
+    pmax_linear,
+    psum_linear,
+)
+from repro_torch.distributed.mesh import resolve_mesh
 from repro_torch.kernels.segment_sum.ops import segment_sum_sorted
 
 
@@ -155,16 +166,6 @@ def segment_softmax(
     return expd / seg_den[ids]
 
 
-def local_only(axes) -> None:
-    """Raise unless ``axes`` is empty: the edge-sharded reductions (and
-    the GNN losses' ``psum_axes``) wait for the sharded training half."""
-    if axes:
-        raise NotImplementedError(
-            f"sharded segment reductions over axes {tuple(axes)} are not "
-            "ported yet (ROADMAP queue 1, items 11 and 16); pass axes=()"
-        )
-
-
 def segment_sum_dist(
     data: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -172,10 +173,36 @@ def segment_sum_dist(
     axes: tuple[str, ...] = (),
     *,
     indices_are_sorted: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
-    local_only(axes)
-    return segment_sum(data, segment_ids, num_segments,
-                       indices_are_sorted=indices_are_sorted)
+    out = segment_sum(data, segment_ids, num_segments,
+                      indices_are_sorted=indices_are_sorted)
+    if not axes:
+        return out
+    return psum_linear(out, resolve_mesh(mesh, axes), tuple(axes))
+
+
+def segment_count_dist(segment_ids: torch.Tensor, num_segments: int,
+                       axes: tuple[str, ...] = (), *, mesh=None) -> torch.Tensor:
+    """``segment_count`` over every rank's edges: the degree an
+    edge-parallel layer needs (the reference counts the local edges)."""
+    out = segment_count(segment_ids, num_segments)
+    if not axes:
+        return out
+    return all_reduce(out, resolve_mesh(mesh, axes), tuple(axes))
+
+
+def edge_parallel_loss(loss: torch.Tensor, axes: tuple[str, ...] = (), *,
+                       mesh=None) -> torch.Tensor:
+    """``loss`` with its gradient scaled by one over the size of ``axes``:
+    every rank of an edge-parallel forward computes the same loss, and
+    the ``_dist`` sums' backward adds the ranks' gradients, so each
+    rank's parameter gradients are then its share, which
+    ``sharding.reduce_gradients`` sums over ``axes``."""
+    if not axes:
+        return loss
+    mesh = resolve_mesh(mesh, axes)
+    return grad_scale(loss, 1.0 / mesh.axis_size(tuple(axes)))
 
 
 def segment_max_dist(
@@ -183,9 +210,13 @@ def segment_max_dist(
     segment_ids: torch.Tensor,
     num_segments: int,
     axes: tuple[str, ...] = (),
+    *,
+    mesh=None,
 ) -> torch.Tensor:
-    local_only(axes)
-    return segment_max(data, segment_ids, num_segments)
+    out = segment_max(data, segment_ids, num_segments)
+    if not axes:
+        return out
+    return pmax_linear(out, resolve_mesh(mesh, axes), tuple(axes))
 
 
 def segment_softmax_dist(
@@ -195,12 +226,21 @@ def segment_softmax_dist(
     axes: tuple[str, ...] = (),
     *,
     indices_are_sorted: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(numerator_per_edge, denominator_per_segment)``; the
-    caller divides after aggregating the weighted messages. Unlike the
-    reference it takes ``indices_are_sorted``, so a forward over
-    dst-sorted edges sums its denominators without a sort."""
-    local_only(axes)
-    expd, seg_den, _ = _softmax_parts(logits, segment_ids, num_segments,
-                                      indices_are_sorted)
-    return expd, seg_den
+    """Edge-sharded segment softmax. Returns ``(numerator_per_edge,
+    denominator_per_segment)``; the caller divides after aggregating the
+    weighted messages, so only two collectives (a max and a sum) run per
+    attention layer. Unlike the reference it takes
+    ``indices_are_sorted``, so a forward over dst-sorted edges sums its
+    denominators without a sort."""
+    if not axes:
+        expd, seg_den, _ = _softmax_parts(logits, segment_ids, num_segments,
+                                          indices_are_sorted)
+        return expd, seg_den
+    seg_max = segment_max_dist(logits, segment_ids, num_segments, axes, mesh=mesh)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    expd = torch.exp(logits - seg_max[_gather_ids(segment_ids, num_segments)])
+    seg_den = segment_sum_dist(expd, segment_ids, num_segments, axes,
+                               indices_are_sorted=indices_are_sorted, mesh=mesh)
+    return expd, seg_den.clamp_min(torch.finfo(expd.dtype).tiny)

@@ -188,8 +188,16 @@ def test_sharded_axes_raise_naming_the_roadmap_items(name):
     g = graphs.full_graph(20, 60, 4, cfg.num_classes)
     params = MODELS[name][1](cfg, generator=torch.Generator().manual_seed(0),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="items 11 and 16"):
+    # edge-parallel since item 16: the axes name axes of a mesh, so with
+    # none given or active they raise; on a one-rank mesh the numbers are
+    # the meshless ones
+    with pytest.raises(ValueError, match="no mesh is given or active"):
         MODELS[name][2](params, cfg, g, psum_axes=("data",))
+    from repro_torch.launch.mesh import make_test_mesh
+
+    with make_test_mesh((1, 1), device="cpu"):
+        got = MODELS[name][2](params, cfg, g, psum_axes=("data",))
+    torch.testing.assert_close(got, MODELS[name][2](params, cfg, g), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -206,15 +206,30 @@ def test_forward_sums_sorted_ids_and_sorts_at_most_once(monkeypatch, name, calls
 def test_mace_refuses_a_sharding_hook_and_sharded_axes():
     cfg = get_arch("mace").smoke_config
     g = _batch(cfg, 2, 0)
+    # Since item 16 MACE applies the hook where the reference does (a
+    # layout hook: values unchanged) and both models run edge-parallel;
+    # sharded axes need a mesh (tests/test_torch_sharded_train.py holds them
+    # on several ranks).
+    from repro_torch.launch.mesh import make_test_mesh
+
     params = mace.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        mace.forward(params, cfg, g, constrain=lambda t, kind: t)
-    with pytest.raises(NotImplementedError, match="items 11 and 16"):
+    want = mace.forward(params, cfg, g)
+    kinds = []
+    got = mace.forward(params, cfg, g, constrain=lambda t, kind: kinds.append(kind) or t)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert set(kinds) == {"mix_in", "node", "edge"}
+    with pytest.raises(ValueError, match="no mesh is given or active"):
         mace.forward(params, cfg, g, psum_axes=("data",))
     ecfg = get_arch("egnn").smoke_config
-    with pytest.raises(NotImplementedError, match="items 11 and 16"):
-        egnn.forward(egnn.init_params(ecfg, device="cpu"), ecfg, _batch(ecfg, 2, 0),
-                     psum_axes=("data",))
+    eparams = egnn.init_params(ecfg, device="cpu")
+    with pytest.raises(ValueError, match="no mesh is given or active"):
+        egnn.forward(eparams, ecfg, _batch(ecfg, 2, 0), psum_axes=("data",))
+    with make_test_mesh((1, 1), device="cpu"):
+        torch.testing.assert_close(mace.forward(params, cfg, g, psum_axes=("data",)),
+                                   want, rtol=0, atol=0)
+        got = egnn.forward(eparams, ecfg, _batch(ecfg, 2, 0), psum_axes=("data",))
+    for a, b in zip(got, egnn.forward(eparams, ecfg, _batch(ecfg, 2, 0))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def _leaf(params, path):

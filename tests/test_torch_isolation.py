@@ -37,8 +37,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     ).stdout)
     assert len(out["names"]) >= 20, "walked too few modules"
     # the walk reaches every subpackage, the sharded graph engine, the
-    # GNN, sampler and RecSys modules, the MoE LMs' modules and the
-    # training package too
+    # GNN, sampler and RecSys modules, the MoE LMs' modules, the training
+    # package and the sharded-training modules too
     assert {"repro_torch.distributed", "repro_torch.distributed.graph",
             "repro_torch.ops.neighbor_sampler", "repro_torch.ops.embedding_bag",
             "repro_torch.data.recsys", "repro_torch.models.tree",
@@ -52,7 +52,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.configs.deepseek_v3", "repro_torch.train",
             "repro_torch.train.optimizer", "repro_torch.train.compression",
             "repro_torch.train.checkpoint", "repro_torch.train.loop",
-            "repro_torch.train.tree",
+            "repro_torch.train.tree", "repro_torch.train.elastic",
+            "repro_torch.distributed.mesh", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives", "repro_torch.distributed.pipeline",
+            "repro_torch.launch", "repro_torch.launch.mesh",
+            "repro_torch.ops.sharded_lookup", "repro_torch.configs.lm_family",
             } <= set(out["names"])
     assert out["bad"] == []
 

@@ -190,8 +190,11 @@ def test_lm_remat_gives_the_same_grads_and_a_mesh_raises():
                                       batch)
     for name, g in with_remat.items():
         torch.testing.assert_close(g, without[name], rtol=0, atol=0, msg=name)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        loss_fn(params, cfg, batch, mesh=object())
+    from repro_torch.launch.mesh import make_test_mesh
+
+    on_mesh, _ = _port_value_and_grad(loss_fn, params, dataclasses.replace(cfg, remat=True),
+                                      batch, mesh=make_test_mesh((1, 1), device="cpu"))
+    assert on_mesh == _port_value_and_grad(loss_fn, params, cfg, batch)[0]
 
 
 # --- the GNNs and xDeepFM ---------------------------------------------------
@@ -223,8 +226,14 @@ def test_gin_and_gat_losses_match_the_reference(name, readout):
     got, got_g = _port_value_and_grad(port_mod.loss_fn, params, cfg, g)
     np.testing.assert_allclose(got, float(want), rtol=TOL)
     _check_grads(got_g, gnn_convert.params_from_jax(_np(want_g), cfg, device="cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1, items 11 and 16"):
-        port_mod.loss_fn(params, cfg, g, psum_axes=("data",))
+    from repro_torch.launch.mesh import make_test_mesh
+
+    with make_test_mesh((1, 1), device="cpu"):  # edge-parallel over one rank
+        sharded, sharded_g = _port_value_and_grad(port_mod.loss_fn, params, cfg, g,
+                                                  psum_axes=("data",))
+    assert sharded == got
+    for name, grad in sharded_g.items():
+        torch.testing.assert_close(grad, got_g[name], rtol=0, atol=0, msg=name)
 
 
 EXTRA = {

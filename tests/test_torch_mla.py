@@ -134,8 +134,11 @@ def test_mtp_logits_match_reference(dtype):
     got = model._mtp_logits(params, cfg, to_tensor(np.asarray(jx)), toks)
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, 16, cfg.vocab_size)
     _close(got, want, dtype)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        model._mtp_logits(params, cfg, to_tensor(np.asarray(jx)), toks, mesh=object())
+    from repro_torch.launch.mesh import make_test_mesh
+
+    on_mesh = model._mtp_logits(params, cfg, to_tensor(np.asarray(jx)), toks,
+                                mesh=make_test_mesh((1, 1), device="cpu"))
+    torch.testing.assert_close(on_mesh, got, rtol=0, atol=0)
 
 
 def test_deepseek_forward_float32_matches_reference():

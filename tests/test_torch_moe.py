@@ -212,14 +212,22 @@ def test_moe_ffn_local_matches_reference(dtype, dispatch, name):
 
 
 def test_moe_mesh_raises_naming_item_16():
+    # The sharded schedules came with item 16: on a one-rank mesh the
+    # layer runs expert TP with the meshless capacity, bit for bit the
+    # meshless layer; a weight layout that does not fit the schedule
+    # raises (tests/test_torch_sharding.py holds every schedule).
     _, cfg = _moe_cfg("mixtral-8x7b")
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.transformer import init_params
 
     params = init_params(cfg, device="cpu")
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
-        moe.moe_ffn(params.moe_layers[0].moe, cfg, x, torch.relu, mesh=object())
-    assert moe.moe_ffn(params.moe_layers[0].moe, cfg, x, torch.relu).shape == x.shape
+    x = torch.randn(1, 4, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    mesh = make_test_mesh((1, 1), device="cpu")
+    layer = params.moe_layers[0].moe
+    assert moe.moe_schedule(cfg, mesh, 4) == "expert_tp"
+    torch.testing.assert_close(moe.moe_ffn(layer, cfg, x, torch.relu, mesh=mesh),
+                               moe.moe_ffn(layer, cfg, x, torch.relu), rtol=0, atol=0)
+    assert moe.moe_ffn(layer, cfg, x, torch.relu).shape == x.shape
 
 
 def _model_pair(name, dtype="float32", **moe_changes):

@@ -209,9 +209,20 @@ def test_dist_variants_are_the_local_reductions(sorted_):
 @pytest.mark.parametrize("fn", ["segment_sum_dist", "segment_max_dist",
                                 "segment_softmax_dist"])
 def test_sharded_axes_raise_naming_the_roadmap_items(fn):
-    x, ids = torch.ones(4), torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1, items 11 and 16"):
+    # Since item 16 the axes resolve against a mesh: with none given or
+    # active they raise, and on a one-rank mesh the reductions are the
+    # local ones.
+    from repro_torch.launch.mesh import make_test_mesh
+
+    x, ids = torch.arange(4.0), torch.tensor([0, 0, 1, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match="no mesh is given or active"):
         getattr(tseg, fn)(x, ids, 2, ("data",))
+    mesh = make_test_mesh((1, 1), device="cpu")
+    got = getattr(tseg, fn)(x, ids, 2, ("data",), mesh=mesh)
+    want = getattr(tseg, fn)(x, ids, 2)
+    for a, b in zip(got if isinstance(got, tuple) else [got],
+                    want if isinstance(want, tuple) else [want]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def _edges(seed, n, m):

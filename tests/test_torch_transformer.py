@@ -31,6 +31,7 @@ from repro_torch.models.transformer import (  # noqa: E402
     forward,
     init_kv_cache,
     init_params,
+    loss_fn,
     prefill,
     serve_step,
 )
@@ -256,9 +257,13 @@ def test_params_from_jax_is_bit_exact_in_bfloat16():
 
 
 def test_unported_model_parts_raise():
-    # MoE layers, MLA and the MTP head build and run since item 15; what
-    # still raises is item 16's: a mesh (sharded attention, embedding and
-    # the MoE schedules).
+    # MoE layers, MLA and the MTP head build and run since item 15, and
+    # under a mesh since item 16: on a one-rank mesh every entry point
+    # gives the meshless numbers, and serving on a mesh needs the cache
+    # that init_kv_cache lays out for it.
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh((1, 1), device="cpu")
     cfg = get_arch("qwen3-4b").smoke_config
     moe = MoEConfig(num_experts=4, top_k=2, d_ff_expert=32)
     toks = _tokens(cfg, 1, 4)
@@ -270,11 +275,31 @@ def test_unported_model_parts_raise():
         assert forward(params, c, toks).shape == (1, 4, c.vocab_size)
         assert (params.mtp_layer is not None) == bool(c.mtp_depth)
         assert len(params.moe_layers) == c.num_moe_layers()
-        with pytest.raises(NotImplementedError, match="item 16"):
-            forward(params, c, toks, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 16"):
+        torch.testing.assert_close(forward(params, c, toks, mesh=mesh),
+                                   forward(params, c, toks), rtol=0, atol=0)
+        want, _ = serve_step(params, c, init_kv_cache(c, 1, 8, device="cpu"),
+                             toks[:, :1], 0)
+        got, _ = serve_step(params, c, init_kv_cache(c, 1, 8, device="cpu", mesh=mesh),
+                            toks[:, :1], 0, mesh=mesh)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        with pytest.raises(ValueError, match="KVCache"):
             serve_step(params, c, init_kv_cache(c, 1, 8, device="cpu"), toks[:, :1], 0,
-                       mesh=object())
+                       mesh=mesh)
+
+
+def test_loss_fn_takes_only_the_rules_that_lay_the_lm_out():
+    from repro_torch.distributed.sharding import LM_LONG_DECODE_RULES, LM_RULES
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cfg = get_arch("qwen3-4b").smoke_config
+    params = init_params(cfg, device="cpu")
+    toks = _tokens(cfg, 2, 4)
+    batch = {"tokens": toks, "labels": toks}
+    mesh = make_test_mesh((1, 1), device="cpu")
+    want = loss_fn(params, cfg, batch)
+    assert torch.equal(loss_fn(params, cfg, batch, mesh=mesh, rules=LM_RULES), want)
+    with pytest.raises(ValueError, match="LM_RULES"):
+        loss_fn(params, cfg, batch, mesh=mesh, rules=LM_LONG_DECODE_RULES)
 
 
 def test_entry_points_default_to_the_card():
