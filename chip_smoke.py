@@ -312,7 +312,7 @@ of which raises on failure:
    cut every gradient on the kernel route within 3e-2 in norm of the
    ``impl="torch"`` route, and a ``num_microbatches=2`` step at B=2 equal
    (1e-3 in norm) to the mean of its halves' float32 gradients; then
-   ``train()`` for 8 AdamW steps on one repeated batch (lr 1e-3, 2
+   ``train()`` for 6 AdamW steps on one repeated batch (lr 1e-3, 2
    warm-up steps): the loss falls by more than 0.5, two forward and one
    backward attention launches a layer a step; step ms, tokens/s, peak
    memory, and one profiled step's idle share and the backward kernel's
@@ -350,7 +350,37 @@ of which raises on failure:
    deepseek-v3's widths. Each part's time beside the
    meshless time, and the phase's launches of ``flash_attention``
    (forward and backward) and ``segment_sum``, which must be nonzero.
-   The script's total seconds are printed at the end.
+19. The last modules. (a) The dry-run CLI (``python -m
+   repro_torch.launch.dryrun``) on qwen3-4b ``train_4k`` (16x16),
+   deepseek-v3-671b ``decode_32k`` (2x16x16) and gin-tu
+   ``ogb_products`` (16x16), one process a cell (each its own fake
+   process group) started together from one shell subprocess, on the
+   host's cores while (b)-(d) run on the card: each record ``ok`` and
+   printed (analytic H100 figures, not measurements). (b) Three built
+   specs (``arch.build(shape, mesh)``) on ``make_test_mesh((1, 1))``
+   over NCCL, run once on arguments made on the card (the model's
+   seeded init, zero moments, a seeded batch to the spec's shapes with
+   ids in range; gin-tu on phase 11's ogb_products graph): gin-tu
+   ``ogb_products``, MACE ``molecule`` and xDeepFM ``train_batch``
+   (65,536 rows): the loss finite, ``segment_sum`` launched by the GNNs,
+   the step's wall ms, the argument bytes on the card against the dry
+   run's ``argument_size_in_bytes`` for the cell on (1, 1) (the
+   allocator's requested bytes equal, ``memory_allocated`` above them
+   by no more than its rounding), and the parameters moved as the
+   meshless ``make_train_step`` moves them from the same arguments: the
+   loss within ``BUILT_TOL`` and each parameter's update within
+   ``BUILT_TOL`` in norm. (c) The five examples
+   (``examples/torch_*.py``) in this process through ``main(argv)`` at
+   the reference's default arguments, each checking itself, with their
+   hand-kernel launches printed: the quickstart's ``edge_hook``,
+   ``pointer_jump`` and ``splitter_aggregate``, train_lm's
+   ``flash_attention`` and its backward's wmma design (float32, D = 32),
+   gnn_cora's ``segment_sum`` must be above 0 (serve_lm decodes token by
+   token, which runs no hand kernel; xDeepFM has none). (d) One traced
+   quickstart-sized CC call exported with ``export_chrome`` and
+   summarised by ``summarize --require cc.frontier``.
+   The script's total seconds are printed at the end, and each phase's
+   start.
 
 Every profile prints the host's launch calls beside the device records
 it kept, and is used only if it kept one for each (``device_share``).
@@ -364,10 +394,12 @@ result. It imports nothing of JAX or of the ``repro`` package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -4485,7 +4517,7 @@ def attention_bwd_times(dev, card: str, shape=ATTN_BWD_SHAPE, dv=None) -> tuple:
 
 TRAIN_LM_LAYERS = 36  # qwen3-4b's depth: all of it
 TRAIN_LM_S = 4096
-TRAIN_LM_STEPS = 8
+TRAIN_LM_STEPS = 6  # cut from 8 to fit phase 19 in the 1,200 s budget
 TRAIN_LM_LR = 1e-3
 TRAIN_CUT_LAYERS = 2  # the cut on which the two routes' gradients are held
 TRAIN_GRAD_TOL = 3e-2  # bf16 gradients of the two routes, per leaf in norm
@@ -5164,6 +5196,346 @@ def phase_sharded_train(dev, ogb: dict, card: str) -> dict:
     return {"counts": counts, "parts": parts, "secs": secs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the last modules -- the dry run, built specs, the examples
+# ---------------------------------------------------------------------------
+
+# (a) cells of the dry-run CLI: (arch, shape, mesh).
+DRYRUN_CELLS = (("qwen3-4b", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi"),
+                ("gin-tu", "ogb_products", "single"))
+# (b) built specs run on the card: (arch, shape).
+BUILT_CELLS = (("gin-tu", "ogb_products"), ("mace", "molecule"),
+               ("xdeepfm", "train_batch"))
+# The caching allocator rounds every block up to a multiple of this
+# (``allocator_slack``).
+ALLOC_ROUND = 512
+# the built step on (1, 1) against the meshless step: every collective a
+# copy, so only the order of float32 sums may differ (the CPU tests hold
+# the built steps on (2, 2) and (1, 2) at the same figure)
+BUILT_TOL = 1e-3
+# (c) the examples, each at the reference's default arguments, and the
+# hand kernels each must launch (torch_serve_lm decodes token by token,
+# which runs no hand kernel, and xDeepFM has none).
+EXAMPLES = (
+    ("torch_quickstart", (), ("edge_hook.sv2", "edge_hook.sv3", "pointer_jump",
+                              "splitter_aggregate")),
+    ("torch_serve_lm", (), ()),
+    ("torch_train_lm", ("--checkpoint-dir", None), ("flash_attention",
+                                                    "flash_attention.bwd.wmma")),
+    ("torch_gnn_cora", (), ("segment_sum",)),
+    ("torch_recsys_serving", (), ()),
+)
+
+
+def start_dryrun_cli():
+    """Phase 19 (a), started: the dry-run CLI on ``DRYRUN_CELLS`` from one
+    shell subprocess, the three cells at once (a fake process group is
+    process-wide and of one size, so each cell is its own process of the
+    CLI). It runs on the host's cores while (b)-(d) run on the card;
+    ``dryrun_cli`` waits for it."""
+    runs = " ".join(
+        f"{sys.executable} -m repro_torch.launch.dryrun --arch {a} --shape {s} "
+        f'--mesh {m} --json > "$tmp/{i}" 2>&1 & pids="$pids $!";'
+        for i, (a, s, m) in enumerate(DRYRUN_CELLS))
+    cat = " ".join(f'"$tmp/{i}"' for i in range(len(DRYRUN_CELLS)))
+    cmd = (f'tmp=$(mktemp -d); pids=""; {runs} rc=0; '
+           f'for p in $pids; do wait $p || rc=1; done; '
+           f'for f in {cat}; do tail -n 1 "$f"; done; rm -rf "$tmp"; exit $rc')
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(["bash", "-c", cmd], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    return proc, time.perf_counter()
+
+
+def dryrun_cli(started, card: str) -> list:
+    """Phase 19 (a), finished: each record printed, and each must be
+    ``ok``."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    proc = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dry-run CLI failed: {proc.stderr[-3000:]}")
+    recs = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    check(len(recs) == len(DRYRUN_CELLS), f"dry-run CLI printed {len(recs)} records")
+    for (a, s, m), rec in zip(DRYRUN_CELLS, recs):
+        check((rec["arch"], rec["shape"], rec["mesh"], rec["status"]) == (a, s, m, "ok"),
+              f"dry-run record {rec}")
+        roof = rec["roofline"]
+        print(f"dryrun {a} {s} {m}: chips={rec['chips']} lower_s={rec['lower_s']} "
+              f"bottleneck={roof['bottleneck']} compute_s={roof['compute_s']} "
+              f"memory_s={roof['memory_s']} collective_s={roof['collective_s']} "
+              f"memory_per_device={roof['memory_per_device']} "
+              f"collective_bytes={roof['collectives']['bytes_by_op']} "
+              f"(analytic H100 figures, not measurements) [{card}]")
+        print(f"dryrun record: {json.dumps(rec)}")
+    print(f"dryrun CLI: {len(recs)} cells in one subprocess, wall_s={secs} (beside "
+          f"(b)-(d) on the card) [{card}]")
+    return recs
+
+
+def built_inputs(arch, shape: str, spec, dev, ogb: dict):
+    """The arguments of a built spec made on the card: the model's own
+    init (seeded), zero AdamW moments, and the batch from a seeded
+    generator to the spec's shapes with ids in range (destinations and
+    graph ids sorted, as the data pipeline gives them; no self-loops);
+    gin-tu's graph is phase 11's ogb_products."""
+    import torch
+
+    from repro_torch.configs.gnn_family import GNN_SHAPES
+    from repro_torch.train.optimizer import init_opt_state
+
+    gen = torch.Generator(dev).manual_seed(19)
+    if arch.family == "gnn":
+        cfg = arch.config_for(shape)
+        params = arch.module.init_params(cfg, device=dev, generator=gen)
+        info = GNN_SHAPES[shape]
+        n, graphs = info["n"], info.get("graphs", 1)
+        batch = {}
+        for key, leaf in spec.args[2].items():
+            if key in ogb and shape == "ogb_products":
+                batch[key] = torch.from_numpy(np.ascontiguousarray(ogb[key])).to(
+                    dev, leaf.dtype)
+            elif key == "dst":
+                batch[key] = torch.sort(torch.randint(0, n, leaf.shape, generator=gen,
+                                                      device=dev))[0].to(leaf.dtype)
+            elif key == "graph_ids":
+                batch[key] = torch.sort(torch.randint(0, graphs, leaf.shape, generator=gen,
+                                                      device=dev))[0].to(leaf.dtype)
+            elif key == "species":
+                batch[key] = torch.randint(0, getattr(cfg, "num_species", 10), leaf.shape,
+                                           generator=gen,
+                                           device=dev).to(leaf.dtype)
+            elif key == "labels" and not leaf.dtype.is_floating_point:
+                batch[key] = torch.randint(0, cfg.num_classes, leaf.shape, generator=gen,
+                                           device=dev).to(leaf.dtype)
+            elif leaf.dtype.is_floating_point:
+                batch[key] = torch.randn(leaf.shape, generator=gen, device=dev)
+            else:
+                batch[key] = None  # src, after dst
+        if batch.get("src") is None:
+            hop = torch.randint(1, n, batch["dst"].shape, generator=gen, device=dev)
+            batch["src"] = ((batch["dst"].long() + hop) % n).to(torch.int32)
+        batch = {k: batch[k] for k in spec.args[2]}
+        return params, init_opt_state(params, arch.opt_config()), batch
+    from repro_torch.models.recsys import xdeepfm as xm
+
+    cfg = arch.config
+    params = xm.init_params(cfg, device=dev, generator=gen)
+    leaf = spec.args[2]["sparse_ids"]
+    batch = {"sparse_ids": torch.randint(0, cfg.vocab_per_field, leaf.shape,
+                                         generator=gen, device=dev).to(leaf.dtype),
+             "labels": torch.randint(0, 2, spec.args[2]["labels"].shape,
+                                     generator=gen, device=dev).to(torch.int32)}
+    return params, init_opt_state(params, arch.opt_config()), batch
+
+
+def meshless_step(arch, shape: str, params, batch):
+    """One ``make_train_step`` of ``arch``'s meshless loss from
+    ``params`` (moved in place) on the whole batch; returns the loss."""
+    from repro_torch.configs.gnn_family import GNN_SHAPES
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+
+    if arch.family == "gnn":
+        cfg = arch.config_for(shape)
+        graphs = GNN_SHAPES[shape].get("graphs", 1)
+
+        def loss(p, g):
+            return arch.module.loss_fn(p, cfg, dict(g, num_graphs=graphs))
+    else:
+        from repro_torch.models.recsys import xdeepfm as xm
+
+        def loss(p, b):
+            return xm.loss_fn(p, arch.config, b)
+    opt_cfg = arch.opt_config()
+    step = make_train_step(loss, opt_cfg)
+    _, _, _, metrics = step(params, init_opt_state(params, opt_cfg), None, batch)
+    return float(metrics["loss"])
+
+
+def allocator_slack(tree) -> int:
+    """The most bytes the caching allocator can hold beyond an argument
+    tree's own: each block is its size rounded up to ``ALLOC_ROUND``, and
+    a block over 1 MiB also keeps the rest of its segment when that rest
+    is 1 MiB or less (it is not split off)."""
+    return sum(ALLOC_ROUND - 1 + (1 << 20 if t.numel() * t.element_size() > 1 << 20 else 0)
+               for t in _tensors(tree))
+
+
+def built_specs(dev, ogb: dict, card: str) -> dict:
+    """Phase 19 (b): each of ``BUILT_CELLS``' specs, built for a (1, 1)
+    mesh over NCCL, run once on arguments made on the card: the loss
+    finite, ``segment_sum`` launched by the GNNs, the step's wall ms,
+    and the bytes the arguments take on the card against the dry run's
+    per-rank argument bytes for the same cell: the allocator's requested
+    bytes equal to the byte, and ``memory_allocated`` above them by no
+    more than its rounding (``allocator_slack``); and the loss and each
+    parameter's update against ``meshless_step`` from the same
+    arguments, within ``BUILT_TOL``."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import bytes_per_rank, shard_args
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh((1, 1))
+    counts = {}
+    for name, shape in BUILT_CELLS:
+        arch = get_arch(name)
+        spec = arch.build(shape, mesh)
+        dry = bytes_per_rank(spec.args, spec.in_specs, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        asked = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        args = built_inputs(arch, shape, spec, dev, ogb)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        asked = torch.cuda.memory_stats()["requested_bytes.all.current"] - asked
+        check(bytes_per_rank(args, spec.in_specs, mesh) == dry,
+              f"{name} {shape}: the made arguments are the spec's shapes")
+        check(asked == dry, f"{name} {shape}: requested {asked} != the dry run's {dry}")
+        slack = allocator_slack(args)
+        check(0 <= held - dry <= slack,
+              f"{name} {shape}: allocated {held} not within the allocator's rounding "
+              f"({slack} bytes) of the dry run's {dry}")
+        # the meshless step's parameters, apart (on (1, 1) the blocks are
+        # views of the arguments, which the built step moves)
+        ref = copy.deepcopy(args[0])
+        start = {n: p.detach().clone() for n, p in args[0].named_parameters()}
+        local = shard_args(args, spec.in_specs, mesh)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with mesh:
+            _, _, loss = spec.fn(*local)
+        loss = float(loss)
+        secs = time.perf_counter() - t0
+        launched = dict(launch_counts)
+        check(math.isfinite(loss), f"{name} {shape}: loss {loss}")
+        want = meshless_step(arch, shape, ref, args[2])
+        moved = dict(ref.named_parameters())
+        errs = {n: float((p.detach() - moved[n].detach()).norm()
+                         / (moved[n].detach() - start[n]).norm().clamp_min(1e-30))
+                for n, p in local[0].named_parameters()}
+        worst = max(errs, key=errs.get)
+        loss_err = abs(loss - want) / max(abs(want), 1e-30)
+        check(loss_err <= BUILT_TOL, f"{name} {shape}: loss {loss} against the meshless {want}")
+        check(errs[worst] <= BUILT_TOL,
+              f"{name} {shape}: {worst} moved {errs[worst]} in norm from the meshless step")
+        del ref, start, moved
+        if arch.family == "gnn":
+            check(launched["segment_sum"] > 0, f"{name} {shape}: {launched}")
+        for k, v in launched.items():
+            counts[k] = counts.get(k, 0) + v
+        print(f"built {name} {shape} on mesh (1, 1) NCCL: loss={loss} step_ms={secs * 1e3} "
+              f"segment_sum_launches={launched['segment_sum']} "
+              f"memory_allocated={held} requested_bytes={asked} "
+              f"dryrun_argument_size_in_bytes={dry} (allocated - dry run = "
+              f"{held - dry} bytes of rounding over {len(_tensors(args))} "
+              f"tensors, at most {slack}); against the meshless step: loss {want} "
+              f"(rel_err {loss_err}), parameter updates in norm worst {errs[worst]} "
+              f"({worst}) of {len(errs)} leaves [{card}]")
+        del args, local
+    return counts
+
+
+def _tensors(tree):
+    import torch
+
+    from repro_torch.train.tree import leaves
+
+    return [x for x in leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def run_examples(card: str) -> dict:
+    """Phase 19 (c): the five examples in this process through their
+    ``main(argv)`` at the reference's default arguments on the card
+    (each checks itself); each one's hand-kernel launches counted from 0
+    and printed, those ``EXAMPLES`` names above 0."""
+    import importlib.util
+    import tempfile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    counts = {}
+    for name, argv, needs in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with tempfile.TemporaryDirectory() as tmp:
+            args = [tmp if a is None else a for a in argv]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            mod.main(list(args))
+            secs = time.perf_counter() - t0
+        launched = {k: v for k, v in launch_counts.items() if v}
+        for k in needs:
+            check(launched.get(k, 0) > 0, f"{name} launched {k}: {launched}")
+        for k, v in launched.items():
+            counts[k] = counts.get(k, 0) + v
+        print(f"example {name} {' '.join(args)}: wall_s={secs} launches={launched} [{card}]")
+    return counts
+
+
+def traced_quickstart(dev, card: str) -> dict:
+    """Phase 19 (d): one traced ``torch_quickstart``-sized CC call,
+    exported with ``export_chrome`` and summarised with ``summarize
+    --require cc.frontier``; returns its launches."""
+    import tempfile
+
+    from repro_torch.core import connected_components
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import summarize, trace
+    from repro_torch.ops.kiss import random_forest
+
+    n = 500_000
+    edges = random_forest(n, num_components=40, seed=3)
+    trace.configure(trace="on")
+    trace.reset()
+    reset_launch_counts()
+    try:
+        labels, _ = connected_components(edges[:, 0], edges[:, 1], n, device=dev)
+        launched = {k: v for k, v in launch_counts.items() if v}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/cc_trace.json"
+            events = trace.export_chrome(path)
+            rc = summarize.main([path, "--require", "cc.frontier"])
+    finally:
+        trace.configure(trace="off")
+        trace.reset()
+    check(rc == 0, "summarize --require cc.frontier failed")
+    check(int(labels.unique().numel()) == 40, "the traced CC call's components")
+    check(launched.get("edge_hook.sv2", 0) > 0, f"the traced CC call's launches {launched}")
+    print(f"traced cc n={n}: {events} events exported, summarize --require "
+          f"cc.frontier rc={rc}, launches={launched} [{card}]")
+    return launched
+
+
+def phase_slice16(dev, ogb: dict, card: str) -> dict:
+    """Phase 19: (a)-(d) of the module docstring. Returns the launches of
+    (b)-(d) by kernel and the phase's seconds."""
+    t0 = time.perf_counter()
+    started = start_dryrun_cli()
+    try:
+        counts = built_specs(dev, ogb, card)
+        for part in (run_examples(card), traced_quickstart(dev, card)):
+            for k, v in part.items():
+                counts[k] = counts.get(k, 0) + v
+    finally:
+        recs = dryrun_cli(started, card)
+    secs = time.perf_counter() - t0
+    print(f"slice 16 phase 19 launches={counts} phase_s={secs} [{card}]")
+    return {"counts": counts, "secs": secs, "dryrun": recs}
+
+
 def main() -> int:
     import torch
 
@@ -5178,6 +5550,9 @@ def main() -> int:
 
     dev = torch.device("cuda")
     start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        print(f"phase {phase} starts at_s={time.perf_counter() - start}", flush=True)
     # Float32 products in full float32 (no TF32), for the plain versions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5220,6 +5595,7 @@ def main() -> int:
         print(f"{name} graph: m/n={len(edges) / n} numpy propagation "
               f"count={counts[name]} host_s={time.perf_counter() - t0}")
 
+    stamp("2")
     # Phase 2: kernels against their plain versions.
     errs, hook_inputs, pj_inputs, agg_inputs = phase_kernels(
         dev, graphs, LIST_N, SPLITTERS, POINTER_JUMP_BIG_P, "cuda")
@@ -5231,6 +5607,7 @@ def main() -> int:
     phase_segment_ops(dev)
     moe_combine_err = phase_segment_sum_moe(dev)
 
+    stamp("3")
     # Phases 3 and 4: the main path, launches counted from 0 in each run.
     check_sample_table(dev, dense[:, 0], dense[:, 1], CC_DENSE_N,
                        AUTO_SAMPLE_ROUNDS)
@@ -5243,6 +5620,7 @@ def main() -> int:
     ], wall_s)
     list_counts, list_secs, walk_share = phase_list(dev, LIST_N, wall_s)
 
+    stamp("5")
     # Phase 5: times.
     times = kernel_times(hook_inputs, pj_inputs, agg_inputs, SPLITTERS,
                          POINTER_JUMP_BIG_P, "cuda")
@@ -5267,35 +5645,42 @@ def main() -> int:
     torch.cuda.empty_cache()
     ss_times = segment_sum_times(dev, ogb["dst"])
 
+    stamp("6")
     # Phases 6-10: the LM.
     lm = phase_lm(dev)
     launches["flash_attention"] = lm["counts"]["flash_attention"]
 
+    stamp("11")
     # Phase 11: GNN inference, launches counted from 0 in each cell.
     gnn = phase_gnn(dev, ogb)
     launches["segment_sum"] = sum(cell[-1] for cell in gnn.values())
 
+    stamp("12")
     # Phase 12: graph analytics, launches counted from 0 in each checked run.
     ga = phase_graph_analytics(dev, rand, CC_RANDOM_N, sssp_w, wall_s)
     launches["ordered_fold"] = ga["pagerank"][2]
 
+    stamp("13")
     # Phase 13: graph serving, launches counted over the served streams.
     serving = phase_serve_graphs(dev, card)
     for name, count in serving["launches"].items():
         launches[name] = launches.get(name, 0) + count
 
+    stamp("14")
     # Phase 14: the sharded graph engine over NCCL at world size 1,
     # launches counted over its checked runs.
     sharded = phase_sharded(dev, card, list_secs)
     for name, count in sharded["launches"].items():
         launches[name] = launches.get(name, 0) + count
 
+    stamp("15")
     # Phase 15: the rest of GNN and RecSys inference, launches counted
     # from 0 in each cell.
     slice11 = phase_slice11(dev, ogb, minibatch, molecules, slice11_cases)
     del minibatch, molecules, slice11_cases
     launches["segment_sum"] += sum(cell["launches"] for cell in slice11["cells"])
 
+    stamp("16")
     # Phase 16: MoE, MLA and the MTP head, launches counted from 0 in each
     # model's timed prefill (and the MTP call).
     moe = phase_moe(dev, card)
@@ -5304,6 +5689,7 @@ def main() -> int:
             launches[name] += cell["counts"][name]
     launches["flash_attention"] += moe["cells"]["deepseek-v3-671b"]["mtp_launches"]
 
+    stamp("17")
     # Phase 17: single-device training; launches counted from 0 in each
     # train() run.
     t17 = time.perf_counter()
@@ -5315,10 +5701,19 @@ def main() -> int:
     train_gnn = phase_train_gnn(dev, ogb, card)
     train_secs = time.perf_counter() - t17
 
+    stamp("18")
     # Phase 18: sharded training over NCCL at world size 1; launches
     # counted from 0 in each part's mesh run.
     sharded_train = phase_sharded_train(dev, ogb, card)
+    stamp("19")
+
+    # Phase 19: the last modules; launches counted from 0 in each built
+    # step, each example and the traced CC call.
+    slice16 = phase_slice16(dev, ogb, card)
     del ogb
+    for name, count in slice16["counts"].items():
+        if name in launches:
+            launches[name] += count
     launches["flash_attention"] += train_lm["counts"]["flash_attention"]
     launches["segment_sum"] += train_gnn["counts"]["segment_sum"]
     launches["segment_sum"] += sharded_train["counts"].get("segment_sum", 0)
@@ -5412,7 +5807,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": KERNELS["flash_attention"][1],
-            "launches": launched[name] + sharded_train["counts"].get(name, 0),
+            "launches": (launched[name] + sharded_train["counts"].get(name, 0)
+                         + slice16["counts"].get(name, 0)),
             "max_abs_err": bwd_errs[design], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms,
         })
@@ -5532,6 +5928,7 @@ def main() -> int:
         print(f"e2e sharded train {label} (mesh (1, 1), NCCL): mesh_s={part['mesh_s']} "
               f"meshless_s={part['plain_s']} [{card}]")
     print(f"e2e sharded train phase_s={sharded_train['secs']} [{card}]")
+    print(f"e2e slice 16 phase_s={slice16['secs']} [{card}]")
     print(f"chip_smoke total_s={time.perf_counter() - start}")
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": records}))

@@ -1,24 +1,22 @@
 """Architecture registry of the port: ``get_arch(name)`` under the names
 of ``repro.configs``.
 
-Every language model is ported: the three dense GQA/MQA/MHA ones,
-mixtral-8x7b (MoE, sliding window) and deepseek-v3-671b (MoE, MLA, the
-MTP head); each returns an ``Arch`` with the full-width ``config`` and
-the small ``smoke_config`` of the reference. The GNNs gin-tu, gat-cora,
-egnn and mace return a ``GNNArch`` (``configs/gnn_family.py``), whose
-``config_for(shape)`` sizes the model for one of ``GNN_SHAPES``; their
-forwards aggregate with the ``segment_sum`` kernel. xdeepfm returns a ``RecsysArch``
-(``configs/recsys_family.py``). The reference's dry-run plumbing
-(``LMArch.build``, ``GNNArch.build``, ``RecsysArch.build``,
-``DryRunSpec``, the mesh shapes) is launch work and waits for ROADMAP
-queue 1, item 17.
+Every architecture is ported. The five language models (the three dense
+GQA/MQA/MHA ones, mixtral-8x7b with MoE and a sliding window,
+deepseek-v3-671b with MoE, MLA and the MTP head) return an ``LMArch``
+(``configs/lm_family.py``) with the full-width ``config`` and the small
+``smoke_config`` of the reference. The GNNs gin-tu, gat-cora, egnn and
+mace return a ``GNNArch`` (``configs/gnn_family.py``), whose
+``config_for(shape)`` sizes the model for one of ``GNN_SHAPES``. xdeepfm
+returns a ``RecsysArch`` (``configs/recsys_family.py``). Each has
+``shapes()``, ``skip_reason(shape)`` and ``build(shape, mesh)``, the
+``DryRunSpec`` that ``launch/dryrun.py`` runs.
 """
 from __future__ import annotations
 
 import importlib
-from dataclasses import dataclass
 
-from repro_torch.models.transformer.config import TransformerConfig
+from repro_torch.configs.lm_family import LMArch
 
 _ARCH_MODULES = {
     "gemma-2b": "repro_torch.configs.gemma_2b",
@@ -39,22 +37,23 @@ ARCH_NAMES = [
 ]
 
 
-@dataclass(frozen=True)
-class Arch:
-    """One language-model architecture: its published width and the
-    small configuration the tests run."""
-
-    name: str
-    config: TransformerConfig
-    smoke_config: TransformerConfig
+# The name earlier slices gave the LM entries.
+Arch = LMArch
 
 
 def get_arch(name: str):
-    """The ``Arch`` of a language model, the ``GNNArch`` of a GNN or the
+    """The ``LMArch`` of a language model, the ``GNNArch`` of a GNN or the
     ``RecsysArch`` of xdeepfm."""
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
-    mod = importlib.import_module(_ARCH_MODULES[name])
-    if hasattr(mod, "ARCH"):
-        return mod.ARCH
-    return Arch(name=name, config=mod.CONFIG, smoke_config=mod.SMOKE_CONFIG)
+    return importlib.import_module(_ARCH_MODULES[name]).ARCH
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """All 40 (arch, shape) cells."""
+    cells = []
+    for name in ARCH_NAMES:
+        arch = get_arch(name)
+        for shape in arch.shapes():
+            cells.append((name, shape))
+    return cells

@@ -8,6 +8,7 @@ a mesh whose EP axes span more than one rank).
 """
 import os
 
+from repro_torch.configs.lm_family import LMArch
 from repro_torch.models.transformer.config import MoEConfig, TransformerConfig
 
 # REPRO_OPT_LEVEL=0 -> bf16 dispatch; the default names the fp8 dispatch.
@@ -65,4 +66,12 @@ SMOKE_CONFIG = TransformerConfig(
     mtp_depth=1,
     dtype="float32",
     remat=False,
+)
+
+ARCH = LMArch(
+    name="deepseek-v3-671b",
+    config=CONFIG,
+    smoke_config=SMOKE_CONFIG,
+    train_microbatches=8,
+    moment_dtype="bfloat16",
 )

@@ -1,5 +1,6 @@
 """gemma-2b [arXiv:2403.08295]: 18L d=2048 8H MQA(kv=1) d_ff=16384
 vocab=256000, GeGLU, head_dim=256, tied embeddings, sqrt(d) embed scale."""
+from repro_torch.configs.lm_family import LMArch
 from repro_torch.models.transformer.config import TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -32,3 +33,5 @@ SMOKE_CONFIG = TransformerConfig(
     dtype="float32",
     remat=False,
 )
+
+ARCH = LMArch(name="gemma-2b", config=CONFIG, smoke_config=SMOKE_CONFIG)

@@ -1,7 +1,24 @@
-"""The LM family's layout on a mesh: the port of ``lm_path_rules`` and
-``_cache_specs`` of ``repro/configs/lm_family.py``. The shapes table and
-``LMArch.build`` (the dry-run plumbing) wait for ROADMAP queue 1, item
-17.
+"""LM-family dry-run/arch plumbing shared by the five LM configs: the
+port of ``repro/configs/lm_family.py``.
+
+Shapes (per assignment):
+  train_4k     seq 4096,   global_batch 256   (train_step)
+  prefill_32k  seq 32768,  global_batch 32    (serve prefill forward)
+  decode_32k   seq 32768,  global_batch 128   (serve_step, KV cache)
+  long_500k    seq 524288, global_batch 1     (serve_step; SWA archs only)
+
+REPRO_OPT_LEVEL=0 gives the reference's baseline schedules; the default
+(1) its optimisations, read at the same places: the dense LMs train in
+2 microbatches instead of 8, each microbatch's gradients are
+reduce-scattered into the moments' ZeRO layout instead of all-reduced
+whole, and deepseek-v3's dispatch all-to-all carries fp8
+(``configs/deepseek_v3.py``).
+
+``LMArch.build`` gives the ``DryRunSpec`` of one cell: meta-device
+parameters (one module per layer) with their specs, and a step that runs
+on one rank's blocks (``configs/common.py::shard_args``). The reference
+passes ``ShardingRules().for_mesh(mesh)`` to its model; the port's LM
+has one layout, ``LM_RULES`` fitted to the mesh, which is that.
 
 ``lm_path_rules`` names the reference's parameter paths (for example
 ``dense_layers/attn/wq``, stacked along axis 0 for ``lax.scan``).
@@ -16,10 +33,27 @@ replicated.
 from __future__ import annotations
 
 import math
+import os
+from dataclasses import dataclass
 
+from repro_torch.configs.common import (
+    DryRunSpec,
+    ShardedUpdate,
+    dp_axes,
+    meta,
+    zero_spec_tree,
+)
 from repro_torch.distributed.sharding import PathRules, normalize
+from repro_torch.launch import perfmodel as pm
 from repro_torch.models.transformer.config import TransformerConfig
 from repro_torch.train.elastic import fit_spec
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
 
 
 def lm_path_rules(cfg: TransformerConfig, mesh) -> PathRules:
@@ -62,16 +96,12 @@ def lm_path_rules(cfg: TransformerConfig, mesh) -> PathRules:
     return PathRules(rules)
 
 
-def _dp_axes(mesh) -> tuple[str, ...]:
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-
-
 def _cache_specs(cfg: TransformerConfig, cache_abs, mesh, batch: int):
     """Cache sharding: batch over (pod, data) when divisible, then kv-heads
     over model when divisible, else the sequence dim over model.
     ``cache_abs``: a tree of dicts whose leaves have ``.shape`` (the full
     stacked caches of ``init_kv_cache``)."""
-    dp = _dp_axes(mesh)
+    dp = dp_axes(mesh)
     dp_size = math.prod(mesh.shape[a] for a in dp) if dp else 1
     batch_dim = dp if (dp and batch % dp_size == 0 and batch >= dp_size) else None
     msize = mesh.shape.get("model", 1)
@@ -165,3 +195,150 @@ def lm_param_specs(params, cfg: TransformerConfig, mesh) -> dict:
     if missing:
         raise ValueError(f"{cfg.name}: no spec for {sorted(missing)}")
     return specs
+
+
+def _batch_spec(dp: tuple) -> tuple:
+    return normalize((dp if dp else None, None))
+
+
+@dataclass
+class LMArch:
+    name: str
+    config: TransformerConfig
+    smoke_config: TransformerConfig
+    sub_quadratic: bool = False  # SWA/SSM/linear-attn -> can run long_500k
+    train_microbatches: int = 8
+    moment_dtype: str = "float32"
+    family: str = "lm"
+
+    def shapes(self):
+        return list(LM_SHAPES)
+
+    def skip_reason(self, shape: str) -> str | None:
+        if shape == "long_500k" and not self.sub_quadratic:
+            return (
+                "full quadratic attention; 500k-token decode excluded per "
+                "assignment (run only for SSM/hybrid/sliding-window archs)"
+            )
+        return None
+
+    def opt_config(self):
+        """The AdamW settings of ``build``'s train step."""
+        from repro_torch.train.optimizer import AdamWConfig
+
+        return AdamWConfig(moment_dtype=self.moment_dtype)
+
+    def microbatches(self) -> int:
+        """The train step's microbatches under ``REPRO_OPT_LEVEL``."""
+        nmb = self.train_microbatches
+        if int(os.environ.get("REPRO_OPT_LEVEL", "1")) and self.config.moe is None:
+            # dense LMs fit larger microbatches; fewer accumulation
+            # rounds = fewer cross-replica gradient reductions
+            nmb = min(nmb, 2)
+        return nmb
+
+    # ------------------------------------------------------------------
+    def build(self, shape: str, mesh) -> DryRunSpec:
+        """The cell's spec on ``mesh`` (see the module docstring)."""
+        import torch
+
+        from repro_torch.distributed.sharding import LM_RULES
+        from repro_torch.models.transformer.model import (
+            KVCache,
+            init_kv_cache,
+            init_params,
+            loss_fn,
+            serve_step,
+        )
+        from repro_torch.models.transformer.model import forward as lm_forward
+        from repro_torch.train.loop import make_train_step
+        from repro_torch.train.optimizer import init_opt_state
+
+        info = LM_SHAPES[shape]
+        cfg = self.config
+        params = init_params(cfg, device="meta")
+        pspecs = lm_param_specs(params, cfg, mesh)
+        batch, seq = info["batch"], info["seq"]
+        dp = dp_axes(mesh)
+        n_active = cfg.active_params()
+        chips = math.prod(mesh.shape.values())
+
+        if info["kind"] == "train":
+            opt_cfg = self.opt_config()
+            opt = init_opt_state(params, opt_cfg)
+            mspecs = zero_spec_tree(pspecs, params, mesh, dp)
+            ospecs = {"step": (), "m": mspecs, "v": mspecs}
+            batch_abs = {
+                "tokens": meta((batch, seq), torch.int32),
+                "labels": meta((batch, seq), torch.int32),
+            }
+            bspecs = {"tokens": _batch_spec(dp), "labels": _batch_spec(dp)}
+            opt_level = int(os.environ.get("REPRO_OPT_LEVEL", "1"))
+            nmb = self.microbatches()
+
+            def loss_of(p, b):
+                return loss_fn(p, cfg, b, mesh=mesh, rules=LM_RULES, batch_axes=dp)
+
+            step = make_train_step(
+                loss_of, opt_cfg, num_microbatches=nmb,
+                sharded=ShardedUpdate(mesh, pspecs, mspecs, dp, zero=bool(opt_level)))
+
+            def train_step(params, opt_state, b):
+                params, opt_state, _, metrics = step(params, opt_state, None, b)
+                return params, opt_state, metrics["loss"]
+
+            return DryRunSpec(
+                fn=train_step,
+                args=(params, opt, batch_abs),
+                in_specs=(pspecs, ospecs, bspecs),
+                donate_argnums=(0, 1),
+                model_flops_total=6.0 * n_active * batch * seq,
+                flops_total=pm.lm_train_flops(cfg, batch, seq),
+                hbm_bytes_per_device=pm.lm_train_bytes_per_device(
+                    cfg, batch, seq, chips,
+                    moment_dtype=self.moment_dtype, microbatches=nmb,
+                ),
+                note=f"microbatches={nmb} moment_dtype={self.moment_dtype}",
+            )
+
+        if info["kind"] == "prefill":
+            batch_abs = meta((batch, seq), torch.int32)
+
+            def fwd(params, tokens):
+                return lm_forward(params, cfg, tokens, mesh=mesh, batch_axes=dp)
+
+            return DryRunSpec(
+                fn=fwd,
+                args=(params, batch_abs),
+                in_specs=(pspecs, _batch_spec(dp)),
+                model_flops_total=2.0 * n_active * batch * seq,
+                flops_total=pm.lm_prefill_flops(cfg, batch, seq),
+                hbm_bytes_per_device=pm.lm_prefill_bytes_per_device(
+                    cfg, batch, seq, chips
+                ),
+            )
+
+        # decode
+        cache_abs = init_kv_cache(cfg, batch, seq, device="meta")
+        cspecs = _cache_specs(cfg, cache_abs, mesh, batch)
+        dp_size = math.prod(mesh.shape[a] for a in dp) if dp else 1
+        bdim = dp if (dp and batch % dp_size == 0 and batch >= dp_size) else None
+        tok_abs = meta((batch, 1), torch.int32)
+
+        def step(params, cache, tokens):
+            cache = KVCache(cache, cspecs, tuple(bdim or ()), mesh)
+            return serve_step(params, cfg, cache, tokens, seq - 1, mesh=mesh,
+                              batch_axes=tuple(bdim or ()))
+
+        return DryRunSpec(
+            fn=step,
+            args=(params, cache_abs, tok_abs),
+            in_specs=(pspecs, cspecs, normalize((bdim, None))),
+            donate_argnums=(1,),
+            model_flops_total=2.0 * n_active * batch,
+            flops_total=pm.lm_decode_flops(cfg, batch, seq),
+            hbm_bytes_per_device=pm.lm_decode_bytes_per_device(
+                cfg, batch, seq, chips
+            ),
+            note="one decode token against a seq_len KV cache",
+        )

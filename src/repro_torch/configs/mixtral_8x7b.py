@@ -5,6 +5,7 @@ The window keeps the decode cache a 4096-row ring buffer however long
 the sequence runs; the prefill runs it through the ``flash_attention``
 kernel's window mask.
 """
+from repro_torch.configs.lm_family import LMArch
 from repro_torch.models.transformer.config import MoEConfig, TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -42,4 +43,13 @@ SMOKE_CONFIG = TransformerConfig(
     moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=32),
     dtype="float32",
     remat=False,
+)
+
+ARCH = LMArch(
+    name="mixtral-8x7b",
+    config=CONFIG,
+    smoke_config=SMOKE_CONFIG,
+    sub_quadratic=True,  # SWA
+    train_microbatches=4,
+    moment_dtype="bfloat16",
 )

@@ -1,5 +1,6 @@
 """phi3-mini-3.8b [arXiv:2404.14219]: 32L d=3072 32H GQA(kv=32) d_ff=8192
 vocab=32064, RoPE + SwiGLU (MHA: kv == q heads)."""
+from repro_torch.configs.lm_family import LMArch
 from repro_torch.models.transformer.config import TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -27,3 +28,5 @@ SMOKE_CONFIG = TransformerConfig(
     dtype="float32",
     remat=False,
 )
+
+ARCH = LMArch(name="phi3-mini-3.8b", config=CONFIG, smoke_config=SMOKE_CONFIG)

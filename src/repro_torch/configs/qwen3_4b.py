@@ -1,5 +1,6 @@
 """qwen3-4b [hf:Qwen/Qwen3-8B family]: 36L d=2560 32H GQA(kv=8) d_ff=9728
 vocab=151936, qk-norm, head_dim=128."""
+from repro_torch.configs.lm_family import LMArch
 from repro_torch.models.transformer.config import TransformerConfig
 
 CONFIG = TransformerConfig(
@@ -29,3 +30,5 @@ SMOKE_CONFIG = TransformerConfig(
     dtype="float32",
     remat=False,
 )
+
+ARCH = LMArch(name="qwen3-4b", config=CONFIG, smoke_config=SMOKE_CONFIG)

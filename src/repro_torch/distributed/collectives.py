@@ -29,17 +29,58 @@ Two conventions, one per kind of axis:
 the reverse exchange under either convention. Every collective runs on
 the group ``mesh.group(axes)``, also when it has one rank, and a
 failure in it raises.
+
+Inside ``with count_traffic() as t:`` each collective also adds its
+result's bytes and one call to ``t`` under the reference's HLO op name
+(``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``):
+what the dry run's roofline reads (``launch/roofline.py``). ``chunk``
+sends nothing and counts nothing.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+# The open traffic counters (innermost last); empty when none is open.
+_TRAFFIC: list = []
+
+
+class Traffic:
+    """Bytes and calls per collective op, as the dry run counts them."""
+
+    def __init__(self):
+        self.bytes_by_op: dict[str, int] = {}
+        self.count_by_op: dict[str, int] = {}
+
+    def add(self, op: str, x: torch.Tensor) -> None:
+        n = x.numel() * x.element_size()
+        self.bytes_by_op[op] = self.bytes_by_op.get(op, 0) + n
+        self.count_by_op[op] = self.count_by_op.get(op, 0) + 1
+
+
+@contextlib.contextmanager
+def count_traffic():
+    """Count every collective the block sends (see the module docstring)."""
+    t = Traffic()
+    _TRAFFIC.append(t)
+    try:
+        yield t
+    finally:
+        _TRAFFIC.remove(t)
+
+
+def _count(op: str, result: torch.Tensor) -> None:
+    if _TRAFFIC:
+        _TRAFFIC[-1].add(op, result)
 
 
 def all_reduce(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``x`` reduced over ``axes``, as a new tensor (no autograd)."""
     y = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=op, group=mesh.group(axes))
+    _count("all-reduce", y)
     return y
 
 
@@ -50,7 +91,24 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=mesh.group(axes))
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    _count("all-gather", out)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The sum of ``x`` over ``axes``, of which this rank keeps its block
+    along ``dim`` (a tiled ``psum_scatter``; no autograd)."""
+    n = mesh.axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(
+            f"dim {dim} of {tuple(x.shape)} does not divide over {axes} = {n}")
+    send = x.detach().movedim(dim, 0).contiguous()
+    out = torch.empty((send.shape[0] // n,) + tuple(send.shape[1:]),
+                      dtype=send.dtype, device=send.device)
+    dist.reduce_scatter_tensor(out, send, group=mesh.group(axes))
+    _count("reduce-scatter", out)
+    return out.movedim(0, dim)
 
 
 def chunk(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
@@ -82,6 +140,7 @@ def exchange(x: torch.Tensor, mesh, axes, split_dim: int,
     dist.all_to_all_single(recv, send, group=mesh.group(axes))
     if recv.dtype != x.dtype:
         recv = recv.view(x.dtype)
+    _count("all-to-all", recv)
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 

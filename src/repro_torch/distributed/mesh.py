@@ -14,7 +14,10 @@ same order on every rank, when the mesh is built.
 A mesh spans the whole default group. With no group started, a mesh of
 one rank starts a one-rank group from an in-memory store (no network):
 NCCL for the card, gloo for ``device="cpu"``. A group whose backend
-cannot serve the mesh's device raises.
+cannot serve the mesh's device raises. A mesh on ``device="meta"`` runs
+on torch's ``fake`` backend only, whose collectives return at once and
+move nothing: the dry run (``launch/dryrun.py``) starts such a group of
+the production mesh's size in its own process.
 
 ``with mesh:`` makes the mesh the active one, which the edge-sharded
 segment reductions (``ops/segment.py``) read to resolve their axis
@@ -37,6 +40,8 @@ _GROUPS: dict = {}
 
 
 def _backend_for(device: torch.device) -> str:
+    if device.type == "meta":
+        return "fake"
     return "nccl" if device.type == "cuda" else "gloo"
 
 

@@ -230,6 +230,15 @@ def gather_tree(tree, specs, mesh):
     return tree_map(lambda x, s: gather_tensor(x.detach(), s, mesh), tree, specs)
 
 
+def replicated_axes(spec, mesh, axes) -> tuple:
+    """Those of ``axes`` (in mesh order) along which ``spec`` leaves a
+    leaf replicated: where work split over them meets the leaf, its
+    gradient is summed over these (``reduce_gradients``, and the sharded
+    step's ``configs/common.py::ShardedUpdate``)."""
+    owned = spec_axes(spec)
+    return tuple(a for a in mesh.axis_names if a in tuple(axes) and a not in owned)
+
+
 def reduce_gradients(params, specs, mesh, axes) -> None:
     """Sum each parameter's ``.grad`` in place over those of ``axes``
     (the mesh axes that split the batch or the edges) along which its
@@ -238,11 +247,9 @@ def reduce_gradients(params, specs, mesh, axes) -> None:
     share of the work's (see ``collectives``); after this every rank
     holds the meshless gradient's block. ``params``: a module or a
     ``{name: tensor}`` dict; ``specs``: name -> spec."""
-    axes = tuple(a for a in mesh.axis_names if a in tuple(axes))
     for name, p in _named(params).items():
         if p.grad is None:
             continue
-        owned = spec_axes(specs.get(name, ()))
-        over = tuple(a for a in axes if a not in owned)
+        over = replicated_axes(specs.get(name, ()), mesh, axes)
         if over:
             p.grad.copy_(all_reduce(p.grad, mesh, over))

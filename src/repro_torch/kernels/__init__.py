@@ -19,11 +19,14 @@ The CUDA sources live in ``csrc/`` and are built at first use by
 with ``ctypes``).
 
 ``impl=`` of every wrapper is one of ``IMPLS``: ``"auto"`` launches the
-kernel for CUDA tensors and runs the plain version for CPU tensors,
-``"cuda"`` insists on the kernel (and raises on CPU tensors), and
-``"torch"`` runs the plain version wherever the tensors are -- on the
-card only when a caller asks for it by name, as the card check does.
-There is no fallback: a kernel that fails to build or launch raises.
+kernel for CUDA tensors and runs the plain version for CPU tensors and
+for meta tensors (where it computes shapes and nothing else: the dry
+run, ``launch/dryrun.py``), ``"cuda"`` insists on the kernel (and
+raises on CPU and meta tensors), and ``"torch"`` runs the plain version
+wherever the tensors are -- on the card only when a caller asks for it
+by name, as the card check does. There is no fallback: a kernel that
+fails to build or launch raises, and a CUDA tensor never reaches the
+plain version unasked.
 """
 from __future__ import annotations
 
@@ -53,7 +56,9 @@ def reset_launch_counts() -> None:
 
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
-    """``"torch"`` or ``"cuda"`` for a call on tensors placed like ``x``."""
+    """``"torch"`` or ``"cuda"`` for a call on tensors placed like ``x``:
+    under ``"auto"`` the kernel for a CUDA tensor, the plain version for
+    a CPU or meta tensor (shapes only on meta)."""
     if impl not in IMPLS:
         raise ValueError(
             f"unknown impl {impl!r}; valid choices: "

@@ -19,7 +19,11 @@ from repro_torch.ops.scatter_gather import sort_edges_by_dst
 
 
 def is_sorted(ids: torch.Tensor) -> bool:
-    """Whether ``ids`` is non-decreasing (one pass, one host read)."""
+    """Whether ``ids`` is non-decreasing (one pass, one host read). A
+    meta tensor has no values to read: False, the path that is right
+    for any order."""
+    if ids.is_meta:
+        return False
     return ids.numel() < 2 or bool((ids[1:] >= ids[:-1]).all())
 
 

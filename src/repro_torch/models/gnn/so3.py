@@ -159,6 +159,11 @@ def clebsch_gordan_real(l1: int, l2: int, l3: int) -> np.ndarray | None:
 def cg_tensor(l1: int, l2: int, l3: int, dtype: torch.dtype = torch.float32,
               device: str = "cpu") -> torch.Tensor | None:
     """``clebsch_gordan_real(l1, l2, l3)`` as a ``dtype`` tensor on
-    ``device`` (a string, so the cache key is stable), or None."""
+    ``device`` (a string, so the cache key is stable), or None. Made
+    outside inference mode even when first asked for inside it: a cached
+    inference tensor could never be saved for a later backward."""
     c = clebsch_gordan_real(l1, l2, l3)
-    return None if c is None else torch.tensor(c, dtype=dtype, device=device)
+    if c is None:
+        return None
+    with torch.inference_mode(False):
+        return torch.tensor(c, dtype=dtype, device=device)

@@ -18,6 +18,15 @@ The same function, summed in another order.
 
 The retrieval head scores one user against the candidate tower with a
 factorised dot product, (1, r) @ (r, n_candidates), and ``torch.topk``.
+
+With a ``mesh`` whose ``"model"`` axis splits the rows of ``table``,
+``linear`` and ``cand_embed`` (``configs/recsys_family.py::
+recsys_param_specs``: this rank holds a block of each), a lookup is
+``ops/sharded_lookup.py::sharded_row_gather`` over ``"model"`` and the
+retrieval scores this rank's candidates, then gathers every rank's
+scores before the top-k. ``batch_axes`` names the mesh axes the batch
+rows are split over, of which ``batch`` holds this rank's block; the
+loss is then the whole batch's mean.
 """
 from __future__ import annotations
 
@@ -111,10 +120,25 @@ def _rows(params: ParamTree, cfg: XDeepFMConfig, batch: dict) -> torch.Tensor:
     return ids + offsets[None, :]
 
 
-def _lookup(params: ParamTree, cfg: XDeepFMConfig, rows: torch.Tensor) -> torch.Tensor:
+def _split(params: ParamTree, cfg: XDeepFMConfig, mesh) -> bool:
+    """Whether this rank holds a block of the tables' rows."""
+    return (mesh is not None
+            and params["table"].shape[0] != cfg.n_fields * cfg.vocab_per_field)
+
+
+def _gather(table: torch.Tensor, rows: torch.Tensor, split: bool, mesh) -> torch.Tensor:
+    """(B, n_fields) rows of ``table`` -> (B, n_fields, width)."""
+    if split:
+        from repro_torch.ops.sharded_lookup import sharded_row_gather
+
+        return sharded_row_gather(table, rows, mesh, "model")
+    return table.index_select(0, rows.reshape(-1)).reshape(*rows.shape, table.shape[1])
+
+
+def _lookup(params: ParamTree, cfg: XDeepFMConfig, rows: torch.Tensor,
+            mesh=None) -> torch.Tensor:
     """(B, n_fields) table rows -> (B, n_fields, D) embeddings."""
-    return params["table"].index_select(0, rows.reshape(-1)).reshape(
-        rows.shape[0], cfg.n_fields, cfg.embed_dim)
+    return _gather(params["table"], rows, _split(params, cfg, mesh), mesh)
 
 
 def cin_chunk_rows(h: int, m: int, d: int, itemsize: int = 4,
@@ -158,12 +182,14 @@ def _dnn_hidden(params: ParamTree, x0_flat: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def forward(params: ParamTree, cfg: XDeepFMConfig, batch: dict) -> torch.Tensor:
+def forward(params: ParamTree, cfg: XDeepFMConfig, batch: dict, *,
+            mesh=None) -> torch.Tensor:
     """``batch["sparse_ids"]``: (B, n_fields) -> logits (B,)."""
     rows = _rows(params, cfg, batch)
     b = rows.shape[0]
-    emb = _lookup(params, cfg, rows)  # (B, m, D)
-    linear = params["linear"].index_select(0, rows.reshape(-1)).reshape(
+    split = _split(params, cfg, mesh)
+    emb = _gather(params["table"], rows, split, mesh)  # (B, m, D)
+    linear = _gather(params["linear"], rows, split, mesh).reshape(
         b, cfg.n_fields).sum(dim=-1)
     cin_logit = (_cin(params, emb) @ params["cin_out"])[:, 0]
     hidden = _dnn_hidden(params, emb.reshape(b, -1))
@@ -171,31 +197,46 @@ def forward(params: ParamTree, cfg: XDeepFMConfig, batch: dict) -> torch.Tensor:
     return linear + cin_logit + dnn_logit + params["bias"]
 
 
-def loss_fn(params: ParamTree, cfg: XDeepFMConfig, batch: dict) -> torch.Tensor:
+def loss_fn(params: ParamTree, cfg: XDeepFMConfig, batch: dict, *,
+            mesh=None, batch_axes: tuple = ()) -> torch.Tensor:
     """Mean binary cross-entropy of the logits against
     ``batch["labels"]``, in the numerically stable form
-    ``max(l, 0) - l y + log1p(exp(-|l|))``."""
-    logits = forward(params, cfg, batch).float()
+    ``max(l, 0) - l y + log1p(exp(-|l|))``. With ``batch_axes`` the
+    mean of the whole batch: the rows' sum is summed over the axes
+    (passing the gradient through, so each rank's is its share) and
+    divided by the whole batch's size."""
+    logits = forward(params, cfg, batch, mesh=mesh).float()
     labels = input_tensor(batch, "labels", logits.device).float()
-    return torch.mean(torch.clamp(logits, min=0.0) - logits * labels
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    bce = (torch.clamp(logits, min=0.0) - logits * labels
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    if not batch_axes:
+        return torch.mean(bce)
+    from repro_torch.distributed.collectives import reduce_from
+
+    total = reduce_from(bce.sum(), mesh, batch_axes)
+    return total / (bce.shape[0] * mesh.axis_size(batch_axes))
 
 
-def serve_step(params: ParamTree, cfg: XDeepFMConfig, batch: dict) -> torch.Tensor:
+def serve_step(params: ParamTree, cfg: XDeepFMConfig, batch: dict, *,
+               mesh=None) -> torch.Tensor:
     """CTR scores in [0, 1] (the serve_p99 and serve_bulk shapes)."""
-    return torch.sigmoid(forward(params, cfg, batch))
+    return torch.sigmoid(forward(params, cfg, batch, mesh=mesh))
 
 
 def serve_retrieval(params: ParamTree, cfg: XDeepFMConfig, batch: dict,
-                    top_k: int = 100):
+                    top_k: int = 100, *, mesh=None):
     """The retrieval_cand shape: one query scored against the candidate
     tower. ``batch["sparse_ids"]``: (1, n_fields). Returns (scores
     (n_candidates,), (top-k scores, top-k ids)); ties may be ordered
     otherwise than ``jax.lax.top_k`` orders them."""
     rows = _rows(params, cfg, batch)
-    emb = _lookup(params, cfg, rows)
+    emb = _lookup(params, cfg, rows, mesh)
     hidden = _dnn_hidden(params, emb.reshape(emb.shape[0], -1))
     user = hidden @ params["retrieval_proj"]  # (1, r)
     scores = (user @ params["cand_embed"].T)[0]  # (n_candidates,)
+    if mesh is not None and scores.shape[0] != cfg.n_candidates:
+        from repro_torch.distributed.collectives import all_gather
+
+        scores = all_gather(scores, mesh, "model", 0)
     top = torch.topk(scores, top_k)
     return scores, (top.values, top.indices)

@@ -228,6 +228,17 @@ def batch_block(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
     return chunk(x, mesh, axes, 0) if axes else x
 
 
+def _rank_batch(tokens: torch.Tensor, mesh, axes):
+    """(the batch axes, this rank's rows of ``tokens``). ``axes`` None:
+    ``tokens`` is the whole batch, split over ``batch_axes``; else
+    ``tokens`` is this rank's block over ``axes`` already (as a dry run
+    lays its arguments out)."""
+    if axes is not None:
+        return mesh.axes(axes), tokens
+    dp = batch_axes(mesh, tokens.shape[0])
+    return dp, batch_block(tokens, mesh, dp)
+
+
 def embed_lookup(params: TransformerLM, cfg: TransformerConfig,
                  tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     if params.embed.shape[0] != cfg.vocab_size:  # this rank's rows
@@ -339,23 +350,28 @@ def _trunk(params: TransformerLM, cfg: TransformerConfig, tokens, mesh, dp):
 
 
 def hidden_states(params: TransformerLM, cfg: TransformerConfig, tokens, *,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, batch_axes=None) -> torch.Tensor:
     """The trunk: tokens (B, S) -> the last layer's output (B, S, d),
     before the final norm (what the MTP head reads); with a mesh, this
-    rank's block of the batch. With grad mode on and ``cfg.remat``, each
-    layer keeps only its input and is recomputed in the backward."""
+    rank's block of the batch. ``batch_axes`` given: ``tokens`` is this
+    rank's block over those axes already. With grad mode on and
+    ``cfg.remat``, each layer keeps only its input and is recomputed in
+    the backward."""
     tokens = as_tokens(params, tokens)
-    dp = batch_axes(mesh, tokens.shape[0])
-    return _trunk(params, cfg, batch_block(tokens, mesh, dp), mesh, dp)
+    dp = ()
+    if mesh is not None:
+        dp, tokens = _rank_batch(tokens, mesh, batch_axes)
+    return _trunk(params, cfg, tokens, mesh, dp)
 
 
 def forward(params: TransformerLM, cfg: TransformerConfig, tokens, *,
-            mesh=None) -> torch.Tensor:
+            mesh=None, batch_axes=None) -> torch.Tensor:
     """tokens: (B, S) ints -> logits (B, S, V) float32 (with a mesh, this
-    rank's block of the batch, every vocab column). Each layer's
-    attention is one ``flash_attention`` launch on the card, and each MoE
-    layer's combine one ``segment_sum`` launch."""
-    x = hidden_states(params, cfg, tokens, mesh=mesh)
+    rank's block of the batch, every vocab column; ``batch_axes`` as in
+    ``hidden_states``). Each layer's attention is one ``flash_attention``
+    launch on the card, and each MoE layer's combine one ``segment_sum``
+    launch."""
+    x = hidden_states(params, cfg, tokens, mesh=mesh, batch_axes=batch_axes)
     return _logits(params, cfg, x, mesh)
 
 
@@ -382,7 +398,8 @@ def _mtp_block(params, cfg, x_final, tokens, mesh):
 
 
 def loss_fn(params: TransformerLM, cfg: TransformerConfig, batch: dict, *,
-            mesh=None, rules=None, mtp_weight: float = 0.1) -> torch.Tensor:
+            mesh=None, rules=None, mtp_weight: float = 0.1,
+            batch_axes=None) -> torch.Tensor:
     """batch: ``tokens`` (B, S), ``labels`` (B, S) with -1 = ignore. The
     mean next-token cross-entropy, plus ``mtp_weight`` times the MTP
     head's (labels shifted left by one, padded with -1) for a config with
@@ -391,16 +408,20 @@ def loss_fn(params: TransformerLM, cfg: TransformerConfig, batch: dict, *,
     other raises. With a mesh each mean is the whole batch's: the summed
     losses and the counts are summed over the batch axes, then divided
     (the reference's mean over ``labels != -1``), and the sum passes the
-    gradient through, so each rank's gradient is its share."""
+    gradient through, so each rank's gradient is its share.
+    ``batch_axes`` given: the arrays hold this rank's block of the batch
+    over those axes already (see ``hidden_states``)."""
     if rules is not None and rules != LM_RULES:
         raise ValueError(f"loss_fn lays the LM out by LM_RULES; got {rules}")
     tokens = as_tokens(params, batch["tokens"])
     labels = as_tokens(params, batch["labels"])
-    dp = batch_axes(mesh, tokens.shape[0])
     pad = labels.new_full((labels.shape[0], 1), -1)
     mtp_labels = torch.cat([labels[:, 1:], pad], dim=1)
-    tokens, labels, mtp_labels = (batch_block(t, mesh, dp)
-                                  for t in (tokens, labels, mtp_labels))
+    dp = ()
+    if mesh is not None:
+        dp, tokens = _rank_batch(tokens, mesh, batch_axes)
+        if batch_axes is None:
+            labels, mtp_labels = (batch_block(t, mesh, dp) for t in (labels, mtp_labels))
     x = _trunk(params, cfg, tokens, mesh, dp)
 
     def mean(logits, lab):
@@ -490,13 +511,14 @@ def _block_shape(shape, spec, mesh) -> tuple:
 
 
 def serve_step(params: TransformerLM, cfg: TransformerConfig, cache: dict,
-               tokens, pos, *, mesh=None):
+               tokens, pos, *, mesh=None, batch_axes=None):
     """One decode step: tokens (B, 1) at index ``pos``; returns (logits
     (B, 1, V) float32, cache). The cache is updated in place (see
     ``gqa_decode`` and ``mla_decode``) and returned. With a ``mesh`` the
     cache is ``init_kv_cache(..., mesh=mesh)``'s, ``tokens`` the whole
     batch, and the logits this rank's block of it (the cache's layout
-    fixes the batch axes)."""
+    fixes the batch axes; ``batch_axes`` given, which must be the
+    cache's: ``tokens`` is this rank's block over them already)."""
     pos = int(pos)
     tokens = as_tokens(params, tokens)
     dp, seq_split = (), {}
@@ -505,7 +527,12 @@ def serve_step(params: TransformerLM, cfg: TransformerConfig, cache: dict,
             raise ValueError("with a mesh, serve_step needs the KVCache of "
                              "init_kv_cache(..., mesh=mesh)")
         dp, seq_split = cache.batch_axes, cache.seq_split
-    x = embed_lookup(params, cfg, batch_block(tokens, mesh, dp), mesh)
+    if batch_axes is None:
+        tokens = batch_block(tokens, mesh, dp)
+    elif tuple(batch_axes) != tuple(dp):
+        raise ValueError(f"serve_step: tokens split over {tuple(batch_axes)}, "
+                         f"the cache over {tuple(dp)}")
+    x = embed_lookup(params, cfg, tokens, mesh)
     act = activation_fn(cfg.activation)
     for group, i, layer in params.layers():
         c = cache[group]

@@ -236,27 +236,71 @@ def _ep_axes(m, mesh, tp_axis: str) -> tuple:
     return tuple(a for a in m.ep_axes if a in mesh.axis_names) or (tp_axis,)
 
 
+# The largest float32 magnitude that a cast to float8_e4m3fn rounds to its
+# largest finite value (448); above it the reference's cast gives NaN,
+# where torch's saturates to 448.
+_E4M3_LIMIT = 464.0
+
+
+def _to_f8(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` (float32) cast to ``dtype`` as the reference's ``astype``
+    casts it: NaN past the float8 range, where torch's cast saturates."""
+    q = x.to(dtype)
+    if dtype == torch.float8_e4m3fn:
+        q = torch.where(x.abs() > _E4M3_LIMIT, torch.full_like(q, float("nan")), q)
+    return q
+
+
 class _Fp8Exchange(torch.autograd.Function):
     """The dispatch all-to-all with the reference's fp8 payload: a scale
     per row of ``max|x| / 448 + 1e-12`` (sent as bf16), the rows divided
     by it and cast to ``dtype`` (sent as their bytes), and multiplied
-    back in float32 on arrival. The backward sends the gradient back in
-    the activation dtype, straight through the quantisation (the
-    reference differentiates the casts, which rounds the cotangent
-    itself to float8)."""
+    back in float32 on arrival.
+
+    The backward is the reference's VJP of those casts (``jax.vjp`` of
+    its block, ``moe.py:221-236``), not a straight-through gradient:
+
+    1. the cotangent ``g`` is widened to float32;
+    2. ``g * sy`` is cast to ``dtype`` and sent back as its bytes, so a
+       payload gradient under 2^-10 in size is exactly 0,
+       and one past 464 is NaN, as the reference's cast gives (torch's
+       would saturate at 448);
+    3. on the sender it is widened and divided by ``scale``;
+    4. the scale's own terms: ``sum(g * qy)`` per row sent back as bf16,
+       plus ``-sum(g_q * buf / scale^2)`` from the division, both over
+       448 and cast to the buffer's dtype, reach each row's arg-max of
+       ``|buf|`` (ties split evenly, as the VJP of ``max`` splits them)
+       with the sign of that element (+ at 0, as ``abs``'s).
+    """
 
     @staticmethod
     def forward(ctx, buf, mesh, axes, dtype):
-        ctx.mesh, ctx.axes = mesh, axes
-        scale = buf.abs().amax(dim=-1, keepdim=True).float() / 448.0 + 1e-12
+        ctx.mesh, ctx.axes, ctx.dtype = mesh, axes, dtype
+        mx = buf.abs().amax(dim=-1, keepdim=True)
+        scale = mx.float() / 448.0 + 1e-12
         qbuf = (buf.float() / scale).to(dtype)
         qy = exchange(qbuf, mesh, axes, 0, 1)
         sy = exchange(scale.to(torch.bfloat16), mesh, axes, 0, 1)
+        ctx.save_for_backward(buf, mx, scale, qy, sy)
         return (qy.float() * sy.float()).to(buf.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return exchange(g, ctx.mesh, ctx.axes, 1, 0), None, None, None
+        buf, mx, scale, qy, sy = ctx.saved_tensors
+        mesh, axes = ctx.mesh, ctx.axes
+        g32 = g.float()
+        g_q = _to_f8(g32 * sy.float(), ctx.dtype)
+        g_s = (g32 * qy.float()).sum(dim=-1, keepdim=True).to(torch.bfloat16)
+        g_r = exchange(g_q, mesh, axes, 1, 0).float()
+        g_scale = exchange(g_s, mesh, axes, 1, 0).float()
+        b32 = buf.float()
+        g_scale = g_scale + (-(g_r * (1.0 / (scale * scale))) * b32).sum(
+            dim=-1, keepdim=True)
+        g_mx = (g_scale / 448.0).to(buf.dtype)
+        at_max = (buf.abs() == mx).to(buf.dtype)
+        g_abs = g_mx / at_max.sum(dim=-1, keepdim=True) * at_max
+        g_buf = (g_r / scale).to(buf.dtype) + torch.where(buf >= 0, g_abs, -g_abs)
+        return g_buf, None, None, None
 
 
 def _moe_a2a(p: MoE, cfg, x, act, mesh, ep_axes, tp_axis):

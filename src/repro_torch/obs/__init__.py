@@ -2,7 +2,7 @@
 registry, with the span names and counter prefixes of ``repro.obs``."""
 from repro_torch.obs import metrics, trace
 from repro_torch.obs.metrics import Registry, publish_stats
-from repro_torch.obs.trace import TRACE_MODES, Tracer
+from repro_torch.obs.trace import PROFILE_MODES, TRACE_MODES, Tracer
 
 __all__ = [
     "trace",
@@ -11,4 +11,5 @@ __all__ = [
     "Registry",
     "publish_stats",
     "TRACE_MODES",
+    "PROFILE_MODES",
 ]

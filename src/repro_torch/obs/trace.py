@@ -14,7 +14,8 @@ Usage::
     with trace.span("cc.frontier.level", bucket=4096) as sp:
         ...                                # host-driven work
         sp.tag(rounds=rounds)              # values the host ALREADY read
-    trace.chrome_trace()                   # Chrome/Perfetto timeline
+    trace.event("serve.quarantine", uid=7) # instant marker
+    trace.export_chrome("trace.json")      # Chrome/Perfetto timeline
 
 * **Disabled is free.** ``span()`` returns one shared ``_NULL_SPAN``
   singleton when tracing is off.
@@ -31,18 +32,28 @@ Usage::
   reference's does.
 * **Instant events.** ``event(name, **attrs)`` records a Chrome-trace
   marker (``ph="i"``), as the serving scheduler does at a quarantine.
+* **Profiler interplay.** ``span(..., profile=True)`` enters
+  ``torch.profiler.record_function(name)`` for the span's body when the
+  global ``profile`` knob is ``"on"`` (and tracing is on), so host spans
+  line up with device kernels in a ``torch.profiler`` capture, where the
+  reference enters ``jax.profiler.TraceAnnotation``. Off by default.
 
-The reference's profiler mode and file export wait for the slice that
-first calls them (the benchmark runner).
+``export_chrome(path)`` writes the timeline as Chrome-trace JSON
+(``{"traceEvents": [...]}``, complete events ``ph="X"``, instants
+``ph="i"``, microsecond timestamps), which loads in ``chrome://tracing``
+or Perfetto; ``python -m repro_torch.obs.summarize trace.json`` prints
+the per-phase aggregate table.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
 
-# The choice set for the tracing knob (the reference's values).
+# The choice sets for the tracing knobs (the reference's values).
 TRACE_MODES = ("off", "on")
+PROFILE_MODES = ("off", "on")
 
 
 class _NullSpan:
@@ -78,14 +89,17 @@ def _wait_for(value) -> None:
 class Span:
     """One live span. Use as a context manager; see module docstring."""
 
-    __slots__ = ("_tracer", "name", "attrs", "device", "_blockee", "_t0", "duration")
+    __slots__ = ("_tracer", "name", "attrs", "device", "profile", "_blockee",
+                 "_ann", "_t0", "duration")
 
-    def __init__(self, tracer, name, attrs, device):
+    def __init__(self, tracer, name, attrs, device, profile):
         self._tracer = tracer  # None: a timer-only span (tracing disabled)
         self.name = name
         self.attrs = attrs
         self.device = device
+        self.profile = profile
         self._blockee = None
+        self._ann = None
         self._t0 = 0
         self.duration = 0.0
 
@@ -102,6 +116,11 @@ class Span:
         return value
 
     def __enter__(self):
+        if self.profile and self._tracer is not None:
+            from torch.profiler import record_function
+
+            self._ann = record_function(self.name)
+            self._ann.__enter__()
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -109,6 +128,8 @@ class Span:
         if self.device and self._blockee is not None:
             _wait_for(self._blockee)
         end = time.perf_counter_ns()
+        if self._ann is not None:
+            self._ann.__exit__(exc_type, exc, tb)
         self.duration = (end - self._t0) * 1e-9
         if self._tracer is not None:
             if exc_type is not None:
@@ -121,25 +142,31 @@ class Tracer:
     """Span collector. The module-level functions drive one
     process-global instance; tests may build their own."""
 
-    def __init__(self, *, trace: str = "off"):
+    def __init__(self, *, trace: str = "off", profile: str = "off"):
         self.events: list[dict] = []
         self._origin = time.perf_counter_ns()
         self._pid = os.getpid()
-        self.configure(trace=trace)
+        self.configure(trace=trace, profile=profile)
 
-    def configure(self, *, trace: str | None = None) -> None:
-        """Set the ``trace=`` mode (an unknown string raises like every
-        other dispatch knob)."""
-        if trace is None:
-            return
-        if trace not in TRACE_MODES:
-            # check_choice imports lazily, and only to raise: the engines
-            # this module instruments import it, so a module-level import
-            # of repro_torch.core here would be a cycle.
-            from repro_torch.core.components import check_choice
+    def configure(self, *, trace: str | None = None,
+                  profile: str | None = None) -> None:
+        """Set the ``trace=`` / ``profile=`` modes (an unknown string
+        raises like every other dispatch knob)."""
+        # check_choice imports lazily, and only to raise: the engines this
+        # module instruments import it, so a module-level import of
+        # repro_torch.core here would be a cycle.
+        if trace is not None:
+            if trace not in TRACE_MODES:
+                from repro_torch.core.components import check_choice
 
-            check_choice("trace", trace, TRACE_MODES)
-        self.trace = trace
+                check_choice("trace", trace, TRACE_MODES)
+            self.trace = trace
+        if profile is not None:
+            if profile not in PROFILE_MODES:
+                from repro_torch.core.components import check_choice
+
+                check_choice("profile", profile, PROFILE_MODES)
+            self.profile = profile
 
     @property
     def enabled(self) -> bool:
@@ -150,14 +177,15 @@ class Tracer:
         self.events = []
         self._origin = time.perf_counter_ns()
 
-    def span(self, name: str, *, device: bool = False, timer: bool = False, **attrs):
+    def span(self, name: str, *, device: bool = False, profile: bool = False,
+             timer: bool = False, **attrs):
         """A context-managed span; the no-op singleton when tracing is
         disabled, unless ``timer=True`` (see module docstring)."""
         if not self.enabled:
             if not timer:
                 return _NULL_SPAN
-            return Span(None, name, attrs, device)
-        return Span(self, name, attrs, device)
+            return Span(None, name, attrs, device, False)
+        return Span(self, name, attrs, device, profile and self.profile == "on")
 
     def event(self, name: str, **attrs) -> None:
         """An instant marker (Chrome-trace ``ph="i"``); nothing when
@@ -185,17 +213,26 @@ class Tracer:
         """The Chrome-trace/Perfetto JSON object."""
         return {"traceEvents": list(self.events), "displayTimeUnit": "ms"}
 
+    def export_chrome(self, path: str) -> int:
+        """Write the timeline as Chrome-trace JSON; returns the number
+        of events written (loads in chrome://tracing / Perfetto)."""
+        with open(path, "w") as f:
+            json.dump(self.chrome_trace(), f, indent=1, default=str)
+        return len(self.events)
+
 
 # The process-global tracer the engines record into. REPRO_TRACE=1 (or
-# "on") enables tracing from the environment.
+# "on") enables tracing from the environment; REPRO_PROFILE=1 arms the
+# profiler annotations as well.
 _ON = ("1", "on", "true", "yes")
 _GLOBAL = Tracer(
     trace="on" if os.environ.get("REPRO_TRACE", "").lower() in _ON else "off",
+    profile="on" if os.environ.get("REPRO_PROFILE", "").lower() in _ON else "off",
 )
 
 
-def configure(*, trace: str | None = None):
-    _GLOBAL.configure(trace=trace)
+def configure(*, trace: str | None = None, profile: str | None = None):
+    _GLOBAL.configure(trace=trace, profile=profile)
 
 
 def enabled() -> bool:
@@ -214,3 +251,7 @@ event = _GLOBAL.event
 
 def chrome_trace() -> dict:
     return _GLOBAL.chrome_trace()
+
+
+def export_chrome(path: str) -> int:
+    return _GLOBAL.export_chrome(path)

@@ -53,22 +53,33 @@ def microbatch(batch: dict, i: int, n: int) -> dict:
     return {key: cut(x) for key, x in batch.items()}
 
 
-def value_and_grads(loss_fn: Callable, params, batch, num_microbatches: int = 1):
+def value_and_grads(loss_fn: Callable, params, batch, num_microbatches: int = 1,
+                    reduce: Callable | None = None):
     """``(loss, grads)``: ``loss_fn(params, batch)`` (detached) and the
     gradient of each leaf of ``params`` (``tree.leaves`` order), which
     must require grad. With ``num_microbatches`` > 1, the means over
     equal slices of the batch's leading axis, the gradients summed in
-    float32."""
+    float32. A leaf the loss does not use gets a zero gradient, as
+    ``jax.grad`` gives it. ``reduce``, when given, maps each slice's
+    list of gradients to the list that is summed (a sharded step's
+    reduction over the batch axes)."""
     if num_microbatches == 1:
         loss = loss_fn(params, batch)
-        return loss.detach(), list(torch.autograd.grad(loss, leaves(params)))
-    loss_acc = None
-    grad_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in leaves(params)]
+        ps = leaves(params)
+        grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads)]
+        return loss.detach(), grads if reduce is None else reduce(grads)
+    loss_acc = grad_acc = None
     for i in range(num_microbatches):
         loss, grads = value_and_grads(loss_fn, params,
-                                      microbatch(batch, i, num_microbatches))
-        loss_acc = loss.float() if loss_acc is None else loss_acc + loss
+                                      microbatch(batch, i, num_microbatches),
+                                      reduce=reduce)
+        if grad_acc is None:
+            loss_acc = loss.float()
+            grad_acc = [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                        for g in grads]
+        else:
+            loss_acc = loss_acc + loss
         for acc, g in zip(grad_acc, grads):
             acc.add_(g)
     scale = 1.0 / num_microbatches
@@ -81,19 +92,33 @@ def make_train_step(
     *,
     num_microbatches: int = 1,
     grad_compression: bool = False,
+    sharded=None,
 ):
     """Build a ``(params, opt_state, ef, batch) -> (params, opt_state, ef,
     metrics)`` step with optional gradient accumulation over
     ``num_microbatches`` slices of the batch's leading axis (the loss and
-    the gradients are their means; ``value_and_grads``)."""
+    the gradients are their means; ``value_and_grads``).
+
+    ``sharded`` (a ``configs/common.py::ShardedUpdate``) makes it one
+    rank's step of a sharded run: ``params`` and ``batch`` hold this
+    rank's blocks, so microbatch ``i`` is the ``i``-th slice of every
+    rank's block; each slice's gradients are reduced over the batch axes
+    (``sharded.reduce``) before they are summed, and ``sharded.update``
+    runs AdamW on the moments' ZeRO blocks."""
+    if sharded is not None and grad_compression:
+        raise ValueError("gradient compression runs on one device only")
 
     def step(params, opt_state, ef, batch):
         trainable(params)
-        loss, grads = value_and_grads(loss_fn, params, batch, num_microbatches)
-        grads = like(params, grads)
-        if grad_compression:
-            grads, ef = compress_decompress(grads, ef)
-        params, opt_state, metrics = adamw_update(grads, opt_state, params, opt_cfg)
+        loss, grads = value_and_grads(loss_fn, params, batch, num_microbatches,
+                                      reduce=None if sharded is None else sharded.reduce)
+        if sharded is not None:
+            params, opt_state, metrics = sharded.update(grads, opt_state, params, opt_cfg)
+        else:
+            grads = like(params, grads)
+            if grad_compression:
+                grads, ef = compress_decompress(grads, ef)
+            params, opt_state, metrics = adamw_update(grads, opt_state, params, opt_cfg)
         metrics["loss"] = loss
         return params, opt_state, ef, metrics
 

@@ -75,12 +75,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg: AdamWConfig):
+def adamw_update(grads, opt_state, params, cfg: AdamWConfig, *,
+                 grad_norm: torch.Tensor | None = None):
     """Returns ``(params, new_opt_state, metrics)``; ``params`` and the
     moments are updated in place (see the module docstring), ``metrics``
-    holds the device tensors ``grad_norm`` and ``lr``."""
+    holds the device tensors ``grad_norm`` and ``lr``. ``grad_norm``, when
+    given, is the clip's global norm in place of ``global_norm(grads)``
+    (the sharded step's, over every rank's blocks)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     stepf = step.float()
     lr = _lr_at(cfg, stepf)

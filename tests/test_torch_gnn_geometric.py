@@ -284,3 +284,22 @@ def test_registry_matches_the_reference(name):
         assert arch.label_kind(shape) == jarch.label_kind(shape) == "graph_float"
         assert arch.skip_reason(shape) == jarch.skip_reason(shape)
     assert arch.module is {"egnn": egnn, "mace": mace}[name]
+
+
+def test_mace_trains_after_an_inference_mode_forward():
+    """The Clebsch-Gordan tensors are cached on first use; one first asked
+    for under ``torch.inference_mode`` must still serve a later backward
+    (a cached inference tensor cannot be saved for one)."""
+    cfg = get_arch("mace").smoke_config
+    params = mace.init_params(cfg, device="cpu")
+    g = _batch(cfg, 4, seed=5)
+    so3.cg_tensor.cache_clear()
+    with torch.inference_mode():
+        mace.forward(params, cfg, g)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    g["labels"] = np.zeros(4, np.float32)
+    loss = mace.loss_fn(params, cfg, g)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert params["species_embed"].grad is not None

@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module loads no
-jax and nothing of ``repro``, and ``chip_smoke.py`` imports neither."""
+jax and nothing of ``repro``, and neither ``chip_smoke.py`` nor the
+port's examples (``examples/torch_*.py``) import either."""
 import ast
 import json
 import os
@@ -57,6 +58,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.distributed.collectives", "repro_torch.distributed.pipeline",
             "repro_torch.launch", "repro_torch.launch.mesh",
             "repro_torch.ops.sharded_lookup", "repro_torch.configs.lm_family",
+            "repro_torch.configs.common", "repro_torch.configs.paper",
+            "repro_torch.launch.perfmodel", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.launch.report",
+            "repro_torch.ops.packing", "repro_torch.obs.summarize",
             } <= set(out["names"])
     assert out["bad"] == []
 
@@ -64,7 +69,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 @pytest.mark.parametrize(
     "path", ["chip_smoke.py"] + sorted(
         str(p.relative_to(ROOT)) for p in (ROOT / "src/repro_torch").rglob("*.py")
-    ),
+    ) + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py")),
 )
 def test_no_source_of_the_port_imports_jax_or_repro(path):
     tree = ast.parse((ROOT / path).read_text())

@@ -30,6 +30,11 @@ reference's sharded ``moe_ffn`` on a fake-device mesh of the same shape:
   ``shard_map`` with ``jax.debug.callback``); which schedule ran, by a
   spy on the schedule functions. The reference runs once in a
   subprocess with 8 fake CPU devices.
+* The fp8 dispatch's backward (``moe._Fp8Exchange``) bit for bit
+  against ``jax.vjp`` of the reference's casts, and the input gradient
+  of the fp8 ``moe_ffn`` on 2 and 4 ranks against ``jax.grad`` of the
+  reference's sharded one (from the same subprocess), at a cotangent
+  that survives the float8 cast and one that flushes to 0.
 
 ``start_ranks`` and ``collect`` are the spawn helpers
 ``test_torch_sharded_train.py`` imports."""
@@ -396,18 +401,51 @@ def _fp8_inputs(n):
     return out
 
 
+# Cotangent scales of the fp8 gradient cases: one whose payload gradient
+# ``g * scale`` mostly survives the float8 cast, one that flushes it to 0.
+FP8_COTANGENTS = {"survives": 1.0, "flushes": 1e-5}
+
+
 def _fp8_exchange(mesh, axes):
     """``moe._Fp8Exchange`` on this rank's buffer: (the exchanged buffer,
-    the gradient of ``sum(out * g)`` with respect to the buffer, this
-    rank's index over ``axes``)."""
+    ``{cotangent: the gradient of sum(out * g * scale)}`` with respect to
+    the buffer, this rank's index over ``axes``)."""
     from repro_torch.models.transformer.moe import _Fp8Exchange
 
     i = mesh.axis_index(axes)
     buf, g = _fp8_inputs(mesh.axis_size(axes))[i]
-    b = torch.from_numpy(buf).requires_grad_(True)
-    y = _Fp8Exchange.apply(b, mesh, axes, torch.float8_e4m3fn)
-    (y * torch.from_numpy(g)).sum().backward()
-    return y.detach().numpy(), b.grad.numpy(), i
+    grads = {}
+    for tag, scale in FP8_COTANGENTS.items():
+        b = torch.from_numpy(buf).requires_grad_(True)
+        y = _Fp8Exchange.apply(b, mesh, axes, torch.float8_e4m3fn)
+        (y * torch.from_numpy(g * np.float32(scale))).sum().backward()
+        grads[tag] = b.grad.numpy()
+    return y.detach().numpy(), grads, i
+
+
+def _fp8_reference_vjp(inputs, scale):
+    """The reference's fp8 dispatch (``moe.py:221-236``) on every rank's
+    buffer, the tiled all-to-all written out, differentiated by
+    ``jax.vjp`` at the cotangents ``g * scale``: each rank's gradient."""
+    import jax
+    import jax.numpy as jnp
+
+    n = len(inputs)
+
+    def exchange(bufs):
+        sent = []
+        for buf in bufs:
+            sc = jnp.max(jnp.abs(buf), axis=-1, keepdims=True).astype(
+                jnp.float32) / 448.0 + 1e-12
+            q = (buf.astype(jnp.float32) / sc).astype(jnp.float8_e4m3fn)
+            sent.append((jnp.split(q, n, 0), jnp.split(sc.astype(jnp.bfloat16), n, 0)))
+        return [jnp.concatenate(
+            [sent[s][0][r].astype(jnp.float32) * sent[s][1][r].astype(jnp.float32)
+             for s in range(n)], axis=1) for r in range(n)]
+
+    _, vjp = jax.vjp(exchange, [jnp.asarray(b) for b, _ in inputs])
+    (grads,) = vjp([jnp.asarray(g * np.float32(scale)) for _, g in inputs])
+    return [np.asarray(x) for x in grads]
 
 
 def _layout_cases(rank, size, inp):
@@ -487,15 +525,16 @@ def test_shard_gather_and_reshard_round_trip(ranks, size, dims):
 
 
 @pytest.mark.parametrize("size", [2, 4])
-def test_fp8_exchange_sends_the_payload_and_passes_the_gradient_straight_through(
-        ranks, size):
+def test_fp8_exchange_matches_the_references_payload_and_vjp(ranks, size):
     """The forward is the reference's payload (``moe.py:221-236``): each
     row divided by max|row| / 448 + 1e-12, cast to float8_e4m3fn, and
     multiplied back by the scale sent as bf16. The backward is the
-    straight-through gradient that ``_Fp8Exchange`` states (not the
-    reference's, which differentiates the casts and the scale): the
-    cotangent sent back unquantised, block ``j`` of rank ``r``'s gradient
-    being rank ``j``'s cotangent columns of rank ``r``."""
+    reference's VJP of those casts: equal bit for bit to ``jax.vjp`` of
+    the same exchange at two cotangent sizes; at the small one every
+    payload gradient flushes to an exact 0 and only each row's arg-max
+    element (the scale's term) is left. Through the whole layer, the
+    input gradient of the sharded ``moe_ffn`` with the fp8 dispatch
+    equals ``jax.grad`` of the reference's at the forward's tolerance."""
     inputs = _fp8_inputs(size)
 
     def payload(buf):
@@ -507,12 +546,28 @@ def test_fp8_exchange_sends_the_payload_and_passes_the_gradient_straight_through
     sent = [np.split(payload(buf), size, axis=0) for buf, _ in inputs]
     results = sorted((r["fp8"] for r in ranks[size]), key=lambda t: t[2])
     assert [i for _, _, i in results] == list(range(size))
-    for r, (y, grad, _) in enumerate(results):
+    want = {tag: _fp8_reference_vjp(inputs, sc) for tag, sc in FP8_COTANGENTS.items()}
+    for r, (y, grads, _) in enumerate(results):
         np.testing.assert_array_equal(y, np.concatenate([sent[s][r] for s in range(size)], 1))
         own = np.split(inputs[r][0], size, axis=0)[r]
         assert not np.array_equal(y[:, r * FP8_CAP:(r + 1) * FP8_CAP], own)  # quantised
-        np.testing.assert_array_equal(grad, np.concatenate(
-            [g[:, r * FP8_CAP:(r + 1) * FP8_CAP] for _, g in inputs], 0))
+        for tag in FP8_COTANGENTS:
+            np.testing.assert_array_equal(grads[tag], want[tag][r], err_msg=tag)
+        buf = inputs[r][0]
+        at_max = np.abs(buf) == np.abs(buf).max(-1, keepdims=True)
+        assert (grads["flushes"][~at_max] == 0).all()
+        assert (grads["survives"][~at_max] != 0).mean() > 0.3
+    name = FP8_GRAD_CASES[size]
+    ref = ranks["moe_ref"]["grad"]
+    _, shape, (b, _), _, dtype, _ = MOE_CASES[name]
+    tol = MOE_TOL[dtype]
+    for tag in FP8_COTANGENTS:
+        full = ref[(name, tag)]
+        rms = float(np.sqrt(np.mean(np.square(full))))
+        for got, (di, mi) in (r["grad"][(name, tag)] for r in ranks[size]):
+            rows = b // shape[0]
+            np.testing.assert_allclose(got, full[di * rows:(di + 1) * rows], rtol=tol,
+                                       atol=tol * rms, err_msg=f"{tag} rank {(di, mi)}")
 
 
 def _sequential(w, xs):
@@ -575,6 +630,9 @@ MOE_CASES = {
     "deepseek_a2a_fp8_bf16": ("deepseek-v3-671b", (2, 2), (4, 8),
                               {"ep_axes": ("data", "model"),
                                "a2a_dtype": "float8_e4m3fn"}, "bfloat16", "a2a"),
+    "deepseek_a2a_fp8": ("deepseek-v3-671b", (2, 2), (4, 8),
+                         {"ep_axes": ("data", "model"),
+                          "a2a_dtype": "float8_e4m3fn"}, "float32", "a2a"),
     "deepseek_a2a_data_only": ("deepseek-v3-671b", (2, 1), (2, 8),
                                {"ep_axes": ("data", "model"),
                                 "a2a_dtype": "float8_e4m3fn"}, "float32", "a2a"),
@@ -587,6 +645,17 @@ MOE_CASES = {
     "deepseek_psum_replicated": ("deepseek-v3-671b", (2, 2), (1, 1),
                                  {"ep_axes": ("data", "model")}, "float32", "psum"),
 }
+
+
+# world size -> the fp8 case whose input gradient is held to the reference's
+FP8_GRAD_CASES = {2: "mixtral_a2a_fp8", 4: "deepseek_a2a_fp8"}
+
+
+def _moe_cotangent(name, scale):
+    _, _, (b, s), _, _, _ = MOE_CASES[name]
+    d = _moe_cfg(name, "port").d_model
+    r = np.random.default_rng(99)
+    return (r.normal(size=(b, s, d)) * scale).astype(np.float32)
 
 
 def _moe_size(name):
@@ -686,11 +755,41 @@ def _moe_port_case(name, inputs, mesh):
             (mesh.coords["data"], mesh.coords["model"]))
 
 
+def _moe_port_grad(name, inputs, mesh, scale):
+    """(the gradient of ``sum(moe_ffn(x) * cotangent)`` with respect to
+    this rank's block of ``x``, this rank's coordinates)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.lm_family import moe_param_specs
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.models.transformer import moe
+
+    cfg = _moe_cfg(name, "port")
+    w, x = inputs[name]
+    full = moe.MoE(cfg, device="cpu", dtype=torch.float32).requires_grad_(False)
+    for k, v in w.items():
+        getattr(full, k).copy_(torch.from_numpy(v))
+    local = shard_tree(full, moe_param_specs(cfg, mesh), mesh)
+    dp = _moe_dp(name)
+    blocks = mesh.shape["data"] if dp else 1
+    xb = torch.from_numpy(x).chunk(blocks)[mesh.coords["data"] if dp else 0]
+    ct = torch.from_numpy(_moe_cotangent(name, scale)).chunk(blocks)[
+        mesh.coords["data"] if dp else 0]
+    xb = xb.clone().requires_grad_(True)
+    (moe.moe_ffn(local, cfg, xb, F.silu, mesh=mesh, dp_axes=dp) * ct).sum().backward()
+    return xb.grad.numpy(), (mesh.coords["data"], mesh.coords["model"])
+
+
 def _moe_rank_cases(rank, size, inputs):
     out = {}
     for name in MOE_CASES:
         if _moe_size(name) == size:
             out[name] = _moe_port_case(name, inputs, cpu_mesh(MOE_CASES[name][1]))
+    if size in FP8_GRAD_CASES:
+        name = FP8_GRAD_CASES[size]
+        out["grad"] = {(name, tag): _moe_port_grad(
+            name, inputs, cpu_mesh(MOE_CASES[name][1]), sc)
+            for tag, sc in FP8_COTANGENTS.items()}
     return out
 
 
@@ -735,6 +834,20 @@ for name, case in t.MOE_CASES.items():
     y = np.asarray(y.astype(jnp.float32))
     jax.effects_barrier()
     out[name] = (y, dict(rec))
+jm._dispatch = orig
+out["grad"] = {{}}
+for name in t.FP8_GRAD_CASES.values():
+    cfg = t._moe_cfg(name, "ref")
+    shape = t.MOE_CASES[name][1]
+    mesh = make_mesh(shape, ("data", "model"), devices=jax.devices()[:int(np.prod(shape))])
+    w, x = inputs[name]
+    p = {{k: jnp.asarray(v) for k, v in w.items()}}
+    dp = t._moe_dp(name)
+    for tag, sc in t.FP8_COTANGENTS.items():
+        ct = jnp.asarray(t._moe_cotangent(name, sc))
+        g = jax.jit(jax.grad(lambda x: jnp.sum(jm.moe_ffn(
+            p, cfg, x, jax.nn.silu, mesh=mesh, dp_axes=dp) * ct)))(jnp.asarray(x))
+        out["grad"][(name, tag)] = np.asarray(g)
 with open({out!r}, "wb") as f:
     pickle.dump(out, f)
 """
