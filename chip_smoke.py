@@ -88,7 +88,8 @@ of which raises on failure:
    summed over every call of each CC cell (recorded in one more run of
    each and replayed), beside the summed byte bound; the
    end-to-end wall time of phases 3 and 4 (median of three calls after
-   a warm-up); from separate traced runs, the engine's share of each CC
+   a warm-up; one call where the first takes 5 s or more, as the tree
+   stages of phase 12); from separate traced runs, the engine's share of each CC
    call and the RS3 walk's share of ``list_rank``; from
    ``torch.profiler`` runs, the card's idle share in each CC cell and in
    ``list_rank`` on a 2^20-node list. ``segment_sum`` at gin-tu's
@@ -300,13 +301,17 @@ of which raises on failure:
    (``csrc/flash_attention_bwd.cu``) against ``attention_vjp_ref`` at
    ``ATTN_BWD_CASES``: qwen3-4b's training shape (B=1, Hq=32, Hkv=8,
    S=4096, D=128, causal), mixtral's window (w=4096, S=8192, Hq=4,
-   Hkv=1), MLA's (192, 128), float32, a non-causal ragged S=777, rows
-   with no live key, and every head dim in both dtypes; float32 within
-   rtol = atol = 2e-3 (atol times the rms), bf16 within 3e-2 in norm per
-   gradient, the elementwise worst printed beside; at the training shape
-   two calls bit-equal and the autograd Function's gradients equal to the
-   direct call's; then its time there beside its plain version, SDPA's
-   backward (the yardstick) and the five-product FLOP bound. (b)
+   Hkv=1), MLA's (192, 128) (with a GQA group of 2, a non-causal ragged
+   S=777, Sq=129 against Sk=1000 and rows with no live key), float32, a
+   non-causal ragged S=777, rows with no live key, and every head dim in
+   both dtypes; float32 within rtol = atol = 2e-3 (atol times the rms),
+   bf16 within 3e-2 in norm per gradient, the elementwise worst printed
+   beside; at the training shape and at MLA's two calls bit-equal, and at
+   the training shape the autograd Function's gradients equal to the
+   direct call's; then its time at qwen3-4b's and MLA's training shapes
+   (the wgmma design) and at gemma-2b's D = 256 (B=1, Hq=8, Hkv=1, S=4096;
+   the wmma design) beside its plain version, SDPA's backward (the
+   yardstick) and the five-product FLOP bound. (b)
    qwen3-4b at full width (``TRAIN_LM_LAYERS`` of 36 layers, bf16, float32
    moments, ``remat=True``, B=1, S=4096 ``lm_batch`` tokens): on a 2-layer
    cut every gradient on the kernel route within 3e-2 in norm of the
@@ -546,12 +551,16 @@ ATTN_TOL = {"torch.bfloat16": 3e-2, "torch.float32": 2e-3}
 ATTN_ENTRIES = {"D=128": "attn_tc_kernelILi128ELi128EE",
                 "MLA D=192 Dv=128": "attn_tc_kernelILi192ELi128EE"}
 # The backward's wgmma instances (csrc/flash_attention_bwd.cu), each
-# printed; those that must not spill: D = 128 (qwen3-4b's training).
-ATTN_BWD_ENTRIES = {"pass 1 DP=128": "attn_bwd_dq_tcILi128EE",
-                    "pass 2 DP=128": "attn_bwd_dkdv_tcILi128EE",
-                    "pass 1 DP=64": "attn_bwd_dq_tcILi64EE",
-                    "pass 2 DP=64": "attn_bwd_dkdv_tcILi64EE"}
-ATTN_BWD_NO_SPILL = ("pass 1 DP=128", "pass 2 DP=128")
+# printed; those that must not spill: D = 128 (qwen3-4b's training) and
+# MLA's (192, 128) (deepseek-v3's).
+ATTN_BWD_ENTRIES = {"pass 1 DP=128": "attn_bwd_dq_tcILi128ELi128EE",
+                    "pass 2 DP=128": "attn_bwd_dkdv_tcILi128ELi128EE",
+                    "pass 1 MLA DP=192 DVP=128": "attn_bwd_dq_tcILi192ELi128EE",
+                    "pass 2 MLA DP=192 DVP=128": "attn_bwd_dkdv_tcILi192ELi128EE",
+                    "pass 1 DP=64": "attn_bwd_dq_tcILi64ELi64EE",
+                    "pass 2 DP=64": "attn_bwd_dkdv_tcILi64ELi64EE"}
+ATTN_BWD_NO_SPILL = ("pass 1 DP=128", "pass 2 DP=128", "pass 1 MLA DP=192 DVP=128",
+                     "pass 2 MLA DP=192 DVP=128")
 # The forward's log-sum-exp against attention_lse_ref's, absolute, on rows
 # with a live key (rows without one must be +inf in both). The backward's
 # P is exp(s - lse), so an error e in lse is a relative error e in P: these
@@ -660,6 +669,15 @@ def traced(fn) -> dict[str, float]:
 
 
 E2E_SAMPLES = 3  # timed calls per end-to-end cell; the first is checked
+E2E_ONE_CALL_S = 5.0  # a graph call whose first timed run takes this long is timed once
+
+
+def e2e_samples(timer, call, first_s: float) -> list:
+    """Seconds of a graph call's timed runs, the first taking ``first_s``:
+    ``E2E_SAMPLES`` in all, or that one alone from ``E2E_ONE_CALL_S`` up."""
+    if first_s >= E2E_ONE_CALL_S:
+        return [first_s]
+    return [first_s] + [timer(call)[1] for _ in range(E2E_SAMPLES - 1)]
 
 
 # Host calls that each put one record on the card's timeline.
@@ -1022,7 +1040,7 @@ def phase_cc(dev, graphs, timer):
 
         (labels, rounds, stats), first = timer(call)
         counts = dict(launch_counts)
-        secs = [first] + [timer(call)[1] for _ in range(E2E_SAMPLES - 1)]
+        secs = e2e_samples(timer, call, first)
         s_t = torch.from_numpy(src.astype(np.int64)).to(dev)
         d_t = torch.from_numpy(dst.astype(np.int64)).to(dev)
         check(labels.device.type == dev.type, f"{name}: labels on {dev}")
@@ -1097,7 +1115,7 @@ def phase_list(dev, n, timer):
 
     (rank, stats), first = timer(call)
     counts = dict(launch_counts)
-    secs = [first] + [timer(call)[1] for _ in range(E2E_SAMPLES - 1)]
+    secs = e2e_samples(timer, call, first)
     succ_t = torch.from_numpy(succ.astype(np.int64)).to(dev)
     lanes = torch.arange(n, device=dev)
     check(rank.device.type == dev.type, f"ranks on {dev}")
@@ -2813,9 +2831,7 @@ def phase_trees(dev, timer) -> dict:
 
         def timed(name, fn):
             res, s = timer(fn)
-            samples = [s]
-            if s < 5.0:
-                samples += [timer(fn)[1] for _ in range(E2E_SAMPLES - 1)]
+            samples = e2e_samples(timer, fn, s)
             stage[name] = (median(samples), len(samples))
             return res
 
@@ -4293,12 +4309,21 @@ def phase_moe(dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 ATTN_BWD_SHAPE = (1, 32, 8, 4096, 128)  # qwen3-4b's training shape: B, Hq, Hkv, S, D
+# The wmma design's bf16 instance, D = 256, at gemma-2b's training shape
+# (no phase trains gemma-2b: it is timed here, its launches are phase 19's
+# float32 ones).
+ATTN_BWD_WMMA_SHAPE = (1, 8, 1, 4096, 256)
 ATTN_BWD_TOL = {"bfloat16": 3e-2, "float32": 2e-3}
 ATTN_BWD_CASES = (  # (label, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, dtype)
     ("qwen3-4b training shape", 1, 32, 8, 4096, 4096, 128, 128, True, None, "bfloat16"),
     ("mixtral window=4096 S=8192", 1, 4, 1, 8192, 8192, 128, 128, True, 4096, "bfloat16"),
     ("short window=100 S=1000", 1, 32, 8, 1000, 1000, 128, 128, True, 100, "bfloat16"),
     ("MLA (192, 128) S=1024", 1, 8, 8, 1024, 1024, 192, 128, True, None, "bfloat16"),
+    ("MLA GQA group 2 S=300", 2, 4, 2, 300, 300, 192, 128, True, None, "bfloat16"),
+    ("MLA non-causal ragged S=777", 1, 4, 4, 777, 777, 192, 128, False, None, "bfloat16"),
+    ("MLA Sq=129 Sk=1000 causal", 1, 8, 2, 129, 1000, 192, 128, True, None, "bfloat16"),
+    ("MLA rows without a live key Sq=300 Sk=100 window=64", 1, 4, 2, 300, 100, 192, 128,
+     True, 64, "bfloat16"),
     ("GQA S=300", 2, 4, 2, 300, 300, 64, 64, True, None, "float32"),
     ("non-causal ragged S=777", 1, 4, 4, 777, 777, 96, 96, False, None, "bfloat16"),
     ("Sq=129 Sk=1000 causal", 1, 8, 2, 129, 1000, 128, 128, True, None, "bfloat16"),
@@ -4374,10 +4399,12 @@ def lse_within(name: str, got, want, dtype_name: str) -> float:
 def phase_attention_bwd(dev) -> float:
     """Phase 17 (a): at each of ``ATTN_BWD_CASES`` the forward's log-sum-exp
     against ``attention_lse_ref`` and the backward kernel, on the design
-    ``bwd_design`` names, against ``attention_vjp_ref``; at the training
-    shape also two calls bit-equal and the autograd Function's gradients
-    equal to the direct call's. Returns the largest max_abs_err of the
-    gradients by design."""
+    ``bwd_design`` names (``"wgmma"`` at every MLA case), against
+    ``attention_vjp_ref``; at the training shape and at the first MLA case
+    also two calls bit-equal, and at the training shape the autograd
+    Function's gradients equal to the direct call's. Returns the largest
+    max_abs_err of the gradients by design, MLA's (192, 128) under
+    ``"mla"``."""
     import torch
 
     from repro_torch.kernels import launch_counts
@@ -4398,6 +4425,8 @@ def phase_attention_bwd(dev) -> float:
                                          (hq, sq, dv)))
         design = bwd_design(dtype, d, dv)
         designs.add(design)
+        key = "mla" if dv != d else design
+        check(key != "mla" or design == "wgmma", f"{label}: MLA on the wgmma design")
         name = (f"{label} B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} "
                 f"causal={causal} window={window} {dt} [{design}]")
         out, lse = flash_attention_lse(q, k, v, causal=causal, window=window, impl="cuda")
@@ -4407,12 +4436,14 @@ def phase_attention_bwd(dev) -> float:
         torch.cuda.synchronize()
         want = attention_vjp_ref(q, k, v, dout, causal=causal, window=window)
         for grad_name, g, w in zip(("dq", "dk", "dv"), got, want):
-            errs[design] = max(errs.get(design, 0.0),
-                               grad_within(f"{name} {grad_name}", g, w, dt))
-        if label.startswith("qwen3-4b"):
+            errs[key] = max(errs.get(key, 0.0), grad_within(f"{name} {grad_name}", g, w, dt))
+        if label.startswith(("qwen3-4b", "MLA (192, 128)")):
             again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
             check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                  "the backward kernel: two calls give the same bits")
+                  f"the backward kernel: two calls give the same bits ({label})")
+            print(f"flash_attention.bwd {label}: two calls bit-equal")
+            del again
+        if label.startswith("qwen3-4b"):
             leaves = [x.clone().requires_grad_() for x in (q, k, v)]
             before = launch_counts["flash_attention.bwd"]
             o = flash_attention(*leaves, causal=causal, window=window, impl="cuda")
@@ -4420,9 +4451,8 @@ def phase_attention_bwd(dev) -> float:
             check(launch_counts["flash_attention.bwd"] == before + 1
                   and all(torch.equal(x.grad, y) for x, y in zip(leaves, got)),
                   "the autograd Function's gradients are the direct call's, one launch")
-            print("flash_attention.bwd: two calls bit-equal; the autograd Function "
-                  "gives the direct call's bits")
-            del again, leaves, o
+            print("flash_attention.bwd: the autograd Function gives the direct call's bits")
+            del leaves, o
         del q, k, v, dout, out, lse, got, want
     check(designs == {"wgmma", "wmma"}, f"phase 17 (a) holds both designs: {designs}")
     print(f"flash_attention.bwd: {len(ATTN_BWD_CASES)} cases on the designs {sorted(designs)}; "
@@ -4524,7 +4554,7 @@ TRAIN_GRAD_TOL = 3e-2  # bf16 gradients of the two routes, per leaf in norm
 TRAIN_MICRO_TOL = 1e-3  # the 2-microbatch step against the mean of its halves
 # Phase 17 (e): deepseek-v3 at full width cut to its 3 dense layers and
 # the MTP layer, one loss-and-gradients step at B=1: its MLA attention,
-# (D, Dv) = (192, 128), is the backward's wmma design on the main path. S
+# (D, Dv) = (192, 128), is the backward's wgmma design on the main path. S
 # is cut to 2048 so that the plain route's (1, 128, S, S) float32 scores
 # and their autograd (~2.1 GB each) fit beside the model.
 TRAIN_MLA_ARCH = "deepseek-v3-671b"
@@ -4681,7 +4711,7 @@ def phase_train_mla(dev, card: str) -> dict:
     the MTP layer, B=1, S=``TRAIN_MLA_S``: one ``value_and_grads`` on the
     kernel route, its launches counted from 0 (MLA's attention: a forward
     launch a layer, one more in each remat recompute, and a backward
-    launch a layer on its wmma design), its gradients against the
+    launch a layer on its wgmma design), its gradients against the
     ``impl="torch"`` route's, and its wall time."""
     import torch
 
@@ -4708,9 +4738,9 @@ def phase_train_mla(dev, card: str) -> dict:
     counts = dict(launch_counts)
     dense, mtp = cfg.num_dense_layers_effective(), cfg.mtp_depth
     want = {"flash_attention": dense * (2 if cfg.remat else 1) + mtp,
-            "flash_attention.bwd.wmma": dense + mtp, "flash_attention.bwd": 0}
+            "flash_attention.bwd": dense + mtp, "flash_attention.bwd.wmma": 0}
     check(all(counts[k] == v for k, v in want.items()),
-          f"the MLA step went through the forward and the wmma backward: {counts}, "
+          f"the MLA step went through the forward and the wgmma backward: {counts}, "
           f"want {want}")
     with attention_on_plain_route():
         loss_t, grads_t = value_and_grads(mla_loss, params, batch)
@@ -5189,7 +5219,7 @@ def phase_sharded_train(dev, ogb: dict, card: str) -> dict:
     for part in parts.values():
         for k, v in part["counts"].items():
             counts[k] = counts.get(k, 0) + v
-    for name in ("flash_attention", "flash_attention.bwd.wmma", "segment_sum"):
+    for name in ("flash_attention", "flash_attention.bwd", "segment_sum"):
         check(counts.get(name, 0) > 0, f"phase 18 launched {name}: {counts}")
     secs = time.perf_counter() - t0
     print(f"sharded phase 18 launches={counts} phase_s={secs} [{card}]")
@@ -5695,7 +5725,8 @@ def main() -> int:
     t17 = time.perf_counter()
     bwd_errs = phase_attention_bwd(dev)
     bwd_times = {"wgmma": attention_bwd_times(dev, card),
-                 "wmma": attention_bwd_times(dev, card, TRAIN_MLA_ATTN, dv=128)}
+                 "mla": attention_bwd_times(dev, card, TRAIN_MLA_ATTN, dv=128),
+                 "wmma": attention_bwd_times(dev, card, ATTN_BWD_WMMA_SHAPE)}
     train_lm = phase_train_lm(dev, card)
     train_mla = phase_train_mla(dev, card)
     train_gnn = phase_train_gnn(dev, ogb, card)
@@ -5796,27 +5827,38 @@ def main() -> int:
         print(f"time segment_sum MoE combine (record, {name} ({t * k}, {d}) bf16): "
               f"ms={c_ms} eager_ms={c_eager} plain_ms={c_plain} "
               f"library_ms(segment_reduce)={c_lib} bound_ms={c_bound} [{card}]")
-    # The backward's two designs: wgmma at qwen3-4b's training shape (its
-    # launches in phase 17 (b)'s train()), wmma at MLA's (its launches in
-    # phase 17 (e)'s step).
-    for design, name, shape, launched in (
-            ("wgmma", "flash_attention.bwd", ATTN_BWD_SHAPE, train_lm["counts"]),
-            ("wmma", "flash_attention.bwd.wmma", TRAIN_MLA_ATTN, train_mla["counts"])):
-        ms, plain_ms, lib_ms, bound_ms = bwd_times[design]
+    # The backward: the wgmma design at qwen3-4b's training shape (its
+    # launches in phase 17 (b)'s train(), phase 18's mixtral and gnn parts
+    # and phase 19) and at MLA's (phase 17 (e)'s step and phase 18 (a)),
+    # the wmma design at gemma-2b's D = 256 (its launches: phase 19's
+    # float32 ones).
+    lm_part = sharded_train["parts"]["lm"]["counts"].get("flash_attention.bwd", 0)
+    for key, name, shape, dv_, launched in (
+            ("wgmma", "flash_attention.bwd", ATTN_BWD_SHAPE, None,
+             train_lm["counts"]["flash_attention.bwd"]
+             + sharded_train["counts"].get("flash_attention.bwd", 0) - lm_part
+             + slice16["counts"].get("flash_attention.bwd", 0)),
+            ("mla", "flash_attention.bwd.mla_192_128", TRAIN_MLA_ATTN, 128,
+             train_mla["counts"]["flash_attention.bwd"] + lm_part),
+            ("wmma", "flash_attention.bwd.wmma", ATTN_BWD_WMMA_SHAPE, None,
+             sharded_train["counts"].get("flash_attention.bwd.wmma", 0)
+             + slice16["counts"].get("flash_attention.bwd.wmma", 0))):
+        ms, plain_ms, lib_ms, bound_ms = bwd_times[key]
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": KERNELS["flash_attention"][1],
-            "launches": (launched[name] + sharded_train["counts"].get(name, 0)
-                         + slice16["counts"].get(name, 0)),
-            "max_abs_err": bwd_errs[design], "ms": ms, "plain_ms": plain_ms,
+            "launches": launched,
+            "max_abs_err": bwd_errs[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms,
         })
         b_, hq_, hkv_, s_, d_ = shape
+        design = "wmma" if key == "wmma" else "wgmma"
         print(f"time {name} (record, {design} design, B={b_} Hq={hq_} Hkv={hkv_} S={s_} "
-              f"D={d_}{' Dv=128' if design == 'wmma' else ''} bf16 causal): ms={ms} "
+              f"D={d_}{f' Dv={dv_}' if dv_ else ''} bf16 causal): ms={ms} "
               f"plain_ms={plain_ms} library_ms(sdpa backward)={lib_ms} "
-              f"bound_ms={bound_ms} share_of_bound={bound_ms / ms} [{card}]")
+              f"bound_ms={bound_ms} share_of_bound={bound_ms / ms} launches={launched} "
+              f"[{card}]")
     print("flash_attention.bwd has no Pallas counterpart: the reference takes the VJP "
           "of _attn_kernel's function by autodiff")
     records.append({

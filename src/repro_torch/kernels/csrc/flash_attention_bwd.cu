@@ -28,43 +28,50 @@
 // Bound on this card: operations. The five products, causal-halved, at
 // qwen3-4b's training shape (B=1, Hq=32, Hkv=8, S=4096, D=128) are 3.4e11
 // FLOPs, 0.35 ms at 989 TFLOP/s (the seven run: 0.49 ms); the bytes (q, k,
-// v, out, dout read, dq, dk, dv written) take 0.03 ms at 3.35 TB/s. Its time
-// against the bound is in PERF.md.
+// v, out, dout read, dq, dk, dv written) take 0.03 ms at 3.35 TB/s. At MLA's
+// training shape (B=1, H=128, S=2048, (D, Dv) = (192, 128)) the five are
+// 4.5e11 FLOPs, 0.45 ms. Its times against the bounds are in PERF.md.
 //
 // Two designs, chosen in flash_attention_bwd below (ops.py::bwd_design
 // states the same choice). No atomics in either: every call gives the same
 // bits.
 //
-// "wgmma": bfloat16 with D = Dv in {16, 32, 64, 96, 128}, the forward's
-// warp-specialised shape (hopper_attention.cuh): a producer warpgroup feeds
-// a two-stage TMA ring on mbarriers, two consumer warpgroups (setmaxnreg
-// 24/240) run wgmma with float32 accumulators in registers; a head dim below
-// a multiple of 64 loads as the next multiple (TMA fills zeros).
+// "wgmma": bfloat16 with D = Dv in {16, 32, 64, 96, 128} and MLA's (D, Dv)
+// = (192, 128), the forward's warp-specialised shape (hopper_attention.cuh):
+// a producer warpgroup feeds a TMA ring on mbarriers, two consumer
+// warpgroups (setmaxnreg 24/240) run wgmma with float32 accumulators in
+// registers; a head dim below a multiple of 64 loads as the next multiple
+// (TMA fills zeros). D's and Dv's widths are separate template arguments
+// (TcBwd<DP, DVP>, whose comment reckons each instance's registers).
 //   1. attn_bwd_dq_tc, one block a (b * Hq + h, query tile of 128 rows), the
 //      longest causal rows first. The producer loads Q and dO once and
-//      streams K and V tiles of 128 keys (kv_tile_range, the forward's
-//      schedule). Each consumer owns 64 rows: it takes D_i = rowsum(dO o O)
-//      and the rows' lse in its prologue (and writes both for pass 2, the
-//      lse in log2 units), then per tile S = Q K^T and dP = dO V^T (both operands
-//      in shared memory), P = 2^(S scale log2(e) - lse log2(e)) and dS =
-//      P o (dP - D_i) scale in registers, and dQ += dS K with dS as the
-//      register A operand and K read MN-major (as the forward reads V).
-//      Three products.
+//      streams K and V tiles of BK1 keys (128; 64 at (192, 128): dQ's 96
+//      registers leave too few for 128-key S and dP) on kv_tile_range, the
+//      forward's schedule. Each consumer owns 64 rows: it takes D_i =
+//      rowsum(dO o O) over Dv and the rows' lse in its prologue (and writes
+//      both for pass 2, the lse in log2 units), then per tile S = Q K^T and
+//      dP = dO V^T (both operands in shared memory), P = 2^(S scale log2(e)
+//      - lse log2(e)) and dS = P o (dP - D_i) scale in registers, and dQ +=
+//      dS K with dS as the register A operand and K read MN-major (as the
+//      forward reads V). Three products.
 //   2. attn_bwd_dkdv_tc, one block a (b * Hkv + KV head, key tile of 128
 //      keys), the first key tiles first. K and V stay resident; the producer
-//      streams 64-row tiles of Q and dO, with their (lse, D_i), for each of
-//      the group's query heads and each query tile that holds a live pair
+//      streams tiles of RK query rows of Q and dO (64; 32 at (192, 128),
+//      where dK and dV take 160 registers), with their (lse, D_i), for each
+//      of the group's query heads and each query tile that holds a live pair
 //      for the key tile (bwd_tile_plan in ops.py). Each consumer owns 64
 //      keys: S^T = K Q^T and dP^T = V dO^T in shared memory, P^T and dS^T in
 //      registers with lse and D_i indexed by column, dV += P^T dO and dK +=
 //      dS^T Q with Q and dO read MN-major. dK and dV stay in float32
-//      registers across all of the group's heads. Four products.
+//      registers across all of the group's heads. Four products. At (192,
+//      128) a step's S^T and dP^T are issued right behind the last step's
+//      dK product, a six-stage ring ahead of them.
 //   Only the tiles that need it take the mask: one crossing the causal
 //   diagonal, one at the window's lower edge, one holding key Sk - 1. Rows
 //   past Sq read zeros and an lse of +inf, so they add nothing unmasked.
 //
-// "wmma" (the first design, kept for bf16 D = 256, bf16 (D, Dv) = (192, 128)
-// and float32 at every head dim): FlashAttention-2's schedule on 256-thread
+// "wmma" (the first design, kept for bf16 D = 256 and float32 at every head
+// dim): FlashAttention-2's schedule on 256-thread
 // blocks whose products are block_mm, wmma m16n16k16 tiles through shared
 // memory (bf16 operands, float32 accumulators; P and dS rounded to bf16 as
 // operands) or float32 FMA (TF32 would break the 2e-3 tolerance).
@@ -122,7 +129,7 @@ template <typename T, int D, int DV>
 struct Cfg {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;
   static constexpr int BQ = kBf16 ? 64 : 16;                      // query rows a tile
-  static constexpr int BK = kBf16 ? (D > 192 || DV > 192 ? 32 : 64) : 16;  // keys a tile
+  static constexpr int BK = kBf16 ? 32 : 16;                      // keys a tile (bf16: D = 256)
   static constexpr int TPR = kThreads / BQ;                       // threads a row
   static constexpr int PAD = 16 / sizeof(T);
   static constexpr int LDD = D + PAD;   // q, k tiles
@@ -258,7 +265,7 @@ __device__ __forceinline__ void key_tiles(const Params& p, int q0, int q1, int b
 }
 
 // ---------------------------------------------------------------------------
-// "wmma": bf16 D = 256, bf16 (192, 128), float32
+// "wmma": bf16 D = 256, float32
 // ---------------------------------------------------------------------------
 
 // Pass 1: one block a (b * Hq + h, query tile); the longest causal rows
@@ -462,77 +469,100 @@ int run(const Params& p, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// "wgmma": bf16, D = Dv in {16, 32, 64, 96, 128}
+// "wgmma": bf16, D = Dv in {16, 32, 64, 96, 128}, and (D, Dv) = (192, 128)
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRowsQ = 128;  // pass 1: query rows a block (64 a consumer)
-constexpr int kTcKeys = 128;   // keys a K/V tile (pass 1) and a block (pass 2, 64 a consumer)
-constexpr int kTcRowsK = 64;   // pass 2: query rows a Q/dO tile (ops.py's BWD_STAT_ROWS)
-constexpr int kDqStages = 2;   // pass 1's K/V ring stages
-constexpr int kDkdvStages = 2; // pass 2's Q/dO ring stages
+constexpr int kTcKeys = 128;   // pass 2: keys a block (64 a consumer)
 
 struct TcParams {
   const bf16* o;      // out, for D_i
   const bf16* dout;   // dout, for D_i
   long long o_sb, o_sh, o_ss, do_sb, do_sh, do_ss;  // their element strides
   const float* lse;   // (B, Hq, Sq): the forward's, natural log
-  float* stats;       // pass 1 -> pass 2: per (b * Hq + h, tile of kTcRowsK rows)
-                      // the rows' lse log2(e), then their D_i (rows padded to sq_pad)
+  float* stats;       // pass 1 -> pass 2: per (b * Hq + h, tile of RK rows) the
+                      // rows' lse log2(e), then their D_i (rows padded to sq_pad)
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  int hq, hkv, sq, sk, sq_pad, d, causal, window;
+  int hq, hkv, sq, sk, sq_pad, d, dv_dim, causal, window;
   float scale, scale2;  // 1 / sqrt(D) and log2(e) / sqrt(D)
 };
 
-// DP: D rounded up to a multiple of 64 (the width loaded and multiplied).
-template <int DP>
-struct TcDq {
-  static constexpr int NP = DP / kPanel;
-  static constexpr uint32_t Q_BYTES = kTcRowsQ * DP * 2;  // Q, and dO alike
-  static constexpr uint32_t K_BYTES = kTcKeys * DP * 2;   // K, and V alike
-  // 1024 to align the tiles; Q, dO; the K and V rings; 1 + 4 * kDqStages
+// The tiles (ops.py::bwd_tiles states the same) and shared memory of one
+// instance. DP: D rounded up to a multiple of 64, the width of q and k
+// loaded and multiplied; DVP: Dv likewise, that of v, out and dout. A
+// consumer thread has kConsumerRegs = 240 registers, and its accumulators
+// and operands take, in floats or packed bf16 pairs:
+//   pass 1, dQ + S + dP + dS packed: DP/2 + BK1/2 + BK1/2 + BK1/4; at DP =
+//     128 with BK1 = 128 keys a K/V tile, 64 + 64 + 64 + 32 = 224; at DP =
+//     192 that tile would need 256, so BK1 = 64: 96 + 32 + 32 + 16 = 176.
+//   pass 2, dK + dV + S^T + dP^T + P^T and dS^T packed: DP/2 + DVP/2 + RK/2
+//     + RK/2 + RK/4 + RK/4 for Q/dO tiles of RK rows; at (128, 128) with RK
+//     = 64, 64 + 64 + 32 + 32 + 16 + 16 = 224; at (192, 128) RK = 64 would
+//     need 256, so RK = 32: 96 + 64 + 16 + 16 + 8 + 8 = 208.
+// The smaller pass-2 tiles leave shared memory for a deeper ring.
+template <int DP, int DVP>
+struct TcBwd {
+  static constexpr int NP = DP / kPanel;    // 64-column panels of q and k
+  static constexpr int NPV = DVP / kPanel;  // those of v and dout
+  static constexpr bool kWide = DP > 128;
+  // Pass 1: K/V tiles of BK1 keys in a ring of STAGES1.
+  static constexpr int BK1 = kWide ? 64 : 128;
+  static constexpr int STAGES1 = 2;
+  static constexpr uint32_t Q1_BYTES = kTcRowsQ * DP * 2;
+  static constexpr uint32_t DO1_BYTES = kTcRowsQ * DVP * 2;
+  static constexpr uint32_t K1_BYTES = BK1 * DP * 2;
+  static constexpr uint32_t V1_BYTES = BK1 * DVP * 2;
+  // 1024 to align the tiles; Q, dO; the K and V rings; 1 + 4 * STAGES1
   // mbarriers.
-  static constexpr size_t SMEM =
-      1024 + 2 * Q_BYTES + kDqStages * 2 * K_BYTES + 8 * (1 + 4 * kDqStages);
-  static_assert(SMEM <= 227 * 1024, "a block's shared memory is at most 227 KB");
-};
-
-template <int DP>
-struct TcDkdv {
-  static constexpr int NP = DP / kPanel;
-  static constexpr uint32_t K_BYTES = kTcKeys * DP * 2;   // K, and V alike
-  static constexpr uint32_t Q_BYTES = kTcRowsK * DP * 2;  // a Q tile, and a dO tile alike
-  static constexpr uint32_t STAT_BYTES = 2 * kTcRowsK * sizeof(float);  // lse, then D_i
+  static constexpr size_t SMEM1 =
+      1024 + Q1_BYTES + DO1_BYTES + STAGES1 * (K1_BYTES + V1_BYTES) + 8 * (1 + 4 * STAGES1);
+  // Pass 2: Q/dO tiles of RK rows with their (lse, D_i) in a ring of STAGES2.
+  static constexpr int RK = kWide ? 32 : 64;
+  static constexpr int STAGES2 = kWide ? 6 : 2;
+  // Pass 2 issues step i + 1's S^T and dP^T right behind step i's dK
+  // product where the registers allow it: at DP = 128 that loop spills.
+  static constexpr bool kOverlap2 = kWide;
+  static constexpr uint32_t K2_BYTES = kTcKeys * DP * 2;
+  static constexpr uint32_t V2_BYTES = kTcKeys * DVP * 2;
+  static constexpr uint32_t Q2_BYTES = RK * DP * 2;
+  static constexpr uint32_t DO2_BYTES = RK * DVP * 2;
+  static constexpr uint32_t STAT_BYTES = 2 * RK * sizeof(float);  // lse, then D_i
   // 1024 to align the tiles; K, V; the Q, dO and stats rings; 1 + 2 *
-  // kDkdvStages mbarriers.
-  static constexpr size_t SMEM = 1024 + 2 * K_BYTES + kDkdvStages * (2 * Q_BYTES + STAT_BYTES) +
-                                 8 * (1 + 2 * kDkdvStages);
-  static_assert(SMEM <= 227 * 1024, "a block's shared memory is at most 227 KB");
+  // STAGES2 mbarriers.
+  static constexpr size_t SMEM2 = 1024 + K2_BYTES + V2_BYTES +
+                                  STAGES2 * (Q2_BYTES + DO2_BYTES + STAT_BYTES) +
+                                  8 * (1 + 2 * STAGES2);
+  static_assert(SMEM1 <= 227 * 1024 && SMEM2 <= 227 * 1024,
+                "a block's shared memory is at most 227 KB");
+  static_assert(DP / 2 + BK1 + BK1 / 4 <= 224 && DP / 2 + DVP / 2 + RK + RK / 2 <= 224,
+                "a consumer's accumulators and operands leave room in 240 registers");
 };
 
-// Pass 2's walk over the query tiles of one key tile [k0, k1], the same for
-// each query head of the group (ops.py::bwd_tile_plan): from the first tile
-// with a live pair (causal: the one holding row k0, if any) to the last with one,
-// then, where rows with no live key exist (a window and Sq >= Sk + window),
-// on from the first tile holding such a row to the end, since those rows
-// weigh every key.
+// Pass 2's walk over the query tiles (of RK rows) of one key tile [k0, k1],
+// the same for each query head of the group (ops.py::bwd_tile_plan): from
+// the first tile with a live pair (causal: the one holding row k0, if any)
+// to the last with one, then, where rows with no live key exist (a window
+// and Sq >= Sk + window), on from the first tile holding such a row to the
+// end, since those rows weigh every key.
+template <int RK>
 struct QueryWalk {
   int first, live_hi, dead_lo, last;
 
   __device__ QueryWalk(const TcParams& p, int k0, int k1) {
-    last = (p.sq - 1) / kTcRowsK;
+    last = (p.sq - 1) / RK;
     live_hi = last;
     dead_lo = last + 1;
     if (p.window > 0) {
       const long long hi = min(static_cast<long long>(p.sq) - 1,
                                static_cast<long long>(k1) + p.window - 1);
-      live_hi = static_cast<int>(hi / kTcRowsK);
+      live_hi = static_cast<int>(hi / RK);
       const long long dead = static_cast<long long>(p.sk) + p.window - 1;
-      if (dead <= p.sq - 1) dead_lo = static_cast<int>(dead / kTcRowsK);
+      if (dead <= p.sq - 1) dead_lo = static_cast<int>(dead / RK);
     }
     // Causal: from the tile holding row k0, none where there is no such row.
-    first = !p.causal ? 0 : k0 >= p.sq ? last + 1 : skip(k0 / kTcRowsK);
+    first = !p.causal ? 0 : k0 >= p.sq ? last + 1 : skip(k0 / RK);
   }
   __device__ int skip(int qt) const { return qt > live_hi && qt < dead_lo ? dead_lo : qt; }
   __device__ int next(int qt) const { return skip(qt + 1); }
@@ -558,25 +588,82 @@ __device__ __forceinline__ void probs_by_row(float (&sc)[N / 2], const float (&l
     }
 }
 
-template <int DP>
+// Pass 2's P^T in place of S^T, by column (the tile's query rows q0 + 8j
+// + col, + 1, whose lse2 are in log2 units), packed pairwise into pa as the
+// A operand of dV += P^T dO; where the tile takes the mask, 0 where masked
+// or past Sk, and for a row with no live key (lse = +inf) `uniform` = 1/Sk
+// in pa and 0 in st, so its dS is 0. The thread's keys: key and key + 8.
+template <int RK>
+__device__ __forceinline__ void probs_by_col(float (&st)[RK / 2], uint32_t (&pa)[RK / 16][4],
+                                             const float2* lse2, const TcParams& p,
+                                             bool need_mask, int q0, int key, int col,
+                                             float uniform) {
+#pragma unroll
+  for (int j = 0; j < RK / 8; ++j) {
+    const float2 l2 = lse2[4 * j + col / 2];  // columns 8j + col, + 1
+    float pv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float l = (e & 1) ? l2.y : l2.x;
+      float x = fast_exp2(fmaf(st[4 * j + e], p.scale2, -l));
+      pv[e] = x;
+      if (need_mask) {
+        const int kpos = key + 8 * (e >> 1);
+        const int qpos = q0 + 8 * j + col + (e & 1);
+        if (l == INFINITY) {
+          pv[e] = kpos < p.sk ? uniform : 0.f;
+          x = 0.f;
+        } else if (kpos >= p.sk || masked(p.causal, p.window, qpos, kpos)) {
+          pv[e] = x = 0.f;
+        }
+      }
+      st[4 * j + e] = x;
+    }
+    pa[j / 2][2 * (j % 2)] = pack_bf16(pv[0], pv[1]);
+    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pv[2], pv[3]);
+  }
+}
+
+// Pass 2's dS^T = P^T o (dP^T - D_i) scale in place of dP^T, D_i by
+// column, packed into pb as the A operand of dK += dS^T Q.
+template <int RK>
+__device__ __forceinline__ void dscores_by_col(const float (&st)[RK / 2], float (&dpt)[RK / 2],
+                                               uint32_t (&pb)[RK / 16][4], const float2* delta,
+                                               float scale, int col) {
+#pragma unroll
+  for (int j = 0; j < RK / 8; ++j) {
+    const float2 di = delta[4 * j + col / 2];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? di.y : di.x)) * scale;
+  }
+  pack_p<RK>(dpt, pb);
+}
+
+template <int DP, int DVP>
 __global__ void __launch_bounds__(kTcThreads, 1)
     attn_bwd_dq_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                    const TcParams p) {
-  using Shape = TcDq<DP>;
+  using Shape = TcBwd<DP, DVP>;
   constexpr int NP = Shape::NP;
+  constexpr int NPV = Shape::NPV;
+  constexpr int BK = Shape::BK1;
+  constexpr int STAGES = Shape::STAGES1;
+  constexpr int RK = Shape::RK;
   extern __shared__ unsigned char smem_raw[];
-  // Q and dO (NP panels of 128 rows x 128 bytes each), then the K and V
-  // rings (kDqStages stages of NP panels of kTcKeys rows), 1024-aligned.
+  // Q (NP panels of 128 rows x 128 bytes each) and dO (NPV such panels),
+  // then the K and V rings (STAGES stages of NP and NPV panels of BK
+  // rows), 1024-aligned.
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t do_s = q_s + Shape::Q_BYTES;
-  const uint32_t k_s = do_s + Shape::Q_BYTES;
-  const uint32_t v_s = k_s + kDqStages * Shape::K_BYTES;
-  const uint32_t bar_q = v_s + kDqStages * Shape::K_BYTES;
+  const uint32_t do_s = q_s + Shape::Q1_BYTES;
+  const uint32_t k_s = do_s + Shape::DO1_BYTES;
+  const uint32_t v_s = k_s + STAGES * Shape::K1_BYTES;
+  const uint32_t bar_q = v_s + STAGES * Shape::V1_BYTES;
   const uint32_t full_k = bar_q + 8;  // stage s at + 8 s
-  const uint32_t full_v = full_k + 8 * kDqStages;
-  const uint32_t empty_k = full_v + 8 * kDqStages;
-  const uint32_t empty_v = empty_k + 8 * kDqStages;
+  const uint32_t full_v = full_k + 8 * STAGES;
+  const uint32_t empty_k = full_v + 8 * STAGES;
+  const uint32_t empty_v = empty_k + 8 * STAGES;
 
   const int bh = blockIdx.x;
   const int b = bh / p.hq;
@@ -585,12 +672,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRowsQ;  // longest rows first
   const int q1 = min(q0 + kTcRowsQ, p.sq) - 1;
   int lo, hi;
-  kv_tile_range(p.sk, p.causal, p.window, q0, q1, kTcKeys, lo, hi);
+  kv_tile_range(p.sk, p.causal, p.window, q0, q1, BK, lo, hi);
   const int n_tiles = hi - lo + 1;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_k + 8 * s, 1);
       mbar_init(full_v + 8 * s, 1);
       mbar_init(empty_k + 8 * s, kConsumerWarps);
@@ -604,27 +691,29 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     // Producer: Q and dO once, then K and V, last tile first.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, 2 * Shape::Q_BYTES);
+      mbar_expect_tx(bar_q, Shape::Q1_BYTES + Shape::DO1_BYTES);
 #pragma unroll
-      for (int pp = 0; pp < NP; ++pp) {
+      for (int pp = 0; pp < NP; ++pp)
         tma_load(q_s + pp * kTcRowsQ * 128, &tq, pp * kPanel, q0, h, b, bar_q);
+#pragma unroll
+      for (int pp = 0; pp < NPV; ++pp)
         tma_load(do_s + pp * kTcRowsQ * 128, &tdo, pp * kPanel, q0, h, b, bar_q);
-      }
       for (int i = 0; i < n_tiles; ++i) {
-        const int k0 = (hi - i) * kTcKeys;
-        const int s = i % kDqStages;
-        const uint32_t parity = ((i / kDqStages) & 1) ^ 1;
-        const uint32_t off = s * Shape::K_BYTES;
+        const int k0 = (hi - i) * BK;
+        const int s = i % STAGES;
+        const uint32_t parity = ((i / STAGES) & 1) ^ 1;
+        const uint32_t k_off = s * Shape::K1_BYTES;
+        const uint32_t v_off = s * Shape::V1_BYTES;
         mbar_wait(empty_k + 8 * s, parity);
-        mbar_expect_tx(full_k + 8 * s, Shape::K_BYTES);
+        mbar_expect_tx(full_k + 8 * s, Shape::K1_BYTES);
 #pragma unroll
         for (int pp = 0; pp < NP; ++pp)
-          tma_load(k_s + off + pp * kTcKeys * 128, &tk, pp * kPanel, k0, kvh, b, full_k + 8 * s);
+          tma_load(k_s + k_off + pp * BK * 128, &tk, pp * kPanel, k0, kvh, b, full_k + 8 * s);
         mbar_wait(empty_v + 8 * s, parity);
-        mbar_expect_tx(full_v + 8 * s, Shape::K_BYTES);
+        mbar_expect_tx(full_v + 8 * s, Shape::V1_BYTES);
 #pragma unroll
-        for (int pp = 0; pp < NP; ++pp)
-          tma_load(v_s + off + pp * kTcKeys * 128, &tv, pp * kPanel, k0, kvh, b, full_v + 8 * s);
+        for (int pp = 0; pp < NPV; ++pp)
+          tma_load(v_s + v_off + pp * BK * 128, &tv, pp * kPanel, k0, kvh, b, full_v + 8 * s);
       }
     }
   } else {
@@ -637,19 +726,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int col = 2 * (lane % 4);                          // and col + 1, + 8j
 
     // Prologue, while the producer's loads are in flight: D_i over the quad
-    // (each lane a quarter of the row's columns) and lse, in log2 units, for
-    // rows row and row + 8; both written out for pass 2, rows past Sq as
-    // (+inf, 0).
+    // (each lane a quarter of the row's Dv columns) and lse, in log2 units,
+    // for rows row and row + 8; both written out for pass 2, rows past Sq
+    // as (+inf, 0).
     float lse2[2], delta[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int rr = row + 8 * r;
       float acc = 0.f;
       if (rr < p.sq) {
-        const int c0 = (lane % 4) * (p.d / 4);
+        const int c0 = (lane % 4) * (p.dv_dim / 4);
         const bf16* orow = p.o + b * p.o_sb + h * p.o_sh + rr * p.o_ss + c0;
         const bf16* drow = p.dout + b * p.do_sb + h * p.do_sh + rr * p.do_ss + c0;
-        for (int j = 0; j < p.d / 4; j += 4) {
+        for (int j = 0; j < p.dv_dim / 4; j += 4) {
           const uint2 ov = *reinterpret_cast<const uint2*>(orow + j);
           const uint2 dv = *reinterpret_cast<const uint2*>(drow + j);
           const float2 o01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov.x));
@@ -667,60 +756,60 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       delta[r] = acc;
       lse2[r] = rr < p.sq ? p.lse[static_cast<long long>(bh) * p.sq + rr] * kLog2e : INFINITY;
       if (lane % 4 == 0 && rr < p.sq_pad) {
-        float* tile = p.stats + (static_cast<long long>(bh) * p.sq_pad + rr / kTcRowsK * kTcRowsK) * 2;
-        tile[rr % kTcRowsK] = lse2[r];
-        tile[kTcRowsK + rr % kTcRowsK] = delta[r];
+        float* tile = p.stats + (static_cast<long long>(bh) * p.sq_pad + rr / RK * RK) * 2;
+        tile[rr % RK] = lse2[r];
+        tile[RK + rr % RK] = delta[r];
       }
     }
 
     float dq[DP / 2];
-    float sc[kTcKeys / 2];
-    float dp[kTcKeys / 2];
-    uint32_t pa[kTcKeys / 16][4];
+    float sc[BK / 2];
+    float dp[BK / 2];
+    uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kTcKeys / 2; ++i) sc[i] = dp[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) sc[i] = dp[i] = 0.f;
     const uint32_t q_rows = q_s + 64 * c * 128;
     const uint32_t do_rows = do_s + 64 * c * 128;
     mbar_wait(bar_q, 0);
     for (int i = 0; i < n_tiles; ++i) {
-      const int k0 = (hi - i) * kTcKeys;
-      const int s = i % kDqStages;
-      const uint32_t phase = (i / kDqStages) & 1;
-      const uint32_t k_tile = k_s + s * Shape::K_BYTES;
-      const uint32_t v_tile = v_s + s * Shape::K_BYTES;
-      const bool need_mask = (p.causal && k0 + kTcKeys - 1 > q0) ||
-                             (p.window > 0 && q1 - k0 >= p.window) || k0 + kTcKeys > p.sk;
+      const int k0 = (hi - i) * BK;
+      const int s = i % STAGES;
+      const uint32_t phase = (i / STAGES) & 1;
+      const uint32_t k_tile = k_s + s * Shape::K1_BYTES;
+      const uint32_t v_tile = v_s + s * Shape::V1_BYTES;
+      const bool need_mask = (p.causal && k0 + BK - 1 > q0) ||
+                             (p.window > 0 && q1 - k0 >= p.window) || k0 + BK > p.sk;
       // S = Q K^T and dP = dO V^T, two groups; P while dP runs.
       mbar_wait(full_k + 8 * s, phase);
       reg_fence(sc);
       wgmma_fence();
-      issue_ss<kTcKeys, DP / 16>(sc, q_rows, kTcRowsQ * 128, k_tile, kTcKeys * 128);
+      issue_ss<BK, DP / 16>(sc, q_rows, kTcRowsQ * 128, k_tile, BK * 128);
       wgmma_commit();
       mbar_wait(full_v + 8 * s, phase);
       reg_fence(dp);
       wgmma_fence();
-      issue_ss<kTcKeys, DP / 16>(dp, do_rows, kTcRowsQ * 128, v_tile, kTcKeys * 128);
+      issue_ss<BK, DVP / 16>(dp, do_rows, kTcRowsQ * 128, v_tile, BK * 128);
       wgmma_commit();
       wgmma_wait<1>();
       reg_fence(sc);
-      probs_by_row<kTcKeys>(sc, lse2, p, need_mask, k0, row, col);
+      probs_by_row<BK>(sc, lse2, p, need_mask, k0, row, col);
       wgmma_wait<0>();
       reg_fence(dp);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_v + 8 * s);
       // dS = P o (dP - D_i) scale, as the A operand of dQ += dS K.
 #pragma unroll
-      for (int j = 0; j < kTcKeys / 8; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - delta[e >> 1]) * p.scale;
-      pack_p<kTcKeys>(dp, pa);
+      pack_p<BK>(dp, pa);
       reg_fence(pa);
       reg_fence(dq);
       wgmma_fence();
-      issue_rs<DP, kTcKeys / 16>(dq, pa, k_tile, kTcKeys * 128);
+      issue_rs<DP, BK / 16>(dq, pa, k_tile, BK * 128);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dq);
@@ -745,26 +834,29 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-template <int DP>
+template <int DP, int DVP>
 __global__ void __launch_bounds__(kTcThreads, 1)
     attn_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tdo, const TcParams p) {
-  using Shape = TcDkdv<DP>;
+  using Shape = TcBwd<DP, DVP>;
   constexpr int NP = Shape::NP;
+  constexpr int NPV = Shape::NPV;
+  constexpr int RK = Shape::RK;
+  constexpr int STAGES = Shape::STAGES2;
   extern __shared__ unsigned char smem_raw[];
-  // K and V (NP panels of 128 keys x 128 bytes each), then the Q and dO
-  // rings (kDkdvStages stages of NP panels of 64 rows), the (lse, D_i) ring,
-  // 1024-aligned.
+  // K and V (NP and NPV panels of 128 keys x 128 bytes each), then the Q
+  // and dO rings (STAGES stages of NP and NPV panels of RK rows), the
+  // (lse, D_i) ring, 1024-aligned.
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = base;
-  const uint32_t v_s = k_s + Shape::K_BYTES;
-  const uint32_t q_s = v_s + Shape::K_BYTES;
-  const uint32_t do_s = q_s + kDkdvStages * Shape::Q_BYTES;
-  const uint32_t st_s = do_s + kDkdvStages * Shape::Q_BYTES;
-  const uint32_t bar_kv = st_s + kDkdvStages * Shape::STAT_BYTES;
+  const uint32_t v_s = k_s + Shape::K2_BYTES;
+  const uint32_t q_s = v_s + Shape::V2_BYTES;
+  const uint32_t do_s = q_s + STAGES * Shape::Q2_BYTES;
+  const uint32_t st_s = do_s + STAGES * Shape::DO2_BYTES;
+  const uint32_t bar_kv = st_s + STAGES * Shape::STAT_BYTES;
   const uint32_t full = bar_kv + 8;  // stage s at + 8 s
-  const uint32_t empty = full + 8 * kDkdvStages;
+  const uint32_t empty = full + 8 * STAGES;
   const float* stats = reinterpret_cast<const float*>(smem_raw + (st_s - smem_u32(smem_raw)));
 
   const int bhk = blockIdx.x;
@@ -773,11 +865,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int group = p.hq / p.hkv;
   const int k0 = blockIdx.y * kTcKeys;  // the first key tiles (longest columns) first
   const int k1 = min(k0 + kTcKeys, p.sk) - 1;
-  const QueryWalk walk(p, k0, k1);
+  const QueryWalk<RK> walk(p, k0, k1);
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
-    for (int s = 0; s < kDkdvStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, kConsumerWarps);
     }
@@ -789,29 +881,31 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     // Producer: K and V once, then Q, dO and (lse, D_i) tiles, head by head.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_kv, 2 * Shape::K_BYTES);
+      mbar_expect_tx(bar_kv, Shape::K2_BYTES + Shape::V2_BYTES);
 #pragma unroll
-      for (int pp = 0; pp < NP; ++pp) {
+      for (int pp = 0; pp < NP; ++pp)
         tma_load(k_s + pp * kTcKeys * 128, &tk, pp * kPanel, k0, hk, b, bar_kv);
+#pragma unroll
+      for (int pp = 0; pp < NPV; ++pp)
         tma_load(v_s + pp * kTcKeys * 128, &tv, pp * kPanel, k0, hk, b, bar_kv);
-      }
       int i = 0;
       for (int hg = 0; hg < group; ++hg) {
         const int h = hk * group + hg;
         const float* rows = p.stats + (static_cast<long long>(b) * p.hq + h) * p.sq_pad * 2;
         for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt), ++i) {
-          const int s = i % kDkdvStages;
+          const int s = i % STAGES;
           const uint32_t full_s = full + 8 * s;
-          mbar_wait(empty + 8 * s, ((i / kDkdvStages) & 1) ^ 1);
-          mbar_expect_tx(full_s, 2 * Shape::Q_BYTES + Shape::STAT_BYTES);
+          mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full_s, Shape::Q2_BYTES + Shape::DO2_BYTES + Shape::STAT_BYTES);
 #pragma unroll
-          for (int pp = 0; pp < NP; ++pp) {
-            const uint32_t off = s * Shape::Q_BYTES + pp * kTcRowsK * 128;
-            tma_load(q_s + off, &tq, pp * kPanel, qt * kTcRowsK, h, b, full_s);
-            tma_load(do_s + off, &tdo, pp * kPanel, qt * kTcRowsK, h, b, full_s);
-          }
-          bulk_load(st_s + s * Shape::STAT_BYTES, rows + qt * 2 * kTcRowsK, Shape::STAT_BYTES,
-                    full_s);
+          for (int pp = 0; pp < NP; ++pp)
+            tma_load(q_s + s * Shape::Q2_BYTES + pp * RK * 128, &tq, pp * kPanel, qt * RK, h, b,
+                     full_s);
+#pragma unroll
+          for (int pp = 0; pp < NPV; ++pp)
+            tma_load(do_s + s * Shape::DO2_BYTES + pp * RK * 128, &tdo, pp * kPanel, qt * RK, h,
+                     b, full_s);
+          bulk_load(st_s + s * Shape::STAT_BYTES, rows + qt * 2 * RK, Shape::STAT_BYTES, full_s);
         }
       }
     }
@@ -827,97 +921,124 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const float uniform = 1.f / static_cast<float>(p.sk);
 
     float dk[DP / 2];
-    float dv[DP / 2];
-    float st[kTcRowsK / 2];
-    float dpt[kTcRowsK / 2];
-    uint32_t pa[kTcRowsK / 16][4];
-    uint32_t pb[kTcRowsK / 16][4];
+    float dv[DVP / 2];
+    float st[RK / 2];
+    float dpt[RK / 2];
+    uint32_t pa[RK / 16][4];
+    uint32_t pb[RK / 16][4];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) dk[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kTcRowsK / 2; ++i) st[i] = dpt[i] = 0.f;
+    for (int i = 0; i < DVP / 2; ++i) dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < RK / 2; ++i) st[i] = dpt[i] = 0.f;
     const uint32_t k_rows = k_s + 64 * c * 128;
     const uint32_t v_rows = v_s + 64 * c * 128;
+    // Step i is (query head hg, query tile qt): the group's heads, each over
+    // the same query tiles. Per step: S^T = K Q^T and dP^T = V dO^T in two
+    // groups, P^T while dP^T runs, dV += P^T dO, dS^T, dK += dS^T Q.
+    const auto issue_st_dpt = [&](int i) {
+      const int s = i % STAGES;
+      mbar_wait(full + 8 * s, (i / STAGES) & 1);
+      reg_fence(st);
+      reg_fence(dpt);
+      wgmma_fence();
+      issue_ss<RK, DP / 16>(st, k_rows, kTcKeys * 128, q_s + s * Shape::Q2_BYTES, RK * 128);
+      wgmma_commit();
+      issue_ss<RK, DVP / 16>(dpt, v_rows, kTcKeys * 128, do_s + s * Shape::DO2_BYTES, RK * 128);
+      wgmma_commit();
+    };
+    const auto lse2_of = [&](int i) {
+      return reinterpret_cast<const float2*>(stats + (i % STAGES) * 2 * RK);
+    };
+    const auto need_mask = [&](int qt) {
+      const int q0 = qt * RK;
+      const int q1 = min(q0 + RK, p.sq) - 1;
+      return (p.causal && k0 + kTcKeys - 1 > q0) || (p.window > 0 && q1 - k0 >= p.window) ||
+             k0 + kTcKeys > p.sk;
+    };
     mbar_wait(bar_kv, 0);
-    int i = 0;
-    for (int hg = 0; hg < group; ++hg) {
-      for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt), ++i) {
-        const int s = i % kDkdvStages;
-        const int q0 = qt * kTcRowsK;
-        const int q1 = min(q0 + kTcRowsK, p.sq) - 1;
-        const uint32_t q_tile = q_s + s * Shape::Q_BYTES;
-        const uint32_t do_tile = do_s + s * Shape::Q_BYTES;
-        const float2* lse2 = reinterpret_cast<const float2*>(stats + s * 2 * kTcRowsK);
-        const float2* delta = lse2 + kTcRowsK / 2;
-        const bool need_mask = (p.causal && k0 + kTcKeys - 1 > q0) ||
-                               (p.window > 0 && q1 - k0 >= p.window) || k0 + kTcKeys > p.sk;
-        // S^T = K Q^T and dP^T = V dO^T, two groups.
-        mbar_wait(full + 8 * s, (i / kDkdvStages) & 1);
-        reg_fence(st);
-        reg_fence(dpt);
-        wgmma_fence();
-        issue_ss<kTcRowsK, DP / 16>(st, k_rows, kTcKeys * 128, q_tile, kTcRowsK * 128);
-        wgmma_commit();
-        issue_ss<kTcRowsK, DP / 16>(dpt, v_rows, kTcKeys * 128, do_tile, kTcRowsK * 128);
-        wgmma_commit();
+    if constexpr (!Shape::kOverlap2) {
+      // Every product of step i done before step i + 1's are issued; stage
+      // i goes back to the producer then.
+      int i = 0;
+      for (int hg = 0; hg < group; ++hg) {
+        for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt), ++i) {
+          const int s = i % STAGES;
+          issue_st_dpt(i);
+          wgmma_wait<1>();
+          reg_fence(st);
+          probs_by_col<RK>(st, pa, lse2_of(i), p, need_mask(qt), qt * RK, key, col, uniform);
+          reg_fence(pa);
+          reg_fence(dv);
+          wgmma_fence();
+          issue_rs<DVP, RK / 16>(dv, pa, do_s + s * Shape::DO2_BYTES, RK * 128);
+          wgmma_commit();
+          wgmma_wait<1>();
+          reg_fence(dpt);
+          dscores_by_col<RK>(st, dpt, pb, lse2_of(i) + RK / 2, p.scale, col);
+          reg_fence(pb);
+          reg_fence(dk);
+          wgmma_fence();
+          issue_rs<DP, RK / 16>(dk, pb, q_s + s * Shape::Q2_BYTES, RK * 128);
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(dv);
+          reg_fence(dk);
+          reg_fence(pa);
+          reg_fence(pb);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * s);
+        }
+      }
+    } else {
+      // Step i + 1's S^T and dP^T are issued right behind step i's dK
+      // product (S^T and dP^T are free once dS^T_i is packed), so the tensor
+      // cores find them queued; stage i goes back to the producer once
+      // S^T_{i+1} is done (step i's products, issued before it, are then
+      // done too). The loop turns where no product is in flight: across its
+      // back edge ptxas would serialize them.
+      const auto scores_to_dv = [&](int i, int qt) {
         wgmma_wait<1>();
         reg_fence(st);
-        // P^T, while dP^T runs: 2^(s scale2 - lse2) by column, packed
-        // pairwise as the A operand of dV += P^T dO; where the tile takes the
-        // mask, 0 where masked or past Sk, and for a row with no live key
-        // (lse = +inf) 1/Sk in the dV operand and 0 in st, so its dS is 0.
-#pragma unroll
-        for (int j = 0; j < kTcRowsK / 8; ++j) {
-          const float2 l2 = lse2[4 * j + col / 2];  // columns 8j + col, + 1
-          float pv[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float l = (e & 1) ? l2.y : l2.x;
-            float x = fast_exp2(fmaf(st[4 * j + e], p.scale2, -l));
-            pv[e] = x;
-            if (need_mask) {
-              const int kpos = key + 8 * (e >> 1);
-              const int qpos = q0 + 8 * j + col + (e & 1);
-              if (l == INFINITY) {
-                pv[e] = kpos < p.sk ? uniform : 0.f;
-                x = 0.f;
-              } else if (kpos >= p.sk || masked(p.causal, p.window, qpos, kpos)) {
-                pv[e] = x = 0.f;
-              }
-            }
-            st[4 * j + e] = x;
-          }
-          pa[j / 2][2 * (j % 2)] = pack_bf16(pv[0], pv[1]);
-          pa[j / 2][2 * (j % 2) + 1] = pack_bf16(pv[2], pv[3]);
-        }
-        reg_fence(pa);
-        reg_fence(dv);
-        wgmma_fence();
-        issue_rs<DP, kTcRowsK / 16>(dv, pa, do_tile, kTcRowsK * 128);
-        wgmma_commit();
-        wgmma_wait<1>();
-        reg_fence(dpt);
-        // dS^T = P^T o (dP^T - D_i) scale.
-#pragma unroll
-        for (int j = 0; j < kTcRowsK / 8; ++j) {
-          const float2 di = delta[4 * j + col / 2];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? di.y : di.x)) * p.scale;
-        }
-        pack_p<kTcRowsK>(dpt, pb);
-        reg_fence(pb);
         reg_fence(dk);
-        wgmma_fence();
-        issue_rs<DP, kTcRowsK / 16>(dk, pb, q_tile, kTcRowsK * 128);
-        wgmma_commit();
-        wgmma_wait<0>();
-        reg_fence(dv);
-        reg_fence(dk);
-        reg_fence(pa);
         reg_fence(pb);
         __syncwarp();
-        if (lane == 0) mbar_arrive(empty + 8 * s);
+        if (i > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % STAGES));
+        probs_by_col<RK>(st, pa, lse2_of(i), p, need_mask(qt), qt * RK, key, col, uniform);
+        reg_fence(pa);
+        reg_fence(dv);
+        wgmma_fence();
+        issue_rs<DVP, RK / 16>(dv, pa, do_s + (i % STAGES) * Shape::DO2_BYTES, RK * 128);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dpt);
+        reg_fence(dv);
+        reg_fence(pa);
+      };
+      int hg = 0, qt = walk.first;
+      if (qt <= walk.last) {
+        issue_st_dpt(0);
+        scores_to_dv(0, qt);
+      }
+      for (int i = 0; qt <= walk.last; ++i) {
+        const int s = i % STAGES;
+        dscores_by_col<RK>(st, dpt, pb, lse2_of(i) + RK / 2, p.scale, col);
+        reg_fence(pb);
+        reg_fence(dk);
+        wgmma_fence();
+        issue_rs<DP, RK / 16>(dk, pb, q_s + s * Shape::Q2_BYTES, RK * 128);
+        wgmma_commit();
+        qt = walk.next(qt);
+        if (qt > walk.last && ++hg < group) qt = walk.first;
+        if (qt <= walk.last) {
+          issue_st_dpt(i + 1);
+          scores_to_dv(i + 1, qt);
+        } else {
+          wgmma_wait<0>();
+          reg_fence(dk);
+          reg_fence(pb);
+        }
       }
     }
 
@@ -926,12 +1047,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int r = 0; r < 2; ++r) {
       if (key + 8 * r >= p.sk) continue;
       bf16* krow = p.dk + (at + key + 8 * r) * p.d;
-      bf16* vrow = p.dv + (at + key + 8 * r) * p.d;
+      bf16* vrow = p.dv + (at + key + 8 * r) * p.dv_dim;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         if (8 * j < p.d) {
           *reinterpret_cast<uint32_t*>(krow + 8 * j + col) =
               pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < DVP / 8; ++j) {
+        if (8 * j < p.dv_dim) {
           *reinterpret_cast<uint32_t*>(vrow + 8 * j + col) =
               pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
         }
@@ -941,32 +1067,41 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 }
 
 // st: the element strides (batch, head, row) of q, k, v, out and dout.
-template <int DP>
+// Sets tp's sq_pad to the instance's RK.
+template <int DP, int DVP>
 int run_tc(const void* q, const void* k, const void* v, int batch, const long long* st,
-           const TcParams& tp, cudaStream_t stream) {
-  const int d = tp.d;
-  CUtensorMap tq128, tdo128, tq64, tdo64, tk, tv;
-  if (!encode(&tq128, q, d, tp.sq, tp.hq, batch, st, kTcRowsQ) ||
-      !encode(&tdo128, tp.dout, d, tp.sq, tp.hq, batch, st + 12, kTcRowsQ) ||
-      !encode(&tq64, q, d, tp.sq, tp.hq, batch, st, kTcRowsK) ||
-      !encode(&tdo64, tp.dout, d, tp.sq, tp.hq, batch, st + 12, kTcRowsK) ||
-      !encode(&tk, k, d, tp.sk, tp.hkv, batch, st + 3, kTcKeys) ||
-      !encode(&tv, v, d, tp.sk, tp.hkv, batch, st + 6, kTcKeys)) {
+           TcParams tp, cudaStream_t stream) {
+  using Shape = TcBwd<DP, DVP>;
+  tp.sq_pad = (tp.sq + Shape::RK - 1) / Shape::RK * Shape::RK;
+  const int d = tp.d, dv = tp.dv_dim;
+  // Pass 1 reads Q and dO in 128-row boxes, K and V in BK1-row boxes; pass
+  // 2 Q and dO in RK-row boxes, K and V in 128-row boxes.
+  CUtensorMap tq1, tdo1, tk1, tv1, tq2, tdo2, tk2, tv2;
+  if (!encode(&tq1, q, d, tp.sq, tp.hq, batch, st, kTcRowsQ) ||
+      !encode(&tdo1, tp.dout, dv, tp.sq, tp.hq, batch, st + 12, kTcRowsQ) ||
+      !encode(&tk1, k, d, tp.sk, tp.hkv, batch, st + 3, Shape::BK1) ||
+      !encode(&tv1, v, dv, tp.sk, tp.hkv, batch, st + 6, Shape::BK1) ||
+      !encode(&tq2, q, d, tp.sq, tp.hq, batch, st, Shape::RK) ||
+      !encode(&tdo2, tp.dout, dv, tp.sq, tp.hq, batch, st + 12, Shape::RK) ||
+      !encode(&tk2, k, d, tp.sk, tp.hkv, batch, st + 3, kTcKeys) ||
+      !encode(&tv2, v, dv, tp.sk, tp.hkv, batch, st + 6, kTcKeys)) {
     return kEncodeFailed;
   }
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_tc<DP>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_tc<DP, DVP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(TcDq<DP>::SMEM));
+                                         static_cast<int>(Shape::SMEM1));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(TcDkdv<DP>::SMEM));
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_tc<DP, DVP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Shape::SMEM2));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_q(batch * tp.hq, (tp.sq + kTcRowsQ - 1) / kTcRowsQ);
-  attn_bwd_dq_tc<DP><<<grid_q, kTcThreads, TcDq<DP>::SMEM, stream>>>(tq128, tk, tv, tdo128, tp);
+  attn_bwd_dq_tc<DP, DVP><<<grid_q, kTcThreads, Shape::SMEM1, stream>>>(tq1, tk1, tv1, tdo1, tp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_k(batch * tp.hkv, (tp.sk + kTcKeys - 1) / kTcKeys);
-  attn_bwd_dkdv_tc<DP><<<grid_k, kTcThreads, TcDkdv<DP>::SMEM, stream>>>(tq64, tk, tv, tdo64, tp);
+  attn_bwd_dkdv_tc<DP, DVP><<<grid_k, kTcThreads, Shape::SMEM2, stream>>>(tq2, tk2, tv2, tdo2,
+                                                                          tp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -976,8 +1111,9 @@ int run_tc(const void* q, const void* k, const void* v, int batch, const long lo
 // of v, out and dout. window: 0 for none. st: the element strides (batch,
 // head, row) of q, k, v, out and dout, in that order. lse: the forward's
 // (B, Hq, Sq) float32 log-sum-exp. stats: float32 scratch of B * Hq *
-// round_up(Sq, 64) * 2. dq, dk and dv are contiguous. The design is chosen
-// here: "wgmma" for bf16 with D = Dv <= 128, "wmma" for the rest
+// round_up(Sq, RK) * 2, RK the instance's pass-2 rows (ops.py::bwd_tiles).
+// dq, dk and dv are contiguous. The design is chosen here: "wgmma" for bf16
+// with D = Dv <= 128 and for bf16 (192, 128), "wmma" for the rest
 // (ops.py::bwd_design). Returns the cudaGetLastError() after the launches
 // (cudaErrorInvalidValue for head dims or a dtype without an instance), or
 // kEncodeFailed.
@@ -992,31 +1128,30 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (sq <= 0 || sk <= 0 || batch <= 0) return 0;
   const float scale = 1.0f / sqrtf(static_cast<float>(d));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && dvd == d && d <= 128) {
+  if (dtype == 1 && ((dvd == d && d <= 128) || (d == 192 && dvd == 128))) {
     const TcParams tp{static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
                       st[9], st[10], st[11], st[12], st[13], st[14],
                       static_cast<const float*>(lse), static_cast<float*>(stats),
                       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                      hq, hkv, sq, sk, (sq + kTcRowsK - 1) / kTcRowsK * kTcRowsK, d, causal,
-                      window, scale, kLog2e * scale};
+                      hq, hkv, sq, sk, 0, d, dvd, causal, window, scale, kLog2e * scale};
     switch (d) {
       case 16:
       case 32:
-      case 64: return run_tc<64>(q, k, v, batch, st, tp, s);
+      case 64: return run_tc<64, 64>(q, k, v, batch, st, tp, s);
       case 96:
-      case 128: return run_tc<128>(q, k, v, batch, st, tp, s);
+      case 128: return run_tc<128, 128>(q, k, v, batch, st, tp, s);
+      case 192: return run_tc<192, 128>(q, k, v, batch, st, tp, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  if (dvd != d) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, dout, dq, dk, dv, static_cast<const float*>(lse),
            static_cast<float*>(stats), {}, hq, hkv, sq, sk, causal, window, scale};
   for (int i = 0; i < 15; ++i) p.st[i] = st[i];
   if (dtype == 1) {
-    if (d == 256 && dvd == 256) return run<bf16, 256, 256>(p, batch, s);
-    if (d == 192 && dvd == 128) return run<bf16, 192, 128>(p, batch, s);
+    if (d == 256) return run<bf16, 256, 256>(p, batch, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dvd != d) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16: return run<float, 16, 16>(p, batch, s);
     case 32: return run<float, 32, 32>(p, batch, s);

@@ -31,12 +31,14 @@ whose backward is a second hand kernel (``csrc/flash_attention_bwd.cu``,
 VJP by autodiff, and no card path runs the plain version.
 ``ref.py::attention_vjp_ref`` is its plain counterpart,
 ``attention_bwd_ref`` the same function written as the kernel computes
-it. The backward has two designs (``bwd_design``); ``bwd_tile_plan``
-states the schedule of the wgmma design's second pass.
+it. The backward has two designs (``bwd_design``) with their tiles
+(``bwd_tiles``); ``bwd_tile_plan`` states the schedule of the wgmma
+design's second pass.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -69,33 +71,54 @@ BLOCK_Q = 128
 MAX_GRID_Y = 65_535
 
 
-# The backward's wgmma design (bf16, D = Dv): its head dims, and its
-# tiles: pass 1 takes query tiles of BWD_BLOCK_Q rows against K/V tiles of
-# BWD_BLOCK_K keys (kv_tile_plan's schedule), pass 2 key tiles of
-# BWD_BLOCK_K keys against Q/dO tiles of BWD_STAT_ROWS rows (bwd_tile_plan),
-# whose (lse, D_i) rows it reads from a scratch padded to BWD_STAT_ROWS.
+# The backward's wgmma design in bf16: D = Dv in these head dims, and the
+# (D, Dv) pairs of SPLIT_HEAD_DIMS.
 BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128)
-BWD_BLOCK_Q = 128
-BWD_BLOCK_K = 128
-BWD_STAT_ROWS = 64
+
+
+class BwdTiles(NamedTuple):
+    """The backward kernel's tiles for one instance
+    (``csrc/flash_attention_bwd.cu``): pass 1 takes query tiles of
+    ``block_q`` rows against K/V tiles of ``block_kv`` keys
+    (``kv_tile_plan``'s schedule); pass 2 key tiles of ``block_k`` keys
+    against Q/dO tiles of ``stat_rows`` rows (``bwd_tile_plan``), whose
+    (lse, D_i) rows it reads from a scratch padded to ``stat_rows``."""
+    block_q: int
+    block_kv: int
+    block_k: int
+    stat_rows: int
 
 
 def bwd_design(dtype: torch.dtype, d: int, dv: int) -> str:
     """The backward kernel's design for an instance the forward takes, as
     ``csrc/flash_attention_bwd.cu`` chooses it: ``"wgmma"`` (the
     forward's warp-specialised wgmma and TMA shape, seven products) for
-    bfloat16 with D = Dv in ``BWD_WGMMA_HEAD_DIMS``, ``"wmma"`` (wmma tiles
-    through shared memory, or float32 FMA) for bf16 D = 256, bf16 (192,
-    128) and float32. Raises ``ValueError`` on what the forward does not
-    take."""
+    bfloat16 with D = Dv in ``BWD_WGMMA_HEAD_DIMS`` and for bfloat16
+    (192, 128); ``"wmma"`` (wmma tiles through shared memory, or float32
+    FMA) for bf16 D = 256 and float32. Raises ``ValueError`` on what the
+    forward does not take."""
     if dtype not in _DTYPES or not (
             (d == dv and d in HEAD_DIMS)
             or ((d, dv) in SPLIT_HEAD_DIMS and dtype == torch.bfloat16)):
         raise ValueError(
             f"flash_attention has no instance for (D, Dv) = ({d}, {dv}) in {dtype}")
-    if dtype == torch.bfloat16 and d == dv and d in BWD_WGMMA_HEAD_DIMS:
+    if dtype == torch.bfloat16 and (d in BWD_WGMMA_HEAD_DIMS or (d, dv) in SPLIT_HEAD_DIMS):
         return "wgmma"
     return "wmma"
+
+
+def bwd_tiles(dtype: torch.dtype, d: int, dv: int) -> BwdTiles:
+    """The tiles of the instance ``bwd_design`` names. wgmma: 128 query
+    rows and 128 keys a block in both passes, K/V tiles of 128 keys and
+    Q/dO tiles of 64 rows; at (192, 128) 64 and 32, since dQ's (96) and
+    dK's and dV's (160) float32 registers a thread leave too few of a
+    consumer's 240 for the larger tiles. wmma: 64 rows and 32 keys in
+    bf16 (D = 256), 16 and 16 in float32."""
+    design = bwd_design(dtype, d, dv)
+    if design == "wgmma":
+        return BwdTiles(128, 64, 128, 32) if max(d, dv) > 128 else BwdTiles(128, 128, 128, 64)
+    bq, bk = (64, 32) if dtype == torch.bfloat16 else (16, 16)
+    return BwdTiles(bq, bk, bk, bq)
 
 
 def bwd_tile_plan(
@@ -418,17 +441,11 @@ def _bwd_operand(x: torch.Tensor):
 
 def check_backward_grid(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` where the backward kernel's grids (query tiles
-    of pass 1, key tiles of pass 2, on grid.y) would pass their limit.
-    Their tiles (query rows, keys): the wgmma design's (``BWD_BLOCK_Q``,
-    ``BWD_BLOCK_K``) = (128, 128); the wmma design's (64, 64) in bfloat16,
-    (64, 32) for a head dim of 256, (16, 16) in float32."""
+    of pass 1, key tiles of pass 2, on grid.y) would pass their limit, at
+    the instance's ``bwd_tiles``."""
     sq, sk = q.shape[2], k.shape[2]
-    if bwd_design(q.dtype, q.shape[3], v.shape[3]) == "wgmma":
-        bq, bk = BWD_BLOCK_Q, BWD_BLOCK_K
-    elif q.dtype == torch.bfloat16:
-        bq, bk = 64, 32 if max(q.shape[3], v.shape[3]) > 192 else 64
-    else:
-        bq, bk = 16, 16
+    tiles = bwd_tiles(q.dtype, q.shape[3], v.shape[3])
+    bq, bk = tiles.block_q, tiles.block_k
     if -(-sq // bq) > MAX_GRID_Y or -(-sk // bk) > MAX_GRID_Y:
         raise ValueError(
             f"flash_attention's backward kernel takes Sq <= 65535 * {bq} and "
@@ -490,8 +507,9 @@ def _backward_kernel(q, k, v, out, dout, lse, causal: bool, window: int | None):
     strides = (ctypes.c_longlong * 15)(*(s for _, st in operands for s in st))
     lse = lse.contiguous()
     # Pass 1 writes each row's (lse, D_i) here for pass 2 (the wmma design:
-    # D_i alone), rows padded to BWD_STAT_ROWS.
-    stats = torch.empty(b * hq * -(-sq // BWD_STAT_ROWS) * BWD_STAT_ROWS * 2,
+    # D_i alone), rows padded to the instance's stat_rows.
+    rows = bwd_tiles(q.dtype, d, dv).stat_rows
+    stats = torch.empty(b * hq * -(-sq // rows) * rows * 2,
                         dtype=torch.float32, device=q.device)
     fn = function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
     check_status("flash_attention_bwd", fn(

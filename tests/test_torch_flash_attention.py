@@ -293,15 +293,19 @@ def test_plain_route_keeps_autograd():
 # --- the forward's log-sum-exp; the backward's designs and schedule ---------
 
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    BWD_BLOCK_K,
-    BWD_BLOCK_Q,
-    BWD_STAT_ROWS,
     HEAD_DIMS,
+    MAX_GRID_Y,
     SPLIT_HEAD_DIMS,
     bwd_design,
     bwd_tile_plan,
+    bwd_tiles,
+    check_backward_grid,
     flash_attention_lse,
 )
+
+# The wgmma design's tiles at D = Dv = 128 and at MLA's (192, 128).
+_BWD = bwd_tiles(torch.bfloat16, 128, 128)
+_BWD_MLA = bwd_tiles(torch.bfloat16, 192, 128)
 from repro_torch.kernels.flash_attention.ref import attention_lse_ref  # noqa: E402
 
 
@@ -367,7 +371,7 @@ def test_bwd_design_names_a_design_for_every_forward_instance():
             want = "wgmma" if dtype == torch.bfloat16 and d <= 128 else "wmma"
             assert bwd_design(dtype, d, d) == want, (dtype, d)
     for d, dv in SPLIT_HEAD_DIMS:
-        assert bwd_design(torch.bfloat16, d, dv) == "wmma"
+        assert bwd_design(torch.bfloat16, d, dv) == "wgmma"
         with pytest.raises(ValueError, match="no instance"):
             bwd_design(torch.float32, d, dv)
     for dtype, d, dv in ((torch.bfloat16, 48, 48), (torch.float16, 64, 64),
@@ -376,7 +380,8 @@ def test_bwd_design_names_a_design_for_every_forward_instance():
             bwd_design(dtype, d, dv)
 
 
-@pytest.mark.parametrize("bq,bk", [(BWD_STAT_ROWS, BWD_BLOCK_K), (64, 32), (16, 48)])
+@pytest.mark.parametrize("bq,bk", [(_BWD.stat_rows, _BWD.block_k),
+                                   (_BWD_MLA.stat_rows, _BWD_MLA.block_k), (64, 32), (16, 48)])
 @pytest.mark.parametrize("window", [None, 1, 100])
 @pytest.mark.parametrize("causal", [True, False])
 def test_bwd_tile_plan_visits_every_live_pair_once(causal, window, bq, bk):
@@ -412,15 +417,72 @@ def test_bwd_schedules_at_the_training_shape():
     # blocks, the longest 32 key tiles against a mean of 128 per SM.
     hq, hkv, s, sms = 32, 8, 4096, 132
     group = hq // hkv
-    plan = bwd_tile_plan(s, s, True, None, BWD_STAT_ROWS, BWD_BLOCK_K)
+    plan = bwd_tile_plan(s, s, True, None, _BWD.stat_rows, _BWD.block_k)
     steps = [group * len(tiles) for tiles in plan]
     assert hkv * len(plan) == 256
     assert max(steps) == 256 and hkv * sum(steps) == 33_792
     assert hkv * sum(steps) / sms == 256
     # Only the two query tiles on the diagonal of each key tile are masked.
     for j, tiles in enumerate(plan):
-        assert [t for t, _ in tiles] == list(range(2 * j, s // BWD_STAT_ROWS))
+        assert [t for t, _ in tiles] == list(range(2 * j, s // _BWD.stat_rows))
         assert [t for t, masked in tiles if masked] == [2 * j, 2 * j + 1]
-    first = kv_tile_plan(s, s, True, None, BWD_BLOCK_Q, BWD_BLOCK_K)
+    first = kv_tile_plan(s, s, True, None, _BWD.block_q, _BWD.block_kv)
     assert hq * len(first) == 1_024 and max(len(tiles) for tiles in first) == 32
     assert hq * sum(len(tiles) for tiles in first) / sms == 128
+
+
+def test_bwd_tiles_of_each_design():
+    assert _BWD == (128, 128, 128, 64)
+    # MLA: dQ's 96 float32 registers a thread leave room for 64-key S and
+    # dP tiles, dK's and dV's 160 for 32-row S^T and dP^T tiles.
+    assert _BWD_MLA == (128, 64, 128, 32)
+    assert bwd_tiles(torch.bfloat16, 64, 64) == _BWD
+    assert bwd_tiles(torch.bfloat16, 256, 256) == (64, 32, 32, 64)
+    assert bwd_tiles(torch.float32, 128, 128) == (16, 16, 16, 16)
+
+
+@pytest.mark.parametrize("kernel_pass", [1, 2])
+def test_bwd_schedules_at_mla_training_shape(kernel_pass):
+    # deepseek-v3's MLA at phase 17 (e)'s shape: B=1, H = Hkv = 128,
+    # S=2048, causal, (D, Dv) = (192, 128).
+    h, s = 128, 2048
+    if kernel_pass == 1:
+        # 16 query tiles of 128 rows a head; tile t visits the 64-key
+        # tiles 2t + 1 down to 0 (2t + 2 of them), the two on its diagonal
+        # masked: 2 + 4 + ... + 32 = 272 a head.
+        plan = kv_tile_plan(s, s, True, None, _BWD_MLA.block_q, _BWD_MLA.block_kv)
+        assert h * len(plan) == 2_048 and max(len(tiles) for tiles in plan) == 32
+        assert sum(len(tiles) for tiles in plan) == 272
+        for t, tiles in enumerate(plan):
+            assert [j for j, _ in tiles] == list(range(2 * t + 1, -1, -1))
+            assert [j for j, masked in tiles if masked] == [2 * t + 1, 2 * t]
+    else:
+        # 16 key tiles of 128 keys a KV head (group 1); key tile j walks
+        # the 32-row query tiles 4j .. 63 (64 - 4j of them), the four on
+        # its diagonal masked: 64 + 60 + ... + 4 = 544 a head.
+        plan = bwd_tile_plan(s, s, True, None, _BWD_MLA.stat_rows, _BWD_MLA.block_k)
+        assert h * len(plan) == 2_048 and max(len(tiles) for tiles in plan) == 64
+        assert sum(len(tiles) for tiles in plan) == 544
+        for j, tiles in enumerate(plan):
+            assert [t for t, _ in tiles] == list(range(4 * j, 64))
+            assert [t for t, masked in tiles if masked] == [4 * j + t for t in range(4)]
+
+
+@pytest.mark.parametrize("dtype,d,dv,rows,keys", [
+    (torch.bfloat16, 128, 128, 128, 128),
+    (torch.bfloat16, 192, 128, 128, 128),
+    (torch.bfloat16, 256, 256, 64, 32),
+    (torch.float32, 64, 64, 16, 16),
+])
+def test_check_backward_grid_follows_the_tiles(dtype, d, dv, rows, keys):
+    def call(sq, sk):
+        q = torch.empty(1, 1, sq, d, dtype=dtype, device="meta")
+        k = torch.empty(1, 1, sk, d, dtype=dtype, device="meta")
+        v = torch.empty(1, 1, sk, dv, dtype=dtype, device="meta")
+        check_backward_grid(q, k, v)
+
+    call(MAX_GRID_Y * rows, MAX_GRID_Y * keys)
+    with pytest.raises(ValueError, match=f"Sq <= 65535 \\* {rows} and Sk <= 65535 \\* {keys}"):
+        call(MAX_GRID_Y * rows + 1, 1)
+    with pytest.raises(ValueError, match="backward kernel takes"):
+        call(1, MAX_GRID_Y * keys + 1)

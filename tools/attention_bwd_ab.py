@@ -1,31 +1,45 @@
 #!/usr/bin/env python3
 """Time ``repro_torch``'s ``flash_attention`` backward kernel of one
-checkout on one CUDA card, at qwen3-4b's training shape.
+checkout on one CUDA card, at qwen3-4b's or MLA's training shape.
 
-    python3 tools/attention_bwd_ab.py [SRC_DIR]
+    python3 tools/attention_bwd_ab.py [--shape {qwen3,mla}] [--step] [SRC_DIR]
 
 ``SRC_DIR`` is the ``src`` directory of the checkout whose kernel is
 timed (by default this checkout's); its kernels are built from its own
-``csrc``. The shape is ``chip_smoke.py``'s ``ATTN_BWD_SHAPE`` (B=1,
-Hq=32, Hkv=8, S=4096, D=128, bf16, causal) with inputs from seed 18; a
-checkout whose ``flash_attention_bwd`` takes no ``lse`` (before the
-forward wrote one) is called without it. The line gives the device ms
-of one call by CUDA events around 20 calls, each pass's ms from a
-profile, the FLOP bound and the card's name and power limit, and a
-checksum of the gradients. To compare two commits, unpack one beside
-the other and run this script on each in turns in one call on the same
-card: parent, change, change, parent.
+``csrc``. ``--shape qwen3`` (the default) is ``chip_smoke.py``'s
+``ATTN_BWD_SHAPE`` (B=1, Hq=32, Hkv=8, S=4096, D=128), ``--shape mla``
+its ``TRAIN_MLA_ATTN`` (deepseek-v3's MLA: B=1, H=128, S=2048, (D, Dv) =
+(192, 128)); both bf16, causal, with inputs from seed 18. A checkout
+whose ``flash_attention_bwd`` takes no ``lse`` (before the forward wrote
+one) is called without it. The line gives the device ms of one call by
+CUDA events around 20 calls, each pass's ms from a profile, the FLOP
+bound and the card's name and power limit, and a checksum of the
+gradients. ``--step`` times ``chip_smoke.py``'s phase 17 (e) step
+instead: deepseek-v3 at full width cut to its dense layers and the MTP
+layer, one ``value_and_grads`` at B=1, S=2048 (host clock around a
+synchronised call, three after a warm-up), with its launches. To
+compare two commits, unpack one beside the other and run this script on
+each in turns in one call on the same card: parent, change, change,
+parent.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import inspect
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--shape", choices=("qwen3", "mla"), default="qwen3")
+    parser.add_argument("--step", action="store_true")
+    parser.add_argument("src", nargs="?", default=str(ROOT / "src"))
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -34,16 +48,24 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
 
-    src = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else ROOT / "src"
+    src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
     from repro_torch.kernels.flash_attention import flash_attention, ops
 
     card = cs.card_line()
     dev = torch.device("cuda")
-    b, hq, hkv, s, d = cs.ATTN_BWD_SHAPE
+    if args.step:
+        walls, counts = train_mla_step_ms(cs, dev)
+        print(f"attention_bwd_ab step {src}: {cs.TRAIN_MLA_ARCH} dense layers + MTP B=1 "
+              f"S={cs.TRAIN_MLA_S}: wall_ms={walls} launches={counts} [{card}]")
+        return 0
+    if args.shape == "mla":
+        (b, hq, hkv, s, d), dv = cs.TRAIN_MLA_ATTN, 128
+    else:
+        (b, hq, hkv, s, d), dv = cs.ATTN_BWD_SHAPE, cs.ATTN_BWD_SHAPE[4]
     gen = torch.Generator(dev).manual_seed(18)
-    q, k, v, dout = (torch.randn(b, h, s, d, device=dev, generator=gen).to(torch.bfloat16)
-                     for h in (hq, hkv, hkv, hq))
+    q, k, v, dout = (torch.randn(b, h, s, w, device=dev, generator=gen).to(torch.bfloat16)
+                     for h, w in ((hq, d), (hkv, d), (hkv, dv), (hq, dv)))
     if "lse" in inspect.signature(ops.flash_attention_bwd).parameters:
         out, lse = ops.flash_attention_lse(q, k, v, impl="cuda")
         call = lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse)  # noqa: E731
@@ -54,12 +76,41 @@ def main() -> int:
     ms = cs.cuda_ms(call, iters=20, warmup=3)
     _, _, _, ranked, _ = cs.device_share(call, top=20)
     passes = {name[:60]: t for name, t in ranked if "attn_bwd" in name}
-    bound, _, _ = cs.attention_bwd_bound_ms(b, hq, hkv, s, s, d, d, True, None, 2)
+    bound, _, _ = cs.attention_bwd_bound_ms(b, hq, hkv, s, s, d, dv, True, None, 2)
     checksum = [float(g.float().abs().sum()) for g in grads]
-    print(f"attention_bwd_ab {src}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 causal: "
+    print(f"attention_bwd_ab {src}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} Dv={dv} bf16 causal: "
           f"ms={ms} passes_ms={passes} bound_ms={bound} share_of_bound={bound / ms} "
           f"grad_abs_sums={checksum} [{card}]")
     return 0
+
+
+def train_mla_step_ms(cs, dev, repeats: int = 3) -> tuple:
+    """``(wall ms of each step, launches of the last)``: phase 17 (e)'s
+    loss-and-gradients step of the checkout on the path."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.loop import value_and_grads
+    from repro_torch.train.tree import trainable
+
+    full = get_arch(cs.TRAIN_MLA_ARCH).config
+    cfg = dataclasses.replace(full, num_layers=full.num_dense_layers)
+    params = trainable(init_params(cfg, device=dev,
+                                   generator=torch.Generator(dev).manual_seed(0)))
+    batch = cs.lm_train_batch(dev, 1, 2, cfg.vocab_size, cs.TRAIN_MLA_S)
+    mla_loss = lambda p, b: loss_fn(p, cfg, b)  # noqa: E731
+    value_and_grads(mla_loss, params, batch)  # warm-up
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        value_and_grads(mla_loss, params, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls, dict(launch_counts)
 
 
 if __name__ == "__main__":
