@@ -239,7 +239,8 @@ of which raises on failure:
    ``record_hooks=True``, its forest equal; the share of the card's busy
    time in NCCL kernels from one ``torch.profiler`` run; phase 4's list
    through ``list_rank(succ, mesh=mesh)``, its ranks equal, one
-   ``pointer_jump`` and one ``splitter_aggregate`` launch; and
+   ``pointer_jump`` and one ``splitter_aggregate`` launch (timed once
+   where the first call takes 5 s or more, as phase 4); and
    ``tree_analytics(..., mesh=mesh)`` on phase 12's molecule-batch
    forest, equal to the single-device splitter run. The process group
    is destroyed on the way out.
@@ -300,18 +301,23 @@ of which raises on failure:
 17. Single-device training. (a) ``flash_attention``'s backward kernel
    (``csrc/flash_attention_bwd.cu``) against ``attention_vjp_ref`` at
    ``ATTN_BWD_CASES``: qwen3-4b's training shape (B=1, Hq=32, Hkv=8,
-   S=4096, D=128, causal), mixtral's window (w=4096, S=8192, Hq=4,
-   Hkv=1), MLA's (192, 128) (with a GQA group of 2, a non-causal ragged
-   S=777, Sq=129 against Sk=1000 and rows with no live key), float32, a
-   non-causal ragged S=777, rows with no live key, and every head dim in
-   both dtypes; float32 within rtol = atol = 2e-3 (atol times the rms),
-   bf16 within 3e-2 in norm per gradient, the elementwise worst printed
-   beside; at the training shape and at MLA's two calls bit-equal, and at
-   the training shape the autograd Function's gradients equal to the
-   direct call's; then its time at qwen3-4b's and MLA's training shapes
-   (the wgmma design) and at gemma-2b's D = 256 (B=1, Hq=8, Hkv=1, S=4096;
-   the wmma design) beside its plain version, SDPA's backward (the
-   yardstick) and the five-product FLOP bound. (b)
+   S=4096, D=128, causal), gemma-2b's (B=1, Hq=8, Hkv=1, S=4096, D=256)
+   with D = 256 cases beside it (MQA at S=1000, a non-causal ragged
+   S=777, Sq=129 against Sk=1000, rows with no live key, a window),
+   mixtral's window (w=4096, S=8192, Hq=4, Hkv=1), MLA's (192, 128)
+   (with a GQA group of 2, a non-causal ragged S=777, Sq=129 against
+   Sk=1000 and rows with no live key), float32, a non-causal ragged
+   S=777, rows with no live key, and every head dim in both dtypes;
+   float32 within rtol = atol = 2e-3 (atol times the rms), bf16 within
+   3e-2 in norm per gradient, the elementwise worst printed beside; at
+   qwen3-4b's and gemma-2b's training shapes and at MLA's two calls
+   bit-equal, and at qwen3-4b's the autograd Function's gradients equal
+   to the direct call's; then its time at qwen3-4b's, MLA's and
+   gemma-2b's training shapes (the wgmma design) and at
+   torch_train_lm's float32 shape (B=8, Hq=4, Hkv=2, S=64, D=32; the
+   fma design) beside its plain version, SDPA's backward (the
+   yardstick) and the bound (five products at the dtype's peak, or the
+   bytes). (b)
    qwen3-4b at full width (``TRAIN_LM_LAYERS`` of 36 layers, bf16, float32
    moments, ``remat=True``, B=1, S=4096 ``lm_batch`` tokens): on a 2-layer
    cut every gradient on the kernel route within 3e-2 in norm of the
@@ -326,7 +332,15 @@ of which raises on failure:
    the autograd of ``gnn_by_index_add``; ``train()`` for 3 steps (one
    ``segment_sum`` launch a layer a step), step ms, edges/s, peak
    memory. (d) the checkpoint ``train()`` wrote at its last step
-   restored, saved again from the card and restored: bit-equal.
+   restored, saved again from the card and restored: bit-equal. (e)
+   deepseek-v3's dense layers and MTP layer at full width, B=1, S=2048:
+   one ``value_and_grads`` through MLA's wgmma backward, its gradients
+   against the ``impl="torch"`` route's. (f) gemma-2b at full width and
+   depth (18 layers, bf16, remat), B=1, S=4096: on a 2-layer cut every
+   gradient within 3e-2 in norm of the ``impl="torch"`` route's, then
+   one timed ``value_and_grads`` after a warm-up with 36 forward and 18
+   wgmma backward launches (none on the fma design), its wall ms and
+   peak memory.
 18. Sharded training over NCCL at world size 1 (a one-rank group; every
    collective runs with one participant), on ``make_test_mesh((1, 1))``:
    (a) deepseek-v3 at full width, its 3 dense layers, 1 MoE layer (all
@@ -379,7 +393,7 @@ of which raises on failure:
    the reference's default arguments, each checking itself, with their
    hand-kernel launches printed: the quickstart's ``edge_hook``,
    ``pointer_jump`` and ``splitter_aggregate``, train_lm's
-   ``flash_attention`` and its backward's wmma design (float32, D = 32),
+   ``flash_attention`` and its backward's fma design (float32, D = 32),
    gnn_cora's ``segment_sum`` must be above 0 (serve_lm decodes token by
    token, which runs no hand kernel; xDeepFM has none). (d) One traced
    quickstart-sized CC call exported with ``export_chrome`` and
@@ -550,17 +564,22 @@ ATTN_TOL = {"torch.bfloat16": 3e-2, "torch.float32": 2e-3}
 # mixtral's prefill) and MLA's (D, Dv) = (192, 128) (deepseek-v3's).
 ATTN_ENTRIES = {"D=128": "attn_tc_kernelILi128ELi128EE",
                 "MLA D=192 Dv=128": "attn_tc_kernelILi192ELi128EE"}
-# The backward's wgmma instances (csrc/flash_attention_bwd.cu), each
-# printed; those that must not spill: D = 128 (qwen3-4b's training) and
-# MLA's (192, 128) (deepseek-v3's).
+# The backward's wgmma instances (csrc/flash_attention_bwd.cu) and its
+# head groups' sum, each printed; those that must not spill: D = 128
+# (qwen3-4b's training), MLA's (192, 128) (deepseek-v3's) and D = 256
+# (gemma-2b's), and the sum.
 ATTN_BWD_ENTRIES = {"pass 1 DP=128": "attn_bwd_dq_tcILi128ELi128EE",
                     "pass 2 DP=128": "attn_bwd_dkdv_tcILi128ELi128EE",
                     "pass 1 MLA DP=192 DVP=128": "attn_bwd_dq_tcILi192ELi128EE",
                     "pass 2 MLA DP=192 DVP=128": "attn_bwd_dkdv_tcILi192ELi128EE",
+                    "pass 1 DP=256": "attn_bwd_dq_tcILi256ELi256EE",
+                    "pass 2 DP=256": "attn_bwd_dkdv_tcILi256ELi256EE",
+                    "head groups' sum": "attn_bwd_sum_groups",
                     "pass 1 DP=64": "attn_bwd_dq_tcILi64ELi64EE",
                     "pass 2 DP=64": "attn_bwd_dkdv_tcILi64ELi64EE"}
 ATTN_BWD_NO_SPILL = ("pass 1 DP=128", "pass 2 DP=128", "pass 1 MLA DP=192 DVP=128",
-                     "pass 2 MLA DP=192 DVP=128")
+                     "pass 2 MLA DP=192 DVP=128", "pass 1 DP=256", "pass 2 DP=256",
+                     "head groups' sum")
 # The forward's log-sum-exp against attention_lse_ref's, absolute, on rows
 # with a live key (rows without one must be +inf in both). The backward's
 # P is exp(s - lse), so an error e in lse is a relative error e in P: these
@@ -3370,6 +3389,8 @@ def phase_sharded(dev, card: str, list_single_s: float) -> dict:
                       and counts["splitter_aggregate"] == 1,
                       f"sharded list_rank: one pointer_jump and one "
                       f"splitter_aggregate launch, got {counts}")
+                if s >= E2E_ONE_CALL_S:  # e2e_samples' rule: a long call once
+                    break
         print(f"sharded list_rank n={LIST_N} p={len(st.splitters)} "
               f"walk_steps={st.walk_steps} wall_s={median(secs)} samples={secs} "
               f"single_device_s={list_single_s} (phase 4) words="
@@ -4309,13 +4330,23 @@ def phase_moe(dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 ATTN_BWD_SHAPE = (1, 32, 8, 4096, 128)  # qwen3-4b's training shape: B, Hq, Hkv, S, D
-# The wmma design's bf16 instance, D = 256, at gemma-2b's training shape
-# (no phase trains gemma-2b: it is timed here, its launches are phase 19's
-# float32 ones).
-ATTN_BWD_WMMA_SHAPE = (1, 8, 1, 4096, 256)
+# gemma-2b's training shape (phase 17 (f)): the wgmma design at D = 256,
+# its second pass in 4 head groups.
+ATTN_BWD_GEMMA_SHAPE = (1, 8, 1, 4096, 256)
+# The fma design (float32) at examples/torch_train_lm.py's "tiny" preset,
+# B=8, Hq=4, Hkv=2, S=64, D=32: its launches are phase 19's.
+ATTN_BWD_FMA_SHAPE = (8, 4, 2, 64, 32)
 ATTN_BWD_TOL = {"bfloat16": 3e-2, "float32": 2e-3}
+FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, NVIDIA's data sheet
 ATTN_BWD_CASES = (  # (label, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, dtype)
     ("qwen3-4b training shape", 1, 32, 8, 4096, 4096, 128, 128, True, None, "bfloat16"),
+    ("gemma-2b training shape", 1, 8, 1, 4096, 4096, 256, 256, True, None, "bfloat16"),
+    ("gemma MQA S=1000", 1, 8, 1, 1000, 1000, 256, 256, True, None, "bfloat16"),
+    ("D=256 non-causal ragged S=777", 1, 4, 1, 777, 777, 256, 256, False, None, "bfloat16"),
+    ("D=256 Sq=129 Sk=1000 causal", 1, 8, 1, 129, 1000, 256, 256, True, None, "bfloat16"),
+    ("D=256 rows without a live key Sq=300 Sk=100 window=64", 1, 8, 1, 300, 100, 256, 256,
+     True, 64, "bfloat16"),
+    ("D=256 window=200 S=1000", 2, 8, 2, 1000, 1000, 256, 256, True, 200, "bfloat16"),
     ("mixtral window=4096 S=8192", 1, 4, 1, 8192, 8192, 128, 128, True, 4096, "bfloat16"),
     ("short window=100 S=1000", 1, 32, 8, 1000, 1000, 128, 128, True, 100, "bfloat16"),
     ("MLA (192, 128) S=1024", 1, 8, 8, 1024, 1024, 192, 128, True, None, "bfloat16"),
@@ -4339,15 +4370,17 @@ ATTN_BWD_CASES = (  # (label, B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, dtype)
 )
 
 
-def attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize):
+def attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize,
+                           flops_per_s=BF16_FLOPS_PER_S):
     """``(bound_ms, flops, bytes)`` of attention's backward: the larger of
     its five products over the live pairs (S = Q K^T and dK = dS^T Q,
-    dQ = dS K over ``d``; dP = dO V^T and dV = P^T dO over ``dv``) at the
-    bf16 tensor-core peak, and its bytes (q, k, v, out, dout read once;
-    dq, dk, dv written once) at the HBM rate."""
+    dQ = dS K over ``d``; dP = dO V^T and dV = P^T dO over ``dv``) at
+    ``flops_per_s`` (the bf16 tensor-core peak unless given), and its
+    bytes (q, k, v, out, dout read once; dq, dk, dv written once) at the
+    HBM rate."""
     flops = 2 * (3 * d + 2 * dv) * b * hq * live_pairs(sq, sk, causal, window)
     nbytes = itemsize * (b * hq * sq * (2 * d + 2 * dv) + 2 * b * hkv * sk * (d + dv))
-    return (max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+    return (max(flops / flops_per_s, nbytes / HBM_BYTES_PER_S) * 1e3,
             flops, nbytes)
 
 
@@ -4399,12 +4432,13 @@ def lse_within(name: str, got, want, dtype_name: str) -> float:
 def phase_attention_bwd(dev) -> float:
     """Phase 17 (a): at each of ``ATTN_BWD_CASES`` the forward's log-sum-exp
     against ``attention_lse_ref`` and the backward kernel, on the design
-    ``bwd_design`` names (``"wgmma"`` at every MLA case), against
-    ``attention_vjp_ref``; at the training shape and at the first MLA case
-    also two calls bit-equal, and at the training shape the autograd
-    Function's gradients equal to the direct call's. Returns the largest
-    max_abs_err of the gradients by design, MLA's (192, 128) under
-    ``"mla"``."""
+    ``bwd_design`` names (``"wgmma"`` at every bf16 case, ``"fma"`` at
+    float32), against ``attention_vjp_ref``; at qwen3-4b's and gemma-2b's
+    training shapes and at the first MLA case also two calls bit-equal,
+    and at qwen3-4b's the autograd Function's gradients equal to the
+    direct call's. Returns the largest max_abs_err of the gradients by
+    design, MLA's (192, 128) under ``"mla"`` and bf16 D = 256 under
+    ``"d256"``."""
     import torch
 
     from repro_torch.kernels import launch_counts
@@ -4425,8 +4459,9 @@ def phase_attention_bwd(dev) -> float:
                                          (hq, sq, dv)))
         design = bwd_design(dtype, d, dv)
         designs.add(design)
-        key = "mla" if dv != d else design
-        check(key != "mla" or design == "wgmma", f"{label}: MLA on the wgmma design")
+        key = "mla" if dv != d else "d256" if d == 256 and dt == "bfloat16" else design
+        check(design == ("wgmma" if dt == "bfloat16" else "fma"),
+              f"{label}: bf16 on the wgmma design, float32 on the fma design")
         name = (f"{label} B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} Dv={dv} "
                 f"causal={causal} window={window} {dt} [{design}]")
         out, lse = flash_attention_lse(q, k, v, causal=causal, window=window, impl="cuda")
@@ -4437,7 +4472,7 @@ def phase_attention_bwd(dev) -> float:
         want = attention_vjp_ref(q, k, v, dout, causal=causal, window=window)
         for grad_name, g, w in zip(("dq", "dk", "dv"), got, want):
             errs[key] = max(errs.get(key, 0.0), grad_within(f"{name} {grad_name}", g, w, dt))
-        if label.startswith(("qwen3-4b", "MLA (192, 128)")):
+        if label.startswith(("qwen3-4b", "gemma-2b", "MLA (192, 128)")):
             again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
             check(all(torch.equal(x, y) for x, y in zip(got, again)),
                   f"the backward kernel: two calls give the same bits ({label})")
@@ -4454,7 +4489,7 @@ def phase_attention_bwd(dev) -> float:
             print("flash_attention.bwd: the autograd Function gives the direct call's bits")
             del leaves, o
         del q, k, v, dout, out, lse, got, want
-    check(designs == {"wgmma", "wmma"}, f"phase 17 (a) holds both designs: {designs}")
+    check(designs == {"wgmma", "fma"}, f"phase 17 (a) holds both designs: {designs}")
     print(f"flash_attention.bwd: {len(ATTN_BWD_CASES)} cases on the designs {sorted(designs)}; "
           f"worst lse error {max(lse_errs)}, worst gradient error by design {errs}")
     torch.cuda.empty_cache()
@@ -4495,26 +4530,31 @@ def sdpa_backward_ms(q, k, v, dout) -> tuple:
 
 
 def backward_passes(call) -> tuple:
-    """``(pass 1 ms, pass 2 ms)`` of one backward call, by their device
-    time in a profile."""
+    """``(pass 1 ms, pass 2 ms, head groups' sum ms)`` of one backward
+    call, by their device time in a profile (the sum 0 where pass 2 runs
+    one head group)."""
     _, _, _, ranked, _ = device_share(call, top=50)
     times = [sum(ms for name, ms in ranked if tag in name)
-             for tag in ("attn_bwd_dq_", "attn_bwd_dkdv_")]
-    check(all(ms > 0 for ms in times), f"both passes in the profile: {ranked}")
+             for tag in ("attn_bwd_dq_", "attn_bwd_dkdv_", "attn_bwd_sum_groups")]
+    check(all(ms > 0 for ms in times[:2]), f"both passes in the profile: {ranked}")
     return tuple(times)
 
 
-def attention_bwd_times(dev, card: str, shape=ATTN_BWD_SHAPE, dv=None) -> tuple:
+def attention_bwd_times(dev, card: str, shape=ATTN_BWD_SHAPE, dv=None,
+                        dtype_name: str = "bfloat16") -> tuple:
     """Phase 17 (a)'s times at ``shape`` (B, Hq, Hkv, S, D; causal; Dv =
-    ``dv`` or D): the backward kernel (and each of its passes), its plain
-    version, the SDPA backward that takes the shape (the yardstick; the
-    port never calls it) and the FLOP bound. Returns ``(ms, plain_ms,
-    library_ms, bound_ms)``."""
+    ``dv`` or D) in ``dtype_name``: the backward kernel (and each of its
+    passes), its plain version, the SDPA backward that takes the shape
+    (the yardstick; the port never calls it) and the bound (bf16 at the
+    tensor cores' peak, float32 at the FP32 peak outside them). Returns
+    ``(ms, plain_ms, library_ms, bound_ms, bound_by)``."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ops import (
         bwd_design,
+        bwd_head_groups,
+        bwd_tiles,
         flash_attention_bwd,
         flash_attention_lse,
     )
@@ -4522,27 +4562,36 @@ def attention_bwd_times(dev, card: str, shape=ATTN_BWD_SHAPE, dv=None) -> tuple:
 
     b, hq, hkv, s, d = shape
     dv = d if dv is None else dv
+    dtype = getattr(torch, dtype_name)
     gen = torch.Generator(dev).manual_seed(18)
-    q, k, v, dout = (torch.randn(b, h, s, w, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v, dout = (torch.randn(b, h, s, w, device=dev, generator=gen).to(dtype)
                      for h, w in ((hq, d), (hkv, d), (hkv, dv), (hq, dv)))
     out, lse = flash_attention_lse(q, k, v, impl="cuda")
-    bound_ms, flops, nbytes = attention_bwd_bound_ms(b, hq, hkv, s, s, d, dv, True, None, 2)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    bound_ms, flops, nbytes = attention_bwd_bound_ms(b, hq, hkv, s, s, d, dv, True, None,
+                                                     q.element_size(), peak)
+    bound_by = "operations" if flops / peak >= nbytes / HBM_BYTES_PER_S else "bytes"
+    design = bwd_design(dtype, d, dv)
+    tiles = bwd_tiles(dtype, d, dv)
+    groups = (bwd_head_groups(b, hq, hkv, s, s, True, None, tiles.stat_rows, tiles.block_k)
+              if design == "wgmma" else 1)
     call = lambda: flash_attention_bwd(q, k, v, out, dout, lse)  # noqa: E731
     ms = cuda_ms(call, iters=10, warmup=2)
-    pass1, pass2 = backward_passes(call)
+    pass1, pass2, pass3 = backward_passes(call)
     plain_ms = cuda_ms(lambda: attention_vjp_ref(q, k, v, dout), iters=3, warmup=1)
     lib_ms, backend = sdpa_backward_ms(q, k, v, dout)
     fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, impl="cuda"), iters=10, warmup=2)
-    print(f"time flash_attention.bwd [{bwd_design(q.dtype, d, dv)}] B={b} Hq={hq} Hkv={hkv} "
-          f"S={s} D={d} Dv={dv} bf16 causal: ms={ms} pass1_dq_ms={pass1} "
-          f"pass2_dkdv_ms={pass2} plain_ms={plain_ms} library_ms(sdpa backward, "
-          f"{backend})={lib_ms} bound_ms={bound_ms} flops={flops} bytes={nbytes} "
-          f"share_of_bound={bound_ms / ms} tflops={flops / ms / 1e9} "
+    print(f"time flash_attention.bwd [{design}] B={b} Hq={hq} Hkv={hkv} "
+          f"S={s} D={d} Dv={dv} {dtype_name} causal: ms={ms} pass1_dq_ms={pass1} "
+          f"pass2_dkdv_ms={pass2} head_groups={groups} pass3_sum_ms={pass3} "
+          f"plain_ms={plain_ms} library_ms(sdpa backward, "
+          f"{backend})={lib_ms} bound_ms={bound_ms} bound_by={bound_by} flops={flops} "
+          f"bytes={nbytes} share_of_bound={bound_ms / ms} tflops={flops / ms / 1e9} "
           f"seven_product_bound_ms={bound_ms * (4 * d + 3 * dv) / (3 * d + 2 * dv)} "
           f"forward_kernel_ms={fwd_ms} [{card}]")
     del q, k, v, dout, out, lse
     torch.cuda.empty_cache()
-    return ms, plain_ms, lib_ms, bound_ms
+    return ms, plain_ms, lib_ms, bound_ms, bound_by
 
 
 TRAIN_LM_LAYERS = 36  # qwen3-4b's depth: all of it
@@ -4560,6 +4609,11 @@ TRAIN_MICRO_TOL = 1e-3  # the 2-microbatch step against the mean of its halves
 TRAIN_MLA_ARCH = "deepseek-v3-671b"
 TRAIN_MLA_S = 2048
 TRAIN_MLA_ATTN = (1, 128, 128, TRAIN_MLA_S, 192)  # its attention: B, Hq, Hkv, S, D (Dv 128)
+# Phase 17 (f): gemma-2b at full width and depth (18 layers, MQA, head_dim
+# 256, a 256,000-token vocabulary, remat), one loss-and-gradients step at
+# B=1, S=4096: its attention is the backward's wgmma design at D = 256.
+TRAIN_GEMMA_ARCH = "gemma-2b"
+TRAIN_GEMMA_S = 4096
 TRAIN_GNN_STEPS = 3
 SHARDED_S = 2048
 SHARDED_MIXTRAL_S = 4096
@@ -4738,7 +4792,7 @@ def phase_train_mla(dev, card: str) -> dict:
     counts = dict(launch_counts)
     dense, mtp = cfg.num_dense_layers_effective(), cfg.mtp_depth
     want = {"flash_attention": dense * (2 if cfg.remat else 1) + mtp,
-            "flash_attention.bwd": dense + mtp, "flash_attention.bwd.wmma": 0}
+            "flash_attention.bwd": dense + mtp, "flash_attention.bwd.fma": 0}
     check(all(counts[k] == v for k, v in want.items()),
           f"the MLA step went through the forward and the wgmma backward: {counts}, "
           f"want {want}")
@@ -4760,6 +4814,76 @@ def phase_train_mla(dev, card: str) -> dict:
     del params, grads_k, grads_t, batch
     torch.cuda.empty_cache()
     return {"counts": counts, "secs": time.perf_counter() - t_phase, "step_s": secs}
+
+
+def phase_train_gemma(dev, card: str) -> dict:
+    """Phase 17 (f): ``TRAIN_GEMMA_ARCH`` at full width. On a
+    ``TRAIN_CUT_LAYERS``-layer cut, every gradient on the kernel route
+    against the ``impl="torch"`` route's; then at full depth, B=1,
+    S=``TRAIN_GEMMA_S``, one ``value_and_grads`` after a warm-up, its
+    launches counted from 0 (a forward launch a layer and one more in
+    each remat recompute, a backward launch a layer on the wgmma design,
+    none on the fma design), its wall time and peak memory."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.loop import value_and_grads
+    from repro_torch.train.tree import leaf_name, named_leaves, trainable
+
+    t_phase = time.perf_counter()
+    full = get_arch(TRAIN_GEMMA_ARCH).config
+    batch = lm_train_batch(dev, 1, 3, full.vocab_size, TRAIN_GEMMA_S)
+    cut = dataclasses.replace(full, num_layers=TRAIN_CUT_LAYERS)
+    params = trainable(init_params(cut, device=dev,
+                                   generator=torch.Generator(dev).manual_seed(0)))
+    cut_loss = lambda p, b: loss_fn(p, cut, b)  # noqa: E731
+    loss_k, grads_k = value_and_grads(cut_loss, params, batch)
+    with attention_on_plain_route():
+        loss_t, grads_t = value_and_grads(cut_loss, params, batch)
+    errs = leaf_norm_errs(grads_k, grads_t)
+    names = [leaf_name(p) for p, _ in named_leaves(params)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    print(f"train {TRAIN_GEMMA_ARCH} {TRAIN_CUT_LAYERS}-layer cut B=1 S={TRAIN_GEMMA_S}: "
+          f"loss kernel={float(loss_k)} plain={float(loss_t)}; gradients of {len(errs)} "
+          f"leaves, kernel route vs impl=\"torch\" in norm: worst {errs[worst]} "
+          f"({names[worst]}), median {median(errs)}")
+    check(abs(float(loss_k) - float(loss_t)) <= 1e-2 * abs(float(loss_t)),
+          "the two routes' gemma-2b losses agree")
+    check(max(errs) <= TRAIN_GRAD_TOL,
+          f"every gemma-2b gradient within {TRAIN_GRAD_TOL} in norm of the plain route's")
+    del params, grads_k, grads_t
+    torch.cuda.empty_cache()
+
+    params = trainable(init_params(full, device=dev,
+                                   generator=torch.Generator(dev).manual_seed(0)))
+    gemma_loss = lambda p, b: loss_fn(p, full, b)  # noqa: E731
+    value_and_grads(gemma_loss, params, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grads(gemma_loss, params, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = dict(launch_counts)
+    layers = full.num_layers
+    want = {"flash_attention": layers * (2 if full.remat else 1),
+            "flash_attention.bwd": layers, "flash_attention.bwd.fma": 0}
+    finite = math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    print(f"train {TRAIN_GEMMA_ARCH} {layers} layers at full width B=1 S={TRAIN_GEMMA_S} "
+          f"bf16, remat: loss={float(loss)} wall_ms={secs * 1e3} peak_memory_gb={peak_gb} "
+          f"launches={counts} finite={finite} [{card}]")
+    check(all(counts[k] == v for k, v in want.items()),
+          f"the gemma-2b step went through the forward and the wgmma backward: {counts}, "
+          f"want {want}")
+    check(finite, "gemma-2b's loss and gradients are finite")
+    del params, grads, batch
+    torch.cuda.empty_cache()
+    return {"counts": counts, "secs": time.perf_counter() - t_phase, "step_s": secs,
+            "peak_gb": peak_gb}
 
 
 def phase_train_gnn(dev, ogb: dict, card: str) -> dict:
@@ -5252,7 +5376,7 @@ EXAMPLES = (
                               "splitter_aggregate")),
     ("torch_serve_lm", (), ()),
     ("torch_train_lm", ("--checkpoint-dir", None), ("flash_attention",
-                                                    "flash_attention.bwd.wmma")),
+                                                    "flash_attention.bwd.fma")),
     ("torch_gnn_cora", (), ("segment_sum",)),
     ("torch_recsys_serving", (), ()),
 )
@@ -5726,9 +5850,12 @@ def main() -> int:
     bwd_errs = phase_attention_bwd(dev)
     bwd_times = {"wgmma": attention_bwd_times(dev, card),
                  "mla": attention_bwd_times(dev, card, TRAIN_MLA_ATTN, dv=128),
-                 "wmma": attention_bwd_times(dev, card, ATTN_BWD_WMMA_SHAPE)}
+                 "d256": attention_bwd_times(dev, card, ATTN_BWD_GEMMA_SHAPE),
+                 "fma": attention_bwd_times(dev, card, ATTN_BWD_FMA_SHAPE,
+                                            dtype_name="float32")}
     train_lm = phase_train_lm(dev, card)
     train_mla = phase_train_mla(dev, card)
+    train_gemma = phase_train_gemma(dev, card)
     train_gnn = phase_train_gnn(dev, ogb, card)
     train_secs = time.perf_counter() - t17
 
@@ -5829,36 +5956,38 @@ def main() -> int:
               f"library_ms(segment_reduce)={c_lib} bound_ms={c_bound} [{card}]")
     # The backward: the wgmma design at qwen3-4b's training shape (its
     # launches in phase 17 (b)'s train(), phase 18's mixtral and gnn parts
-    # and phase 19) and at MLA's (phase 17 (e)'s step and phase 18 (a)),
-    # the wmma design at gemma-2b's D = 256 (its launches: phase 19's
-    # float32 ones).
+    # and phase 19), at MLA's (phase 17 (e)'s step and phase 18 (a)) and
+    # at gemma-2b's D = 256 (phase 17 (f)'s step); the fma design at
+    # torch_train_lm's float32 shape (phase 19's example).
     lm_part = sharded_train["parts"]["lm"]["counts"].get("flash_attention.bwd", 0)
-    for key, name, shape, dv_, launched in (
-            ("wgmma", "flash_attention.bwd", ATTN_BWD_SHAPE, None,
+    for key, name, shape, dv_, dt, launched in (
+            ("wgmma", "flash_attention.bwd", ATTN_BWD_SHAPE, None, "bf16",
              train_lm["counts"]["flash_attention.bwd"]
              + sharded_train["counts"].get("flash_attention.bwd", 0) - lm_part
              + slice16["counts"].get("flash_attention.bwd", 0)),
-            ("mla", "flash_attention.bwd.mla_192_128", TRAIN_MLA_ATTN, 128,
+            ("mla", "flash_attention.bwd.mla_192_128", TRAIN_MLA_ATTN, 128, "bf16",
              train_mla["counts"]["flash_attention.bwd"] + lm_part),
-            ("wmma", "flash_attention.bwd.wmma", ATTN_BWD_WMMA_SHAPE, None,
-             sharded_train["counts"].get("flash_attention.bwd.wmma", 0)
-             + slice16["counts"].get("flash_attention.bwd.wmma", 0))):
-        ms, plain_ms, lib_ms, bound_ms = bwd_times[key]
+            ("d256", "flash_attention.bwd.d256", ATTN_BWD_GEMMA_SHAPE, None, "bf16",
+             train_gemma["counts"]["flash_attention.bwd"]),
+            ("fma", "flash_attention.bwd.fma", ATTN_BWD_FMA_SHAPE, None, "float32",
+             sharded_train["counts"].get("flash_attention.bwd.fma", 0)
+             + slice16["counts"].get("flash_attention.bwd.fma", 0))):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = bwd_times[key]
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": KERNELS["flash_attention"][1],
             "launches": launched,
             "max_abs_err": bwd_errs[key], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
         b_, hq_, hkv_, s_, d_ = shape
-        design = "wmma" if key == "wmma" else "wgmma"
+        design = "fma" if key == "fma" else "wgmma"
         print(f"time {name} (record, {design} design, B={b_} Hq={hq_} Hkv={hkv_} S={s_} "
-              f"D={d_}{f' Dv={dv_}' if dv_ else ''} bf16 causal): ms={ms} "
+              f"D={d_}{f' Dv={dv_}' if dv_ else ''} {dt} causal): ms={ms} "
               f"plain_ms={plain_ms} library_ms(sdpa backward)={lib_ms} "
-              f"bound_ms={bound_ms} share_of_bound={bound_ms / ms} launches={launched} "
-              f"[{card}]")
+              f"bound_ms={bound_ms} ({bound_by}) share_of_bound={bound_ms / ms} "
+              f"launches={launched} [{card}]")
     print("flash_attention.bwd has no Pallas counterpart: the reference takes the VJP "
           "of _attn_kernel's function by autodiff")
     records.append({
@@ -5964,8 +6093,11 @@ def main() -> int:
           f"loss_first={train_gnn['losses'][0]} loss_last={train_gnn['losses'][-1]} [{card}]")
     print(f"e2e train {TRAIN_MLA_ARCH} dense layers + MTP B=1 S={TRAIN_MLA_S}: "
           f"value_and_grads_ms={train_mla['step_s'] * 1e3} [{card}]")
-    print(f"e2e train phase_s={train_secs} (lm {train_lm['secs']}, mla {train_mla['secs']}, gnn "
-          f"{train_gnn['secs']}) [{card}]")
+    print(f"e2e train {TRAIN_GEMMA_ARCH} full depth B=1 S={TRAIN_GEMMA_S}: "
+          f"value_and_grads_ms={train_gemma['step_s'] * 1e3} "
+          f"peak_memory_gb={train_gemma['peak_gb']} [{card}]")
+    print(f"e2e train phase_s={train_secs} (lm {train_lm['secs']}, mla {train_mla['secs']}, "
+          f"gemma {train_gemma['secs']}, gnn {train_gnn['secs']}) [{card}]")
     for label, part in sharded_train["parts"].items():
         print(f"e2e sharded train {label} (mesh (1, 1), NCCL): mesh_s={part['mesh_s']} "
               f"meshless_s={part['plain_s']} [{card}]")

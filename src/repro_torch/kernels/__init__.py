@@ -44,7 +44,7 @@ launch_counts = {
     "splitter_aggregate": 0,
     "flash_attention": 0,
     "flash_attention.bwd": 0,  # the backward's wgmma design
-    "flash_attention.bwd.wmma": 0,  # its wmma design (ops.py::bwd_design)
+    "flash_attention.bwd.fma": 0,  # its fma design (ops.py::bwd_design)
     "segment_sum": 0,
     "ordered_fold": 0,
 }

@@ -30,51 +30,68 @@
 // FLOPs, 0.35 ms at 989 TFLOP/s (the seven run: 0.49 ms); the bytes (q, k,
 // v, out, dout read, dq, dk, dv written) take 0.03 ms at 3.35 TB/s. At MLA's
 // training shape (B=1, H=128, S=2048, (D, Dv) = (192, 128)) the five are
-// 4.5e11 FLOPs, 0.45 ms. Its times against the bounds are in PERF.md.
+// 4.5e11 FLOPs, 0.45 ms; at gemma-2b's (B=1, Hq=8, Hkv=1, S=4096, D=256)
+// 1.7e11 FLOPs, 0.17 ms. Its times against the bounds are in PERF.md.
 //
 // Two designs, chosen in flash_attention_bwd below (ops.py::bwd_design
 // states the same choice). No atomics in either: every call gives the same
 // bits.
 //
-// "wgmma": bfloat16 with D = Dv in {16, 32, 64, 96, 128} and MLA's (D, Dv)
-// = (192, 128), the forward's warp-specialised shape (hopper_attention.cuh):
-// a producer warpgroup feeds a TMA ring on mbarriers, two consumer
-// warpgroups (setmaxnreg 24/240) run wgmma with float32 accumulators in
-// registers; a head dim below a multiple of 64 loads as the next multiple
-// (TMA fills zeros). D's and Dv's widths are separate template arguments
-// (TcBwd<DP, DVP>, whose comment reckons each instance's registers).
+// "wgmma": bfloat16 with D = Dv in {16, 32, 64, 96, 128, 256} and MLA's (D,
+// Dv) = (192, 128), the forward's warp-specialised shape
+// (hopper_attention.cuh): a producer warpgroup feeds a TMA ring on
+// mbarriers, two consumer warpgroups (setmaxnreg 24/240) run wgmma with
+// float32 accumulators in registers; a head dim below a multiple of 64 loads
+// as the next multiple (TMA fills zeros). D's and Dv's widths are separate
+// template arguments (TcBwd<DP, DVP>, whose comment reckons each instance's
+// registers and shared memory).
 //   1. attn_bwd_dq_tc, one block a (b * Hq + h, query tile of 128 rows), the
 //      longest causal rows first. The producer loads Q and dO once and
-//      streams K and V tiles of BK1 keys (128; 64 at (192, 128): dQ's 96
-//      registers leave too few for 128-key S and dP) on kv_tile_range, the
-//      forward's schedule. Each consumer owns 64 rows: it takes D_i =
-//      rowsum(dO o O) over Dv and the rows' lse in its prologue (and writes
-//      both for pass 2, the lse in log2 units), then per tile S = Q K^T and
-//      dP = dO V^T (both operands in shared memory), P = 2^(S scale log2(e)
-//      - lse log2(e)) and dS = P o (dP - D_i) scale in registers, and dQ +=
-//      dS K with dS as the register A operand and K read MN-major (as the
-//      forward reads V). Three products.
-//   2. attn_bwd_dkdv_tc, one block a (b * Hkv + KV head, key tile of 128
-//      keys), the first key tiles first. K and V stay resident; the producer
-//      streams tiles of RK query rows of Q and dO (64; 32 at (192, 128),
-//      where dK and dV take 160 registers), with their (lse, D_i), for each
-//      of the group's query heads and each query tile that holds a live pair
-//      for the key tile (bwd_tile_plan in ops.py). Each consumer owns 64
-//      keys: S^T = K Q^T and dP^T = V dO^T in shared memory, P^T and dS^T in
-//      registers with lse and D_i indexed by column, dV += P^T dO and dK +=
-//      dS^T Q with Q and dO read MN-major. dK and dV stay in float32
-//      registers across all of the group's heads. Four products. At (192,
-//      128) a step's S^T and dP^T are issued right behind the last step's
-//      dK product, a six-stage ring ahead of them.
+//      streams K and V tiles of BK1 keys (128; 64 at (192, 128) and 48 at
+//      256: dQ's 96 or 128 registers leave too few for wider S and dP) on
+//      kv_tile_range, the forward's schedule. Each consumer owns 64 rows: it
+//      takes D_i = rowsum(dO o O) over Dv and the rows' lse in its prologue
+//      (and writes both for pass 2, the lse in log2 units), then per tile S =
+//      Q K^T and dP = dO V^T (both operands in shared memory), P = 2^(S
+//      scale log2(e) - lse log2(e)) and dS = P o (dP - D_i) scale in
+//      registers, and dQ += dS K with dS as the register A operand and K
+//      read MN-major (as the forward reads V). Three products.
+//   2. attn_bwd_dkdv_tc, one block a (b * Hkv + KV head, group of the KV
+//      head's query heads, key tile), the first key tiles first. K and V stay
+//      resident; the producer streams tiles of RK query rows of Q and dO (64;
+//      32 at (192, 128)), with their (lse, D_i), for each query head
+//      of the block's group and each query tile that holds a live pair for
+//      the key tile (bwd_tile_plan in ops.py). S^T = K Q^T and dP^T = V dO^T
+//      from shared memory, P^T and dS^T in registers with lse and D_i indexed
+//      by column, dV += P^T dO and dK += dS^T Q with Q and dO read MN-major;
+//      dK and dV stay in float32 registers across the group's heads. Four
+//      products. The block's keys, 128 or 64, are split between the
+//      consumers in one of two ways:
+//      - by rows (D <= 192): each consumer owns 64 keys and runs all four
+//        products on them. At (192, 128) a step's S^T and dP^T are issued
+//        right behind the last step's dK product, a six-stage ring ahead.
+//      - by product (D = 256, where dK and dV alone would take 256 of a
+//        consumer's 240 registers): both consumers own the block's 64 keys.
+//        Consumer 0 holds dV and runs S^T, P^T and dV += P^T dO; consumer
+//        1 holds dK and runs dP^T, dS^T and dK += dS^T Q. P^T reaches
+//        consumer 1 in float32 through a double-buffered exchange in shared
+//        memory, on named barriers (bar.sync / bar.arrive over the two
+//        warpgroups), so dS^T is the same function as in the row split.
+//        Two products a step on each consumer.
+//      With G head groups (ops.py::bwd_head_groups: G > 1 where one KV
+//      head's query heads would make the longest block walk more than 1.1
+//      times the mean per SM, as MQA does), each block writes float32
+//      partial dK and dV to a scratch that the wrapper allocates, and
+//   3. attn_bwd_sum_groups adds the G partials in group order and writes
+//      dk and dv in bf16. With G = 1 pass 2 writes them itself.
 //   Only the tiles that need it take the mask: one crossing the causal
 //   diagonal, one at the window's lower edge, one holding key Sk - 1. Rows
 //   past Sq read zeros and an lse of +inf, so they add nothing unmasked.
 //
-// "wmma" (the first design, kept for bf16 D = 256 and float32 at every head
-// dim): FlashAttention-2's schedule on 256-thread
-// blocks whose products are block_mm, wmma m16n16k16 tiles through shared
-// memory (bf16 operands, float32 accumulators; P and dS rounded to bf16 as
-// operands) or float32 FMA (TF32 would break the 2e-3 tolerance).
+// "fma" (the first design, kept for float32 at every head dim):
+// FlashAttention-2's schedule on 256-thread blocks whose products are
+// block_mm, float32 FMA through shared memory (TF32 would break the 2e-3
+// tolerance).
 //   1. attn_bwd_dq_kernel, one block a (b, h, query tile of BQ rows): loads
 //      Q, dO and O's rows, takes D_i; sweeps the K and V tiles that hold a
 //      live key for the tile's rows for dS and dQ += dS K. Writes dq and D_i.
@@ -91,29 +108,27 @@
 // inputs' type. bfloat16: D = Dv in {16, 32, 64, 96, 128, 256} and (D, Dv)
 // = (192, 128); float32: D = Dv in the same six.
 
-#include <mma.h>
-
-#include <type_traits>
-
 #include "hopper_attention.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
+
+// ---------------------------------------------------------------------------
+// "fma": float32
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
-  void* dq;
-  void* dk;
-  void* dv;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dout;
+  float* dq;
+  float* dk;
+  float* dv;
   const float* lse;  // (B, Hq, Sq): the forward's log-sum-exp, +inf with no live key
   float* delta;      // (B, Hq, Sq): rowsum(dout o out), written by pass 1
   // Element strides (batch, head, row) of q, k, v, out and dout.
@@ -123,23 +138,19 @@ struct Params {
 };
 
 // Tiles and shared-memory pitches. Rows are padded by 16 bytes, and every
-// buffer starts on 128 bytes, so each wmma fragment starts on 32 bytes and
-// each 16-byte load lands aligned.
-template <typename T, int D, int DV>
+// buffer starts on 128 bytes, so each 16-byte load lands aligned.
+template <int D>
 struct Cfg {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int BQ = kBf16 ? 64 : 16;                      // query rows a tile
-  static constexpr int BK = kBf16 ? 32 : 16;                      // keys a tile (bf16: D = 256)
-  static constexpr int TPR = kThreads / BQ;                       // threads a row
-  static constexpr int PAD = 16 / sizeof(T);
-  static constexpr int LDD = D + PAD;   // q, k tiles
-  static constexpr int LDV = DV + PAD;  // v, dout tiles
-  static constexpr int LDS = BK + 4;    // float scores and dP (BQ x BK)
-  static constexpr int LDP = BK + PAD;  // P and dS in T (BQ x BK)
-  static constexpr int LDA = D + 4;     // float dQ, dK accumulators
-  static constexpr int LDAV = DV + 4;   // float dV accumulator
+  static constexpr int BQ = 16;             // query rows a tile
+  static constexpr int BK = 16;             // keys a tile
+  static constexpr int TPR = kThreads / BQ;  // threads a row
+  static constexpr int PAD = 4;
+  static constexpr int LDD = D + PAD;  // q, k, v, dout tiles
+  static constexpr int LDS = BK + 4;   // scores and dP (BQ x BK)
+  static constexpr int LDP = BK + PAD;  // P and dS (BQ x BK)
+  static constexpr int LDA = D + 4;    // dQ, dK, dV accumulators
   static_assert(TPR <= 32 && 32 % TPR == 0, "a row's threads are lanes of one warp");
-  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims are multiples of 16");
+  static_assert(D % 16 == 0, "head dims are multiples of 16");
 };
 
 __host__ __device__ constexpr size_t align128(size_t bytes) { return (bytes + 127) / 128 * 128; }
@@ -156,33 +167,21 @@ struct Carver {
   }
 };
 
-template <typename T, int D, int DV>
+template <int D>
 constexpr size_t dq_smem_bytes() {
-  using C = Cfg<T, D, DV>;
-  return align128(C::BQ * C::LDD * sizeof(T)) + align128(C::BQ * C::LDV * sizeof(T)) +
-         align128(C::BK * C::LDD * sizeof(T)) + align128(C::BK * C::LDV * sizeof(T)) +
-         2 * align128(C::BQ * C::LDS * sizeof(float)) + align128(C::BQ * C::LDP * sizeof(T)) +
-         align128(C::BQ * C::LDA * sizeof(float));
+  using C = Cfg<D>;
+  return 2 * align128(C::BQ * C::LDD * 4) + 2 * align128(C::BK * C::LDD * 4) +
+         2 * align128(C::BQ * C::LDS * 4) + align128(C::BQ * C::LDP * 4) +
+         align128(C::BQ * C::LDA * 4);
 }
 
-template <typename T, int D, int DV>
+template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  using C = Cfg<T, D, DV>;
-  return align128(C::BQ * C::LDD * sizeof(T)) + align128(C::BQ * C::LDV * sizeof(T)) +
-         align128(C::BK * C::LDD * sizeof(T)) + align128(C::BK * C::LDV * sizeof(T)) +
-         2 * align128(C::BQ * C::LDS * sizeof(float)) +
-         2 * align128(C::BQ * C::LDP * sizeof(T)) + align128(C::BK * C::LDA * sizeof(float)) +
-         align128(C::BK * C::LDAV * sizeof(float)) + 2 * align128(C::BQ * sizeof(float));
+  using C = Cfg<D>;
+  return 2 * align128(C::BQ * C::LDD * 4) + 2 * align128(C::BK * C::LDD * 4) +
+         2 * align128(C::BQ * C::LDS * 4) + 2 * align128(C::BQ * C::LDP * 4) +
+         2 * align128(C::BK * C::LDA * 4) + 2 * align128(C::BQ * 4);
 }
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ bool live(const Params& p, int i, int key) {
   return key < p.sk && !(p.causal && key > i) &&
@@ -198,60 +197,34 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // Rows [r0, r0 + R) of one (b, h) slice (row stride rs elements) into a
 // shared tile of pitch ld, in 16-byte pieces; rows at or past s are zeros.
-template <typename T, int R, int W>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* base, long long rs, int r0,
-                                          int s) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int CH = W / V;
+template <int R, int W>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* base, long long rs,
+                                          int r0, int s) {
+  constexpr int CH = W / 4;
   for (int i = threadIdx.x; i < R * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < s) val = *reinterpret_cast<const uint4*>(base + (r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    const int r = i / CH, c = (i % CH) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < s) val = *reinterpret_cast<const float4*>(base + (r0 + r) * rs + c);
+    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
   }
 }
 
-// C (M x N float, pitch ldc) = (acc ? C : 0) + op(A) op(B), op(A) M x K and
-// op(B) K x N, all in shared memory. A is stored M x K (TA false) or K x M
-// (TA true: op(A) = A^T), B is stored K x N (TB false) or N x K (TB true).
-template <typename T, int M, int N, int K, bool TA, bool TB>
-__device__ __forceinline__ void block_mm(float* C, int ldc, const T* A, int lda, const T* B,
-                                         int ldb, bool acc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using LA = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
-    constexpr int TN = N / 16;
-    constexpr int TILES = (M / 16) * TN;
-    for (int t = threadIdx.x / 32; t < TILES; t += kWarps) {
-      const int tm = t / TN, tn = t % TN;
-      float* cp = C + tm * 16 * ldc + tn * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (acc) {
-        wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(c, 0.f);
-      }
-#pragma unroll 4
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-        wmma::load_matrix_sync(a, TA ? A + kk * lda + tm * 16 : A + tm * 16 * lda + kk, lda);
-        wmma::load_matrix_sync(b, TB ? B + tn * 16 * ldb + kk : B + kk * ldb + tn * 16, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
+// C (M x N, pitch ldc) = (acc ? C : 0) + op(A) op(B), op(A) M x K and op(B)
+// K x N, all float32 in shared memory, in FMA. A is stored M x K (TA false)
+// or K x M (TA true: op(A) = A^T), B is stored K x N (TB false) or N x K (TB
+// true).
+template <int M, int N, int K, bool TA, bool TB>
+__device__ __forceinline__ void block_mm(float* C, int ldc, const float* A, int lda,
+                                         const float* B, int ldb, bool acc) {
+  for (int e = threadIdx.x; e < M * N; e += kThreads) {
+    const int m = e / N, n = e % N;
+    float s = acc ? C[m * ldc + n] : 0.f;
+    for (int kk = 0; kk < K; ++kk) {
+      const float a = TA ? A[kk * lda + m] : A[m * lda + kk];
+      const float b = TB ? B[n * ldb + kk] : B[kk * ldb + n];
+      s = fmaf(a, b, s);
     }
-  } else {
-    for (int e = threadIdx.x; e < M * N; e += kThreads) {
-      const int m = e / N, n = e % N;
-      float s = acc ? C[m * ldc + n] : 0.f;
-      for (int kk = 0; kk < K; ++kk) {
-        const float a = TA ? A[kk * lda + m] : A[m * lda + kk];
-        const float b = TB ? B[n * ldb + kk] : B[kk * ldb + n];
-        s = fmaf(a, b, s);
-      }
-      C[m * ldc + n] = s;
-    }
+    C[m * ldc + n] = s;
   }
 }
 
@@ -264,25 +237,21 @@ __device__ __forceinline__ void key_tiles(const Params& p, int q0, int q1, int b
   if (p.window > 0 && q0 - p.window + 1 > 0) lo = (q0 - p.window + 1) / bk;
 }
 
-// ---------------------------------------------------------------------------
-// "wmma": bf16 D = 256, float32
-// ---------------------------------------------------------------------------
-
 // Pass 1: one block a (b * Hq + h, query tile); the longest causal rows
 // first.
-template <typename T, int D, int DV>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq_kernel(const Params p) {
-  using C = Cfg<T, D, DV>;
+  using C = Cfg<D>;
   constexpr int BQ = C::BQ, BK = C::BK, TPR = C::TPR;
   extern __shared__ __align__(128) unsigned char smem[];
   Carver carve{smem};
-  T* sQ = carve.take<T>(BQ * C::LDD);
-  T* sdO = carve.take<T>(BQ * C::LDV);
-  T* sK = carve.take<T>(BK * C::LDD);
-  T* sV = carve.take<T>(BK * C::LDV);
+  float* sQ = carve.take<float>(BQ * C::LDD);
+  float* sdO = carve.take<float>(BQ * C::LDD);
+  float* sK = carve.take<float>(BK * C::LDD);
+  float* sV = carve.take<float>(BK * C::LDD);
   float* sS = carve.take<float>(BQ * C::LDS);
   float* sdP = carve.take<float>(BQ * C::LDS);
-  T* sdS = carve.take<T>(BQ * C::LDP);
+  float* sdS = carve.take<float>(BQ * C::LDP);
   float* sdQ = carve.take<float>(BQ * C::LDA);
 
   const int bh = blockIdx.x;
@@ -290,14 +259,14 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq_kernel(const Params p
   const int hk = h / (p.hq / p.hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const long long* st = p.st;
-  const T* qg = static_cast<const T*>(p.q) + b * st[0] + h * st[1];
-  const T* kg = static_cast<const T*>(p.k) + b * st[3] + hk * st[4];
-  const T* vg = static_cast<const T*>(p.v) + b * st[6] + hk * st[7];
-  const T* og = static_cast<const T*>(p.o) + b * st[9] + h * st[10];
-  const T* dog = static_cast<const T*>(p.dout) + b * st[12] + h * st[13];
+  const float* qg = p.q + b * st[0] + h * st[1];
+  const float* kg = p.k + b * st[3] + hk * st[4];
+  const float* vg = p.v + b * st[6] + hk * st[7];
+  const float* og = p.o + b * st[9] + h * st[10];
+  const float* dog = p.dout + b * st[12] + h * st[13];
 
-  load_tile<T, BQ, D>(sQ, C::LDD, qg, st[2], q0, p.sq);
-  load_tile<T, BQ, DV>(sdO, C::LDV, dog, st[14], q0, p.sq);
+  load_tile<BQ, D>(sQ, C::LDD, qg, st[2], q0, p.sq);
+  load_tile<BQ, D>(sdO, C::LDD, dog, st[14], q0, p.sq);
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) sdQ[(i / D) * C::LDA + i % D] = 0.f;
   __syncthreads();
 
@@ -305,9 +274,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq_kernel(const Params p
   const int row = q0 + r;
   float delta = 0.f;
   if (row < p.sq) {
-    for (int d = g; d < DV; d += TPR) {
-      delta += to_float(sdO[r * C::LDV + d]) * to_float(og[row * st[11] + d]);
-    }
+    for (int d = g; d < D; d += TPR) delta += sdO[r * C::LDD + d] * og[row * st[11] + d];
   }
   delta = row_sum<TPR>(delta);
 
@@ -322,11 +289,11 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq_kernel(const Params p
   for (int j = lo; j <= hi; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // sK, sV and sdS are free
-    load_tile<T, BK, D>(sK, C::LDD, kg, st[5], k0, p.sk);
-    load_tile<T, BK, DV>(sV, C::LDV, vg, st[8], k0, p.sk);
+    load_tile<BK, D>(sK, C::LDD, kg, st[5], k0, p.sk);
+    load_tile<BK, D>(sV, C::LDD, vg, st[8], k0, p.sk);
     __syncthreads();
-    block_mm<T, BQ, BK, D, false, true>(sS, C::LDS, sQ, C::LDD, sK, C::LDD, false);
-    block_mm<T, BQ, BK, DV, false, true>(sdP, C::LDS, sdO, C::LDV, sV, C::LDV, false);
+    block_mm<BQ, BK, D, false, true>(sS, C::LDS, sQ, C::LDD, sK, C::LDD, false);
+    block_mm<BQ, BK, D, false, true>(sdP, C::LDS, sdO, C::LDD, sV, C::LDD, false);
     __syncthreads();
     for (int c = g; c < BK; c += TPR) {
       float ds = 0.f;
@@ -334,37 +301,37 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dq_kernel(const Params p
         const float pr = expf(sS[r * C::LDS + c] * p.scale - lse);
         ds = pr * (sdP[r * C::LDS + c] - delta) * p.scale;
       }
-      sdS[r * C::LDP + c] = from_float<T>(ds);
+      sdS[r * C::LDP + c] = ds;
     }
     __syncthreads();
-    block_mm<T, BQ, D, BK, false, false>(sdQ, C::LDA, sdS, C::LDP, sK, C::LDD, true);
+    block_mm<BQ, D, BK, false, false>(sdQ, C::LDA, sdS, C::LDP, sK, C::LDD, true);
   }
   __syncthreads();
-  T* dqg = static_cast<T*>(p.dq) + (static_cast<long long>(bh) * p.sq + q0) * D;
+  float* dqg = p.dq + (static_cast<long long>(bh) * p.sq + q0) * D;
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int rr = i / D;
-    if (q0 + rr < p.sq) dqg[i] = from_float<T>(sdQ[rr * C::LDA + i % D]);
+    if (q0 + rr < p.sq) dqg[i] = sdQ[rr * C::LDA + i % D];
   }
 }
 
 // Pass 2: one block a (b * Hkv + KV head, key tile); the first key tiles
 // (the longest causal columns) first.
-template <typename T, int D, int DV>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv_kernel(const Params p) {
-  using C = Cfg<T, D, DV>;
+  using C = Cfg<D>;
   constexpr int BQ = C::BQ, BK = C::BK, TPR = C::TPR;
   extern __shared__ __align__(128) unsigned char smem[];
   Carver carve{smem};
-  T* sQ = carve.take<T>(BQ * C::LDD);
-  T* sdO = carve.take<T>(BQ * C::LDV);
-  T* sK = carve.take<T>(BK * C::LDD);
-  T* sV = carve.take<T>(BK * C::LDV);
+  float* sQ = carve.take<float>(BQ * C::LDD);
+  float* sdO = carve.take<float>(BQ * C::LDD);
+  float* sK = carve.take<float>(BK * C::LDD);
+  float* sV = carve.take<float>(BK * C::LDD);
   float* sS = carve.take<float>(BQ * C::LDS);
   float* sdP = carve.take<float>(BQ * C::LDS);
-  T* sP = carve.take<T>(BQ * C::LDP);
-  T* sdS = carve.take<T>(BQ * C::LDP);
+  float* sP = carve.take<float>(BQ * C::LDP);
+  float* sdS = carve.take<float>(BQ * C::LDP);
   float* sdK = carve.take<float>(BK * C::LDA);
-  float* sdV = carve.take<float>(BK * C::LDAV);
+  float* sdV = carve.take<float>(BK * C::LDA);
   float* sLse = carve.take<float>(BQ);
   float* sDelta = carve.take<float>(BQ);
 
@@ -374,13 +341,15 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv_kernel(const Params
   const int k0 = blockIdx.y * BK;
   const int k1 = min(k0 + BK, p.sk) - 1;
   const long long* st = p.st;
-  const T* kg = static_cast<const T*>(p.k) + b * st[3] + hk * st[4];
-  const T* vg = static_cast<const T*>(p.v) + b * st[6] + hk * st[7];
+  const float* kg = p.k + b * st[3] + hk * st[4];
+  const float* vg = p.v + b * st[6] + hk * st[7];
 
-  load_tile<T, BK, D>(sK, C::LDD, kg, st[5], k0, p.sk);
-  load_tile<T, BK, DV>(sV, C::LDV, vg, st[8], k0, p.sk);
-  for (int i = threadIdx.x; i < BK * D; i += kThreads) sdK[(i / D) * C::LDA + i % D] = 0.f;
-  for (int i = threadIdx.x; i < BK * DV; i += kThreads) sdV[(i / DV) * C::LDAV + i % DV] = 0.f;
+  load_tile<BK, D>(sK, C::LDD, kg, st[5], k0, p.sk);
+  load_tile<BK, D>(sV, C::LDD, vg, st[8], k0, p.sk);
+  for (int i = threadIdx.x; i < BK * D; i += kThreads) {
+    sdK[(i / D) * C::LDA + i % D] = 0.f;
+    sdV[(i / D) * C::LDA + i % D] = 0.f;
+  }
 
   // Query tiles with a row that has a live key in [k0, k1], or, where some
   // row has no live key at all, every tile from the first.
@@ -399,21 +368,21 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv_kernel(const Params
   for (int hg = 0; hg < group; ++hg) {
     const int h = hk * group + hg;
     const long long bh = static_cast<long long>(b) * p.hq + h;
-    const T* qg = static_cast<const T*>(p.q) + b * st[0] + h * st[1];
-    const T* dog = static_cast<const T*>(p.dout) + b * st[12] + h * st[13];
+    const float* qg = p.q + b * st[0] + h * st[1];
+    const float* dog = p.dout + b * st[12] + h * st[13];
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // every tile of the last step is read
-      load_tile<T, BQ, D>(sQ, C::LDD, qg, st[2], q0, p.sq);
-      load_tile<T, BQ, DV>(sdO, C::LDV, dog, st[14], q0, p.sq);
+      load_tile<BQ, D>(sQ, C::LDD, qg, st[2], q0, p.sq);
+      load_tile<BQ, D>(sdO, C::LDD, dog, st[14], q0, p.sq);
       for (int i = threadIdx.x; i < BQ; i += kThreads) {
         const bool in = q0 + i < p.sq;
         sLse[i] = in ? p.lse[bh * p.sq + q0 + i] : NAN;
         sDelta[i] = in ? p.delta[bh * p.sq + q0 + i] : 0.f;
       }
       __syncthreads();
-      block_mm<T, BQ, BK, D, false, true>(sS, C::LDS, sQ, C::LDD, sK, C::LDD, false);
-      block_mm<T, BQ, BK, DV, false, true>(sdP, C::LDS, sdO, C::LDV, sV, C::LDV, false);
+      block_mm<BQ, BK, D, false, true>(sS, C::LDS, sQ, C::LDD, sK, C::LDD, false);
+      block_mm<BQ, BK, D, false, true>(sdP, C::LDS, sdO, C::LDD, sV, C::LDD, false);
       __syncthreads();
       const int row = q0 + r;
       const float lse = sLse[r], delta = sDelta[r];
@@ -428,22 +397,22 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_dkdv_kernel(const Params
             ds = pr * (sdP[r * C::LDS + c] - delta) * p.scale;
           }
         }
-        sP[r * C::LDP + c] = from_float<T>(pr);
-        sdS[r * C::LDP + c] = from_float<T>(ds);
+        sP[r * C::LDP + c] = pr;
+        sdS[r * C::LDP + c] = ds;
       }
       __syncthreads();
-      block_mm<T, BK, DV, BQ, true, false>(sdV, C::LDAV, sP, C::LDP, sdO, C::LDV, true);
-      block_mm<T, BK, D, BQ, true, false>(sdK, C::LDA, sdS, C::LDP, sQ, C::LDD, true);
+      block_mm<BK, D, BQ, true, false>(sdV, C::LDA, sP, C::LDP, sdO, C::LDD, true);
+      block_mm<BK, D, BQ, true, false>(sdK, C::LDA, sdS, C::LDP, sQ, C::LDD, true);
     }
   }
   __syncthreads();
-  T* dkg = static_cast<T*>(p.dk) + (static_cast<long long>(bhk) * p.sk + k0) * D;
-  T* dvg = static_cast<T*>(p.dv) + (static_cast<long long>(bhk) * p.sk + k0) * DV;
+  float* dkg = p.dk + (static_cast<long long>(bhk) * p.sk + k0) * D;
+  float* dvg = p.dv + (static_cast<long long>(bhk) * p.sk + k0) * D;
   for (int i = threadIdx.x; i < BK * D; i += kThreads) {
-    if (k0 + i / D < p.sk) dkg[i] = from_float<T>(sdK[(i / D) * C::LDA + i % D]);
-  }
-  for (int i = threadIdx.x; i < BK * DV; i += kThreads) {
-    if (k0 + i / DV < p.sk) dvg[i] = from_float<T>(sdV[(i / DV) * C::LDAV + i % DV]);
+    if (k0 + i / D < p.sk) {
+      dkg[i] = sdK[(i / D) * C::LDA + i % D];
+      dvg[i] = sdV[(i / D) * C::LDA + i % D];
+    }
   }
 }
 
@@ -456,24 +425,28 @@ int launch(Kernel kernel, size_t smem, dim3 grid, const Params& p, cudaStream_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int DV>
-int run(const Params& p, int batch, cudaStream_t stream) {
-  using C = Cfg<T, D, DV>;
-  static_assert(dq_smem_bytes<T, D, DV>() <= 232448, "pass 1 fits a block's shared memory");
-  static_assert(dkdv_smem_bytes<T, D, DV>() <= 232448, "pass 2 fits a block's shared memory");
+template <int D>
+int run_fma(const Params& p, int batch, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static_assert(dq_smem_bytes<D>() <= 232448, "pass 1 fits a block's shared memory");
+  static_assert(dkdv_smem_bytes<D>() <= 232448, "pass 2 fits a block's shared memory");
   const dim3 grid_q(batch * p.hq, (p.sq + C::BQ - 1) / C::BQ);
-  int err = launch(attn_bwd_dq_kernel<T, D, DV>, dq_smem_bytes<T, D, DV>(), grid_q, p, stream);
+  int err = launch(attn_bwd_dq_kernel<D>, dq_smem_bytes<D>(), grid_q, p, stream);
   if (err != 0) return err;
   const dim3 grid_k(batch * p.hkv, (p.sk + C::BK - 1) / C::BK);
-  return launch(attn_bwd_dkdv_kernel<T, D, DV>, dkdv_smem_bytes<T, D, DV>(), grid_k, p, stream);
+  return launch(attn_bwd_dkdv_kernel<D>, dkdv_smem_bytes<D>(), grid_k, p, stream);
 }
 
 // ---------------------------------------------------------------------------
-// "wgmma": bf16, D = Dv in {16, 32, 64, 96, 128}, and (D, Dv) = (192, 128)
+// "wgmma": bf16, D = Dv in {16, 32, 64, 96, 128, 256}, and (D, Dv) = (192, 128)
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRowsQ = 128;  // pass 1: query rows a block (64 a consumer)
-constexpr int kTcKeys = 128;   // pass 2: keys a block (64 a consumer)
+// Pass 2's split by product: named barriers 1 + b (P^T of buffer b
+// written) and 3 + b (buffer b read), over both consumer warpgroups.
+constexpr int kBarPtFull = 1;
+constexpr int kBarPtFree = 3;
+constexpr int kConsumerThreads = 2 * kWarpgroup;
 
 struct TcParams {
   const bf16* o;      // out, for D_i
@@ -485,7 +458,9 @@ struct TcParams {
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  int hq, hkv, sq, sk, sq_pad, d, dv_dim, causal, window;
+  float* part_dk;     // groups > 1: pass 2's partials, (groups, B * Hkv, Sk, D)
+  float* part_dv;     // and (groups, B * Hkv, Sk, Dv)
+  int hq, hkv, sq, sk, sq_pad, d, dv_dim, causal, window, groups;
   float scale, scale2;  // 1 / sqrt(D) and log2(e) / sqrt(D)
 };
 
@@ -496,19 +471,33 @@ struct TcParams {
 // and operands take, in floats or packed bf16 pairs:
 //   pass 1, dQ + S + dP + dS packed: DP/2 + BK1/2 + BK1/2 + BK1/4; at DP =
 //     128 with BK1 = 128 keys a K/V tile, 64 + 64 + 64 + 32 = 224; at DP =
-//     192 that tile would need 256, so BK1 = 64: 96 + 32 + 32 + 16 = 176.
-//   pass 2, dK + dV + S^T + dP^T + P^T and dS^T packed: DP/2 + DVP/2 + RK/2
-//     + RK/2 + RK/4 + RK/4 for Q/dO tiles of RK rows; at (128, 128) with RK
-//     = 64, 64 + 64 + 32 + 32 + 16 + 16 = 224; at (192, 128) RK = 64 would
-//     need 256, so RK = 32: 96 + 64 + 16 + 16 + 8 + 8 = 208.
-// The smaller pass-2 tiles leave shared memory for a deeper ring.
+//     192 that tile would need 256, so BK1 = 64: 96 + 32 + 32 + 16 = 176;
+//     at DP = 256, BK1 = 48: 128 + 24 + 24 + 12 = 188 (64 would fit the
+//     registers, but not two stages in shared memory).
+//   pass 2 split by rows, dK + dV + S^T + dP^T + P^T and dS^T packed: DP/2
+//     + DVP/2 + RK/2 + RK/2 + RK/4 + RK/4 for Q/dO tiles of RK rows; at
+//     (128, 128) with RK = 64, 64 + 64 + 32 + 32 + 16 + 16 = 224; at (192,
+//     128) RK = 64 would need 256, so RK = 32: 96 + 64 + 16 + 16 + 8 + 8 =
+//     208. At (256, 256) dK and dV alone take 256, so
+//   pass 2 split by product (kSplit), RK = 64: consumer 0, dV + S^T + P^T
+//     packed, DVP/2 + RK/2 + RK/4 = 128 + 32 + 16 = 176; consumer 1, dK +
+//     dP^T + the P^T it reads + dS^T packed, DP/2 + RK/2 + RK/2 + RK/4 =
+//     128 + 32 + 32 + 16 = 208. (32-row tiles fit too, but their m64n32
+//     S^T and dP^T re-read K and V from shared memory twice as often a
+//     FLOP: 0.35 against 0.31 ms at gemma-2b's shape.)
+// Shared memory at (256, 256): pass 1, Q and dO 64 KB each and two
+// stages of 48-key K and V (48 KB a stage), 225 KB; pass 2, K and V of 64
+// keys (32 KB each), two stages of 64-row Q and dO with their stats
+// (64.5 KB a stage) and the two 16 KB P^T buffers, 226 KB. At (192, 128)
+// the smaller pass-2 tiles leave shared memory for a deeper ring.
 template <int DP, int DVP>
 struct TcBwd {
   static constexpr int NP = DP / kPanel;    // 64-column panels of q and k
   static constexpr int NPV = DVP / kPanel;  // those of v and dout
-  static constexpr bool kWide = DP > 128;
+  static constexpr bool kSplit = DP == 256;  // pass 2 split by product
+  static constexpr bool kWide = DP == 192;
   // Pass 1: K/V tiles of BK1 keys in a ring of STAGES1.
-  static constexpr int BK1 = kWide ? 64 : 128;
+  static constexpr int BK1 = kSplit ? 48 : kWide ? 64 : 128;
   static constexpr int STAGES1 = 2;
   static constexpr uint32_t Q1_BYTES = kTcRowsQ * DP * 2;
   static constexpr uint32_t DO1_BYTES = kTcRowsQ * DVP * 2;
@@ -518,27 +507,65 @@ struct TcBwd {
   // mbarriers.
   static constexpr size_t SMEM1 =
       1024 + Q1_BYTES + DO1_BYTES + STAGES1 * (K1_BYTES + V1_BYTES) + 8 * (1 + 4 * STAGES1);
-  // Pass 2: Q/dO tiles of RK rows with their (lse, D_i) in a ring of STAGES2.
+  // Pass 2: KEYS2 keys a block; Q/dO tiles of RK rows with their (lse,
+  // D_i) in a ring of STAGES2.
+  static constexpr int KEYS2 = kSplit ? 64 : 128;
   static constexpr int RK = kWide ? 32 : 64;
   static constexpr int STAGES2 = kWide ? 6 : 2;
   // Pass 2 issues step i + 1's S^T and dP^T right behind step i's dK
   // product where the registers allow it: at DP = 128 that loop spills.
   static constexpr bool kOverlap2 = kWide;
-  static constexpr uint32_t K2_BYTES = kTcKeys * DP * 2;
-  static constexpr uint32_t V2_BYTES = kTcKeys * DVP * 2;
+  static constexpr uint32_t K2_BYTES = KEYS2 * DP * 2;
+  static constexpr uint32_t V2_BYTES = KEYS2 * DVP * 2;
   static constexpr uint32_t Q2_BYTES = RK * DP * 2;
   static constexpr uint32_t DO2_BYTES = RK * DVP * 2;
   static constexpr uint32_t STAT_BYTES = 2 * RK * sizeof(float);  // lse, then D_i
-  // 1024 to align the tiles; K, V; the Q, dO and stats rings; 1 + 2 *
-  // STAGES2 mbarriers.
+  // kSplit: P^T, a consumer thread's RK / 2 floats, in two buffers.
+  static constexpr uint32_t PT_BYTES = kSplit ? kWarpgroup * (RK / 2) * 4 : 0;
+  // 1024 to align the tiles; K, V; the Q, dO and stats rings; the P^T
+  // buffers; 1 + 2 * STAGES2 mbarriers.
   static constexpr size_t SMEM2 = 1024 + K2_BYTES + V2_BYTES +
                                   STAGES2 * (Q2_BYTES + DO2_BYTES + STAT_BYTES) +
-                                  8 * (1 + 2 * STAGES2);
+                                  2 * PT_BYTES + 8 * (1 + 2 * STAGES2);
   static_assert(SMEM1 <= 227 * 1024 && SMEM2 <= 227 * 1024,
                 "a block's shared memory is at most 227 KB");
-  static_assert(DP / 2 + BK1 + BK1 / 4 <= 224 && DP / 2 + DVP / 2 + RK + RK / 2 <= 224,
-                "a consumer's accumulators and operands leave room in 240 registers");
+  static_assert(!kSplit || KEYS2 == 64, "split by product: both consumers own the 64 keys");
+  static_assert(DP / 2 + BK1 + BK1 / 4 <= 224,
+                "pass 1: a consumer's accumulators and operands leave room in 240 registers");
+  static_assert(kSplit ? DP / 2 + RK + RK / 4 <= 224 && DVP / 2 + RK / 2 + RK / 4 <= 224
+                       : DP / 2 + DVP / 2 + RK + RK / 2 <= 224,
+                "pass 2: a consumer's accumulators and operands leave room in 240 registers");
 };
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void put2(bf16* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void put2(float* dst, float lo, float hi) {
+  *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+}
+
+// A thread's rows `row` and row + 8 of an accumulator (64 x N, N / 2 floats
+// a thread) into row-major `out` of `width` columns (the first `width` of
+// the N), rows at or past `rows` left out.
+template <int N, typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[N / 2], T* out, int width, int row,
+                                           int rows, int col) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= rows) continue;
+    T* dst = out + static_cast<long long>(row + 8 * r) * width;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      if (8 * j < width) put2(dst + 8 * j + col, acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
 
 // Pass 2's walk over the query tiles (of RK rows) of one key tile [k0, k1],
 // the same for each query head of the group (ops.py::bwd_tile_plan): from
@@ -843,28 +870,34 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   constexpr int NP = Shape::NP;
   constexpr int NPV = Shape::NPV;
   constexpr int RK = Shape::RK;
+  constexpr int KEYS = Shape::KEYS2;
   constexpr int STAGES = Shape::STAGES2;
   extern __shared__ unsigned char smem_raw[];
-  // K and V (NP and NPV panels of 128 keys x 128 bytes each), then the Q
+  // K and V (NP and NPV panels of KEYS keys x 128 bytes each), then the Q
   // and dO rings (STAGES stages of NP and NPV panels of RK rows), the
-  // (lse, D_i) ring, 1024-aligned.
+  // (lse, D_i) ring, the P^T buffers, 1024-aligned.
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = base;
   const uint32_t v_s = k_s + Shape::K2_BYTES;
   const uint32_t q_s = v_s + Shape::V2_BYTES;
   const uint32_t do_s = q_s + STAGES * Shape::Q2_BYTES;
   const uint32_t st_s = do_s + STAGES * Shape::DO2_BYTES;
-  const uint32_t bar_kv = st_s + STAGES * Shape::STAT_BYTES;
+  const uint32_t pt_s = st_s + STAGES * Shape::STAT_BYTES;
+  const uint32_t bar_kv = pt_s + 2 * Shape::PT_BYTES;
   const uint32_t full = bar_kv + 8;  // stage s at + 8 s
   const uint32_t empty = full + 8 * STAGES;
   const float* stats = reinterpret_cast<const float*>(smem_raw + (st_s - smem_u32(smem_raw)));
 
-  const int bhk = blockIdx.x;
+  // Block (b * Hkv + KV head, head group g): the group's query heads h0 ..
+  // h0 + heads - 1.
+  const int bhk = blockIdx.x / p.groups;
+  const int g = blockIdx.x % p.groups;
   const int b = bhk / p.hkv;
   const int hk = bhk % p.hkv;
-  const int group = p.hq / p.hkv;
-  const int k0 = blockIdx.y * kTcKeys;  // the first key tiles (longest columns) first
-  const int k1 = min(k0 + kTcKeys, p.sk) - 1;
+  const int heads = p.hq / p.hkv / p.groups;
+  const int h0 = hk * (p.hq / p.hkv) + g * heads;
+  const int k0 = blockIdx.y * KEYS;  // the first key tiles (longest columns) first
+  const int k1 = min(k0 + KEYS, p.sk) - 1;
   const QueryWalk<RK> walk(p, k0, k1);
 
   if (threadIdx.x == 0) {
@@ -884,13 +917,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       mbar_expect_tx(bar_kv, Shape::K2_BYTES + Shape::V2_BYTES);
 #pragma unroll
       for (int pp = 0; pp < NP; ++pp)
-        tma_load(k_s + pp * kTcKeys * 128, &tk, pp * kPanel, k0, hk, b, bar_kv);
+        tma_load(k_s + pp * KEYS * 128, &tk, pp * kPanel, k0, hk, b, bar_kv);
 #pragma unroll
       for (int pp = 0; pp < NPV; ++pp)
-        tma_load(v_s + pp * kTcKeys * 128, &tv, pp * kPanel, k0, hk, b, bar_kv);
+        tma_load(v_s + pp * KEYS * 128, &tv, pp * kPanel, k0, hk, b, bar_kv);
       int i = 0;
-      for (int hg = 0; hg < group; ++hg) {
-        const int h = hk * group + hg;
+      for (int hg = 0; hg < heads; ++hg) {
+        const int h = h0 + hg;
         const float* rows = p.stats + (static_cast<long long>(b) * p.hq + h) * p.sq_pad * 2;
         for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt), ++i) {
           const int s = i % STAGES;
@@ -909,17 +942,147 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         }
       }
     }
-  } else {
-    // Consumers: warpgroup c owns keys k0 + 64 c .. k0 + 64 c + 63, the rows
-    // of its accumulators; the columns are the tile's query rows.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int c = threadIdx.x / kWarpgroup - 1;
-    const int t = threadIdx.x % kWarpgroup;
-    const int lane = t % 32;
-    const int key = k0 + 64 * c + 16 * (t / 32) + lane / 4;  // and key + 8
-    const int col = 2 * (lane % 4);                          // and col + 1, + 8j
-    const float uniform = 1.f / static_cast<float>(p.sk);
+    return;
+  }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = threadIdx.x / kWarpgroup - 1;
+  const int t = threadIdx.x % kWarpgroup;
+  const int lane = t % 32;
+  const int col = 2 * (lane % 4);  // and col + 1, + 8j: the tile's query rows
+  const float uniform = 1.f / static_cast<float>(p.sk);
+  const auto lse2_of = [&](int i) {
+    return reinterpret_cast<const float2*>(stats + (i % STAGES) * 2 * RK);
+  };
+  const auto need_mask = [&](int qt) {
+    const int q0 = qt * RK;
+    const int q1 = min(q0 + RK, p.sq) - 1;
+    return (p.causal && k0 + KEYS - 1 > q0) || (p.window > 0 && q1 - k0 >= p.window) ||
+           k0 + KEYS > p.sk;
+  };
+  // The block's first row of dK and dV: in dk and dv, or with head groups
+  // in group g's slice of the float32 partials.
+  const auto rows_at = [&]() {
+    return p.groups == 1 ? static_cast<long long>(bhk) * p.sk
+                         : (static_cast<long long>(g) * (gridDim.x / p.groups) + bhk) * p.sk;
+  };
+  mbar_wait(bar_kv, 0);
+
+  if constexpr (Shape::kSplit) {
+    // Split by product: both consumers own keys k0 .. k0 + 63, the rows of
+    // their accumulators. Step i is (query head hg, query tile qt), as the
+    // producer walks them.
+    const int key = k0 + 16 * (t / 32) + lane / 4;  // and key + 8
+    float4* pt_buf = reinterpret_cast<float4*>(smem_raw + (pt_s - smem_u32(smem_raw)));
+    constexpr int PT4 = RK / 8;  // float4s of P^T a thread
+    if (c == 0) {
+      // S^T = K Q^T, P^T, handed over in float32 (the dS version: 0 on a
+      // row with no live key), then dV += P^T dO.
+      float dv[DVP / 2];
+      float st[RK / 2];
+      uint32_t pa[RK / 16][4];
+#pragma unroll
+      for (int i = 0; i < DVP / 2; ++i) dv[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < RK / 2; ++i) st[i] = 0.f;
+      int i = 0;
+      for (int hg = 0; hg < heads; ++hg) {
+        for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt), ++i) {
+          const int s = i % STAGES;
+          mbar_wait(full + 8 * s, (i / STAGES) & 1);
+          reg_fence(st);
+          wgmma_fence();
+          issue_ss<RK, DP / 16>(st, k_s, KEYS * 128, q_s + s * Shape::Q2_BYTES, RK * 128);
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(st);
+          probs_by_col<RK>(st, pa, lse2_of(i), p, need_mask(qt), qt * RK, key, col, uniform);
+          // Buffer i % 2 is free once consumer 1 has read step i - 2's.
+          if (i >= 2) named_sync(kBarPtFree + (i & 1), kConsumerThreads);
+          float4* buf = pt_buf + (i & 1) * PT4 * kWarpgroup;
+#pragma unroll
+          for (int j = 0; j < PT4; ++j)
+            buf[j * kWarpgroup + t] = make_float4(st[4 * j], st[4 * j + 1], st[4 * j + 2],
+                                                  st[4 * j + 3]);
+          named_arrive(kBarPtFull + (i & 1), kConsumerThreads);
+          reg_fence(pa);
+          reg_fence(dv);
+          wgmma_fence();
+          issue_rs<DVP, RK / 16>(dv, pa, do_s + s * Shape::DO2_BYTES, RK * 128);
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(dv);
+          reg_fence(pa);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * s);
+        }
+      }
+      const long long at = rows_at();
+      if (p.groups == 1) {
+        store_rows<DVP>(dv, p.dv + at * p.dv_dim, p.dv_dim, key, p.sk, col);
+      } else {
+        store_rows<DVP>(dv, p.part_dv + at * p.dv_dim, p.dv_dim, key, p.sk, col);
+      }
+    } else {
+      // dP^T = V dO^T; with consumer 0's P^T, dS^T; then dK += dS^T Q.
+      int steps = 0;
+      for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt)) ++steps;
+      steps *= heads;
+      float dk[DP / 2];
+      float dpt[RK / 2];
+      float st[RK / 2];
+      uint32_t pb[RK / 16][4];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < RK / 2; ++i) dpt[i] = 0.f;
+      int i = 0;
+      for (int hg = 0; hg < heads; ++hg) {
+        for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt), ++i) {
+          const int s = i % STAGES;
+          mbar_wait(full + 8 * s, (i / STAGES) & 1);
+          reg_fence(dpt);
+          wgmma_fence();
+          issue_ss<RK, DVP / 16>(dpt, v_s, KEYS * 128, do_s + s * Shape::DO2_BYTES, RK * 128);
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(dpt);
+          named_sync(kBarPtFull + (i & 1), kConsumerThreads);
+          const float4* buf = pt_buf + (i & 1) * PT4 * kWarpgroup;
+#pragma unroll
+          for (int j = 0; j < PT4; ++j) {
+            const float4 x = buf[j * kWarpgroup + t];
+            st[4 * j] = x.x;
+            st[4 * j + 1] = x.y;
+            st[4 * j + 2] = x.z;
+            st[4 * j + 3] = x.w;
+          }
+          // Consumer 0 waits for this buffer only where it has a step i + 2.
+          if (i + 2 < steps) named_arrive(kBarPtFree + (i & 1), kConsumerThreads);
+          dscores_by_col<RK>(st, dpt, pb, lse2_of(i) + RK / 2, p.scale, col);
+          reg_fence(pb);
+          reg_fence(dk);
+          wgmma_fence();
+          issue_rs<DP, RK / 16>(dk, pb, q_s + s * Shape::Q2_BYTES, RK * 128);
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(dk);
+          reg_fence(pb);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * s);
+        }
+      }
+      const long long at = rows_at();
+      if (p.groups == 1) {
+        store_rows<DP>(dk, p.dk + at * p.d, p.d, key, p.sk, col);
+      } else {
+        store_rows<DP>(dk, p.part_dk + at * p.d, p.d, key, p.sk, col);
+      }
+    }
+  } else {
+    // Split by rows: consumer c owns keys k0 + 64 c .. k0 + 64 c + 63, the
+    // rows of its accumulators.
+    const int key = k0 + 64 * c + 16 * (t / 32) + lane / 4;  // and key + 8
     float dk[DP / 2];
     float dv[DVP / 2];
     float st[RK / 2];
@@ -943,26 +1106,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       reg_fence(st);
       reg_fence(dpt);
       wgmma_fence();
-      issue_ss<RK, DP / 16>(st, k_rows, kTcKeys * 128, q_s + s * Shape::Q2_BYTES, RK * 128);
+      issue_ss<RK, DP / 16>(st, k_rows, KEYS * 128, q_s + s * Shape::Q2_BYTES, RK * 128);
       wgmma_commit();
-      issue_ss<RK, DVP / 16>(dpt, v_rows, kTcKeys * 128, do_s + s * Shape::DO2_BYTES, RK * 128);
+      issue_ss<RK, DVP / 16>(dpt, v_rows, KEYS * 128, do_s + s * Shape::DO2_BYTES, RK * 128);
       wgmma_commit();
     };
-    const auto lse2_of = [&](int i) {
-      return reinterpret_cast<const float2*>(stats + (i % STAGES) * 2 * RK);
-    };
-    const auto need_mask = [&](int qt) {
-      const int q0 = qt * RK;
-      const int q1 = min(q0 + RK, p.sq) - 1;
-      return (p.causal && k0 + kTcKeys - 1 > q0) || (p.window > 0 && q1 - k0 >= p.window) ||
-             k0 + kTcKeys > p.sk;
-    };
-    mbar_wait(bar_kv, 0);
     if constexpr (!Shape::kOverlap2) {
       // Every product of step i done before step i + 1's are issued; stage
       // i goes back to the producer then.
       int i = 0;
-      for (int hg = 0; hg < group; ++hg) {
+      for (int hg = 0; hg < heads; ++hg) {
         for (int qt = walk.first; qt <= walk.last; qt = walk.next(qt), ++i) {
           const int s = i % STAGES;
           issue_st_dpt(i);
@@ -1030,7 +1183,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         issue_rs<DP, RK / 16>(dk, pb, q_s + s * Shape::Q2_BYTES, RK * 128);
         wgmma_commit();
         qt = walk.next(qt);
-        if (qt > walk.last && ++hg < group) qt = walk.first;
+        if (qt > walk.last && ++hg < heads) qt = walk.first;
         if (qt <= walk.last) {
           issue_st_dpt(i + 1);
           scores_to_dv(i + 1, qt);
@@ -1041,29 +1194,44 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         }
       }
     }
-
-    const long long at = static_cast<long long>(bhk) * p.sk;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (key + 8 * r >= p.sk) continue;
-      bf16* krow = p.dk + (at + key + 8 * r) * p.d;
-      bf16* vrow = p.dv + (at + key + 8 * r) * p.dv_dim;
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        if (8 * j < p.d) {
-          *reinterpret_cast<uint32_t*>(krow + 8 * j + col) =
-              pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < DVP / 8; ++j) {
-        if (8 * j < p.dv_dim) {
-          *reinterpret_cast<uint32_t*>(vrow + 8 * j + col) =
-              pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
-        }
-      }
+    const long long at = rows_at();
+    if (p.groups == 1) {
+      store_rows<DP>(dk, p.dk + at * p.d, p.d, key, p.sk, col);
+      store_rows<DVP>(dv, p.dv + at * p.dv_dim, p.dv_dim, key, p.sk, col);
+    } else {
+      store_rows<DP>(dk, p.part_dk + at * p.d, p.d, key, p.sk, col);
+      store_rows<DVP>(dv, p.part_dv + at * p.dv_dim, p.dv_dim, key, p.sk, col);
     }
   }
+}
+
+// Pass 3 (head groups only): dk and dv from pass 2's float32 partials, each
+// element the sum over the groups in their order, then bf16. A thread takes
+// 4 consecutive elements of dk (the first nk) or of dv (the next nv).
+__global__ void __launch_bounds__(256) attn_bwd_sum_groups(const float* part_dk,
+                                                           const float* part_dv, bf16* dk,
+                                                           bf16* dv, long long nk, long long nv,
+                                                           int groups) {
+  long long e = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  const float* src = part_dk;
+  bf16* dst = dk;
+  long long n = nk;
+  if (e >= nk) {
+    e -= nk;
+    src = part_dv;
+    dst = dv;
+    n = nv;
+    if (e >= nv) return;
+  }
+  float4 acc = *reinterpret_cast<const float4*>(src + e);
+  for (int g = 1; g < groups; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(src + g * n + e);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  *reinterpret_cast<uint2*>(dst + e) = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
 }
 
 // st: the element strides (batch, head, row) of q, k, v, out and dout.
@@ -1075,7 +1243,7 @@ int run_tc(const void* q, const void* k, const void* v, int batch, const long lo
   tp.sq_pad = (tp.sq + Shape::RK - 1) / Shape::RK * Shape::RK;
   const int d = tp.d, dv = tp.dv_dim;
   // Pass 1 reads Q and dO in 128-row boxes, K and V in BK1-row boxes; pass
-  // 2 Q and dO in RK-row boxes, K and V in 128-row boxes.
+  // 2 Q and dO in RK-row boxes, K and V in KEYS2-row boxes.
   CUtensorMap tq1, tdo1, tk1, tv1, tq2, tdo2, tk2, tv2;
   if (!encode(&tq1, q, d, tp.sq, tp.hq, batch, st, kTcRowsQ) ||
       !encode(&tdo1, tp.dout, dv, tp.sq, tp.hq, batch, st + 12, kTcRowsQ) ||
@@ -1083,8 +1251,8 @@ int run_tc(const void* q, const void* k, const void* v, int batch, const long lo
       !encode(&tv1, v, dv, tp.sk, tp.hkv, batch, st + 6, Shape::BK1) ||
       !encode(&tq2, q, d, tp.sq, tp.hq, batch, st, Shape::RK) ||
       !encode(&tdo2, tp.dout, dv, tp.sq, tp.hq, batch, st + 12, Shape::RK) ||
-      !encode(&tk2, k, d, tp.sk, tp.hkv, batch, st + 3, kTcKeys) ||
-      !encode(&tv2, v, dv, tp.sk, tp.hkv, batch, st + 6, kTcKeys)) {
+      !encode(&tk2, k, d, tp.sk, tp.hkv, batch, st + 3, Shape::KEYS2) ||
+      !encode(&tv2, v, dv, tp.sk, tp.hkv, batch, st + 6, Shape::KEYS2)) {
     return kEncodeFailed;
   }
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_tc<DP, DVP>,
@@ -1099,9 +1267,16 @@ int run_tc(const void* q, const void* k, const void* v, int batch, const long lo
   attn_bwd_dq_tc<DP, DVP><<<grid_q, kTcThreads, Shape::SMEM1, stream>>>(tq1, tk1, tv1, tdo1, tp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_k(batch * tp.hkv, (tp.sk + kTcKeys - 1) / kTcKeys);
+  const dim3 grid_k(batch * tp.hkv * tp.groups, (tp.sk + Shape::KEYS2 - 1) / Shape::KEYS2);
   attn_bwd_dkdv_tc<DP, DVP><<<grid_k, kTcThreads, Shape::SMEM2, stream>>>(tq2, tk2, tv2, tdo2,
                                                                           tp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || tp.groups == 1) return static_cast<int>(err);
+  const long long nk = static_cast<long long>(batch) * tp.hkv * tp.sk * d;
+  const long long nv = static_cast<long long>(batch) * tp.hkv * tp.sk * dv;
+  const long long threads = (nk + nv) / 4;
+  attn_bwd_sum_groups<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+      tp.part_dk, tp.part_dv, tp.dk, tp.dv, nk, nv, tp.groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1112,53 +1287,64 @@ int run_tc(const void* q, const void* k, const void* v, int batch, const long lo
 // head, row) of q, k, v, out and dout, in that order. lse: the forward's
 // (B, Hq, Sq) float32 log-sum-exp. stats: float32 scratch of B * Hq *
 // round_up(Sq, RK) * 2, RK the instance's pass-2 rows (ops.py::bwd_tiles).
-// dq, dk and dv are contiguous. The design is chosen here: "wgmma" for bf16
-// with D = Dv <= 128 and for bf16 (192, 128), "wmma" for the rest
+// groups: pass 2's head groups (ops.py::bwd_head_groups; 1 on the fma
+// design), a divisor of Hq / Hkv; with groups > 1, partials: float32
+// scratch of groups * B * Hkv * Sk * (D + Dv). dq, dk and dv are
+// contiguous. The design is chosen here: "wgmma" for bf16 with D = Dv in
+// {16, 32, 64, 96, 128, 256} and for bf16 (192, 128), "fma" for float32
 // (ops.py::bwd_design). Returns the cudaGetLastError() after the launches
-// (cudaErrorInvalidValue for head dims or a dtype without an instance), or
-// kEncodeFailed.
+// (cudaErrorInvalidValue for head dims, a dtype or groups without an
+// instance), or kEncodeFailed.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, void* dq, void* dk, void* dv,
-                                   const void* lse, void* stats, int dtype, int batch, int hq,
-                                   int hkv, int sq, int sk, int d, int dvd, int causal,
-                                   int window, const long long* st, void* stream) {
-  if ((dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv != 0) {
+                                   const void* lse, void* stats, void* partials, int dtype,
+                                   int batch, int hq, int hkv, int sq, int sk, int d, int dvd,
+                                   int causal, int window, int groups, const long long* st,
+                                   void* stream) {
+  if ((dtype != 0 && dtype != 1) || hkv <= 0 || hq % hkv != 0 || groups <= 0 ||
+      (hq / hkv) % groups != 0 || (groups > 1 && (dtype != 1 || partials == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (sq <= 0 || sk <= 0 || batch <= 0) return 0;
   const float scale = 1.0f / sqrtf(static_cast<float>(d));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && ((dvd == d && d <= 128) || (d == 192 && dvd == 128))) {
+  if (dtype == 1) {
+    float* part_dk = static_cast<float*>(partials);
+    float* part_dv = part_dk == nullptr
+                         ? nullptr
+                         : part_dk + static_cast<long long>(groups) * batch * hkv * sk * d;
     const TcParams tp{static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
                       st[9], st[10], st[11], st[12], st[13], st[14],
                       static_cast<const float*>(lse), static_cast<float*>(stats),
                       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                      hq, hkv, sq, sk, 0, d, dvd, causal, window, scale, kLog2e * scale};
+                      part_dk, part_dv, hq, hkv, sq, sk, 0, d, dvd, causal, window, groups,
+                      scale, kLog2e * scale};
+    if (d == 192 && dvd == 128) return run_tc<192, 128>(q, k, v, batch, st, tp, s);
+    if (dvd != d) return static_cast<int>(cudaErrorInvalidValue);
     switch (d) {
       case 16:
       case 32:
       case 64: return run_tc<64, 64>(q, k, v, batch, st, tp, s);
       case 96:
       case 128: return run_tc<128, 128>(q, k, v, batch, st, tp, s);
-      case 192: return run_tc<192, 128>(q, k, v, batch, st, tp, s);
+      case 256: return run_tc<256, 256>(q, k, v, batch, st, tp, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   if (dvd != d) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o, dout, dq, dk, dv, static_cast<const float*>(lse),
-           static_cast<float*>(stats), {}, hq, hkv, sq, sk, causal, window, scale};
+  Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+           static_cast<const float*>(v), static_cast<const float*>(o),
+           static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dk),
+           static_cast<float*>(dv), static_cast<const float*>(lse), static_cast<float*>(stats),
+           {}, hq, hkv, sq, sk, causal, window, scale};
   for (int i = 0; i < 15; ++i) p.st[i] = st[i];
-  if (dtype == 1) {
-    if (d == 256) return run<bf16, 256, 256>(p, batch, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   switch (d) {
-    case 16: return run<float, 16, 16>(p, batch, s);
-    case 32: return run<float, 32, 32>(p, batch, s);
-    case 64: return run<float, 64, 64>(p, batch, s);
-    case 96: return run<float, 96, 96>(p, batch, s);
-    case 128: return run<float, 128, 128>(p, batch, s);
-    case 256: return run<float, 256, 256>(p, batch, s);
+    case 16: return run_fma<16>(p, batch, s);
+    case 32: return run_fma<32>(p, batch, s);
+    case 64: return run_fma<64>(p, batch, s);
+    case 96: return run_fma<96>(p, batch, s);
+    case 128: return run_fma<128>(p, batch, s);
+    case 256: return run_fma<256>(p, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

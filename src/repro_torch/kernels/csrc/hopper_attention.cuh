@@ -163,6 +163,20 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 48, float32) {=, +=} a (64 x 16, smem) * b (16 x 48, smem),
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64, float32) {=, +=} a (64 x 16, smem) * b (16 x 64, smem),
 // both K-major.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -350,6 +364,12 @@ template <>
 struct Wgmma<32> {
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
     wgmma_ss_n32(d, a, b, acc);
+  }
+};
+template <>
+struct Wgmma<48> {
+  static __device__ __forceinline__ void ss(float (&d)[24], uint64_t a, uint64_t b, int acc) {
+    wgmma_ss_n48(d, a, b, acc);
   }
 };
 template <>

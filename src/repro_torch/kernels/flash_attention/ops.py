@@ -33,11 +33,13 @@ VJP by autodiff, and no card path runs the plain version.
 ``attention_bwd_ref`` the same function written as the kernel computes
 it. The backward has two designs (``bwd_design``) with their tiles
 (``bwd_tiles``); ``bwd_tile_plan`` states the schedule of the wgmma
-design's second pass.
+design's second pass and ``bwd_head_groups`` how many blocks share one
+KV head's query heads there.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -50,10 +52,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # causal, window; the (batch, head, row) strides of q, k, v and out; the
 # stream.
 _ARGTYPES = (_P, _P, _P, _P, _P, *(_I,) * 10, *(_L,) * 12, _P)
-# q, k, v, out, dout, dq, dk, dv, lse, stats; dtype, batch, hq, hkv, sq,
-# sk, d, dv, causal, window; a pointer to the 15 (batch, head, row)
-# strides of q, k, v, out and dout; the stream.
-_BWD_ARGTYPES = (*(_P,) * 10, *(_I,) * 10, _P, _P)
+# q, k, v, out, dout, dq, dk, dv, lse, stats, partials (or null); dtype,
+# batch, hq, hkv, sq, sk, d, dv, causal, window, groups; a pointer to the
+# 15 (batch, head, row) strides of q, k, v, out and dout; the stream.
+_BWD_ARGTYPES = (*(_P,) * 11, *(_I,) * 11, _P, _P)
 
 # Head dims with a template instance in csrc/flash_attention.cu: every
 # head_dim of the GQA LM configs and their smoke configs (Dv = D).
@@ -71,9 +73,16 @@ BLOCK_Q = 128
 MAX_GRID_Y = 65_535
 
 
-# The backward's wgmma design in bf16: D = Dv in these head dims, and the
-# (D, Dv) pairs of SPLIT_HEAD_DIMS.
-BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128)
+# The backward's wgmma design in bf16: D = Dv in these head dims (every
+# one the forward takes), and the (D, Dv) pairs of SPLIT_HEAD_DIMS.
+BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+# SMs of an H100 SXM: the card bwd_head_groups balances pass 2 for. A
+# constant, not the card's count, so that a shape's sums run in one order
+# on every card.
+H100_SMS = 132
+# bwd_head_groups' limit on the longest pass-2 block against the mean
+# work per SM.
+BWD_GROUP_SLACK = 1.1
 
 
 class BwdTiles(NamedTuple):
@@ -94,9 +103,8 @@ def bwd_design(dtype: torch.dtype, d: int, dv: int) -> str:
     ``csrc/flash_attention_bwd.cu`` chooses it: ``"wgmma"`` (the
     forward's warp-specialised wgmma and TMA shape, seven products) for
     bfloat16 with D = Dv in ``BWD_WGMMA_HEAD_DIMS`` and for bfloat16
-    (192, 128); ``"wmma"`` (wmma tiles through shared memory, or float32
-    FMA) for bf16 D = 256 and float32. Raises ``ValueError`` on what the
-    forward does not take."""
+    (192, 128); ``"fma"`` (float32 FMA through shared memory) for
+    float32. Raises ``ValueError`` on what the forward does not take."""
     if dtype not in _DTYPES or not (
             (d == dv and d in HEAD_DIMS)
             or ((d, dv) in SPLIT_HEAD_DIMS and dtype == torch.bfloat16)):
@@ -104,21 +112,54 @@ def bwd_design(dtype: torch.dtype, d: int, dv: int) -> str:
             f"flash_attention has no instance for (D, Dv) = ({d}, {dv}) in {dtype}")
     if dtype == torch.bfloat16 and (d in BWD_WGMMA_HEAD_DIMS or (d, dv) in SPLIT_HEAD_DIMS):
         return "wgmma"
-    return "wmma"
+    return "fma"
 
 
 def bwd_tiles(dtype: torch.dtype, d: int, dv: int) -> BwdTiles:
     """The tiles of the instance ``bwd_design`` names. wgmma: 128 query
-    rows and 128 keys a block in both passes, K/V tiles of 128 keys and
-    Q/dO tiles of 64 rows; at (192, 128) 64 and 32, since dQ's (96) and
-    dK's and dV's (160) float32 registers a thread leave too few of a
-    consumer's 240 for the larger tiles. wmma: 64 rows and 32 keys in
-    bf16 (D = 256), 16 and 16 in float32."""
+    rows a block in pass 1 against K/V tiles of 128 keys, 128 keys a
+    block in pass 2 against Q/dO tiles of 64 rows; at (192, 128) K/V
+    tiles of 64 keys and Q/dO tiles of 32 rows, since dQ's (96) and dK's
+    and dV's (160) float32 registers a thread leave too few of a
+    consumer's 240 for the larger tiles; at D = 256 K/V tiles of 48 keys
+    (dQ takes 128), and pass 2 splits dK and dV (128 each) between its
+    two consumers, which then share 64 keys, against 64-row tiles. fma:
+    16 rows and 16 keys."""
     design = bwd_design(dtype, d, dv)
     if design == "wgmma":
+        if d == 256:
+            return BwdTiles(128, 48, 64, 64)
         return BwdTiles(128, 64, 128, 32) if max(d, dv) > 128 else BwdTiles(128, 128, 128, 64)
-    bq, bk = (64, 32) if dtype == torch.bfloat16 else (16, 16)
-    return BwdTiles(bq, bk, bk, bq)
+    return BwdTiles(16, 16, 16, 16)
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_head_groups(
+    batch: int, hq: int, hkv: int, sq: int, sk: int, causal: bool,
+    window: int | None, block_q: int, block_k: int,
+) -> int:
+    """G, the blocks of the wgmma design's second pass that share one KV
+    head's query heads (each walks ``(hq // hkv) // G`` of them and
+    writes float32 partial dK and dV that a third launch adds in group
+    order). A block walks ``heads x len(tiles)`` steps of
+    ``bwd_tile_plan(sq, sk, causal, window, block_q, block_k)`` for its
+    key tile; the card's time is about the longer of its longest block
+    and the mean work per SM (of ``H100_SMS``). G is the smallest
+    divisor of the group whose longest block is at most
+    ``BWD_GROUP_SLACK`` (1.1) times the mean per SM, else the whole
+    group.
+
+    At gemma-2b's training shape (B=1, Hq=8, Hkv=1, S=4096, causal, D =
+    256: 64-key tiles against 64-row tiles) G = 4: 256 blocks, the
+    longest 128 steps against a mean of 126 on 132 SMs (G = 1: 512).
+    At qwen3-4b's (B=1, Hq=32, Hkv=8) and MLA's (group 1) G = 1."""
+    group = hq // hkv
+    walks = [len(tiles) for tiles in bwd_tile_plan(sq, sk, causal, window, block_q, block_k)]
+    mean = batch * hkv * group * sum(walks) / H100_SMS
+    for g in range(1, group + 1):
+        if group % g == 0 and group // g * max(walks) <= BWD_GROUP_SLACK * mean:
+            return g
+    return group
 
 
 def bwd_tile_plan(
@@ -506,19 +547,28 @@ def _backward_kernel(q, k, v, out, dout, lse, causal: bool, window: int | None):
     operands = [_bwd_operand(x) for x in (q, k, v, out, dout)]
     strides = (ctypes.c_longlong * 15)(*(s for _, st in operands for s in st))
     lse = lse.contiguous()
-    # Pass 1 writes each row's (lse, D_i) here for pass 2 (the wmma design:
+    design = bwd_design(q.dtype, d, dv)
+    tiles = bwd_tiles(q.dtype, d, dv)
+    # Pass 1 writes each row's (lse, D_i) here for pass 2 (the fma design:
     # D_i alone), rows padded to the instance's stat_rows.
-    rows = bwd_tiles(q.dtype, d, dv).stat_rows
+    rows = tiles.stat_rows
     stats = torch.empty(b * hq * -(-sq // rows) * rows * 2,
                         dtype=torch.float32, device=q.device)
+    groups, partials = 1, None
+    if design == "wgmma":
+        groups = bwd_head_groups(b, hq, hkv, sq, sk, causal, window,
+                                 tiles.stat_rows, tiles.block_k)
+    if groups > 1:  # pass 2's float32 partial dK and dV, one slice a head group
+        partials = torch.empty(groups * b * hkv * sk * (d + dv),
+                               dtype=torch.float32, device=q.device)
     fn = function("flash_attention_bwd", "flash_attention_bwd", _BWD_ARGTYPES)
     check_status("flash_attention_bwd", fn(
         *(x.data_ptr() for x, _ in operands), dq.data_ptr(), dk.data_ptr(),
         dv_.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+        None if partials is None else partials.data_ptr(),
         _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv, int(causal),
-        0 if window is None else int(window), ctypes.addressof(strides),
+        0 if window is None else int(window), groups, ctypes.addressof(strides),
         torch.cuda.current_stream(q.device).cuda_stream,
     ))
-    design = bwd_design(q.dtype, d, dv)
-    launch_counts["flash_attention.bwd" if design == "wgmma" else "flash_attention.bwd.wmma"] += 1
+    launch_counts["flash_attention.bwd" if design == "wgmma" else "flash_attention.bwd.fma"] += 1
     return dq, dk, dv_

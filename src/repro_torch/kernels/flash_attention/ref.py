@@ -14,7 +14,9 @@ output, each row's log-sum-exp. ``attention_vjp_ref`` is the VJP of
 ``attention_ref`` by autograd, the plain version of the backward kernel
 (``csrc/flash_attention_bwd.cu``) that the card check holds it to;
 ``attention_bwd_ref`` is the same function written as the kernel
-computes it, from the forward's output and log-sum-exp.
+computes it, from the forward's output and log-sum-exp, with dK and dV
+summed over each KV head's query heads in head groups as the kernel's
+second pass splits them (``ops.py::bwd_head_groups``).
 """
 from __future__ import annotations
 
@@ -85,6 +87,7 @@ def attention_bwd_ref(
     *,
     causal: bool = True,
     window: int | None = None,
+    groups: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` as the backward kernel takes them, from the
     forward's ``out`` and ``lse``, in float32 and then the inputs' dtypes:
@@ -92,11 +95,16 @@ def attention_bwd_ref(
     no live key (``lse = +inf``) and 0 elsewhere; D_i = rowsum(dout o
     out); dS = P o (dout V^T - D_i) on live pairs, 0 elsewhere; dq = dS K /
     sqrt(D), dk = dS^T Q / sqrt(D) and dv = P^T dout, dk and dv summed over
-    each KV head's query heads. The same function as
-    ``attention_vjp_ref``, written as the kernel computes it."""
+    each KV head's query heads: within each of ``groups`` consecutive
+    groups of them (a divisor of Hq / Hkv), then the groups' float32
+    partials added in group order, as the kernel's second pass and its
+    third launch do. The same function as ``attention_vjp_ref``, written
+    as the kernel computes it."""
     b, hq, sq, d = q.shape
     hkv, sk, dv_dim = k.shape[1], k.shape[2], v.shape[3]
     group = hq // hkv
+    if groups < 1 or group % groups:
+        raise ValueError(f"groups must divide Hq / Hkv = {group}, got {groups}")
     s, mask = _scores(q, k, causal, window, 0)
     dead = torch.isinf(lse)[..., None]
     live = mask & ~dead
@@ -107,8 +115,17 @@ def attention_bwd_ref(
     delta = (dof * out.float()).sum(dim=-1, keepdim=True)
     ds = torch.where(live, p * (dp - delta), 0.0) / d ** 0.5
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float().repeat_interleave(group, dim=1))
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).reshape(b, hkv, group, sk, d).sum(2)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).reshape(b, hkv, group, sk, dv_dim).sum(2)
+    heads = group // groups
+
+    def by_groups(x, width):
+        part = x.reshape(b, hkv, groups, heads, sk, width).sum(3)
+        acc = part[:, :, 0]
+        for g in range(1, groups):
+            acc = acc + part[:, :, g]
+        return acc
+
+    dk = by_groups(torch.einsum("bhqk,bhqd->bhkd", ds, q.float()), d)
+    dv = by_groups(torch.einsum("bhqk,bhqd->bhkd", p, dof), dv_dim)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

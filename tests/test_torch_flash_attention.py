@@ -296,16 +296,20 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     HEAD_DIMS,
     MAX_GRID_Y,
     SPLIT_HEAD_DIMS,
+    H100_SMS,
     bwd_design,
+    bwd_head_groups,
     bwd_tile_plan,
     bwd_tiles,
     check_backward_grid,
     flash_attention_lse,
 )
 
-# The wgmma design's tiles at D = Dv = 128 and at MLA's (192, 128).
+# The wgmma design's tiles at D = Dv = 128, at MLA's (192, 128) and at
+# gemma-2b's D = Dv = 256.
 _BWD = bwd_tiles(torch.bfloat16, 128, 128)
 _BWD_MLA = bwd_tiles(torch.bfloat16, 192, 128)
+_BWD_256 = bwd_tiles(torch.bfloat16, 256, 256)
 from repro_torch.kernels.flash_attention.ref import attention_lse_ref  # noqa: E402
 
 
@@ -368,8 +372,10 @@ def test_flash_attention_lse_on_cpu_is_the_plain_pair(window):
 def test_bwd_design_names_a_design_for_every_forward_instance():
     for dtype in (torch.bfloat16, torch.float32):
         for d in HEAD_DIMS:
-            want = "wgmma" if dtype == torch.bfloat16 and d <= 128 else "wmma"
+            want = "wgmma" if dtype == torch.bfloat16 else "fma"
             assert bwd_design(dtype, d, d) == want, (dtype, d)
+    # gemma-2b's head dim runs on the wgmma design.
+    assert bwd_design(torch.bfloat16, 256, 256) == "wgmma"
     for d, dv in SPLIT_HEAD_DIMS:
         assert bwd_design(torch.bfloat16, d, dv) == "wgmma"
         with pytest.raises(ValueError, match="no instance"):
@@ -381,7 +387,9 @@ def test_bwd_design_names_a_design_for_every_forward_instance():
 
 
 @pytest.mark.parametrize("bq,bk", [(_BWD.stat_rows, _BWD.block_k),
-                                   (_BWD_MLA.stat_rows, _BWD_MLA.block_k), (64, 32), (16, 48)])
+                                   (_BWD_MLA.stat_rows, _BWD_MLA.block_k),
+                                   (_BWD_256.stat_rows, _BWD_256.block_k), (64, 32),
+                                   (16, 48)])
 @pytest.mark.parametrize("window", [None, 1, 100])
 @pytest.mark.parametrize("causal", [True, False])
 def test_bwd_tile_plan_visits_every_live_pair_once(causal, window, bq, bk):
@@ -437,8 +445,12 @@ def test_bwd_tiles_of_each_design():
     # dP tiles, dK's and dV's 160 for 32-row S^T and dP^T tiles.
     assert _BWD_MLA == (128, 64, 128, 32)
     assert bwd_tiles(torch.bfloat16, 64, 64) == _BWD
-    assert bwd_tiles(torch.bfloat16, 256, 256) == (64, 32, 32, 64)
+    # D = 256: dQ's 128 float32 registers a thread leave room for 48-key S
+    # and dP tiles; pass 2 splits dK and dV (128 each) between its two
+    # consumers, which share 64 keys, against 64-row tiles.
+    assert _BWD_256 == (128, 48, 64, 64)
     assert bwd_tiles(torch.float32, 128, 128) == (16, 16, 16, 16)
+    assert bwd_tiles(torch.float32, 256, 256) == (16, 16, 16, 16)
 
 
 @pytest.mark.parametrize("kernel_pass", [1, 2])
@@ -471,7 +483,7 @@ def test_bwd_schedules_at_mla_training_shape(kernel_pass):
 @pytest.mark.parametrize("dtype,d,dv,rows,keys", [
     (torch.bfloat16, 128, 128, 128, 128),
     (torch.bfloat16, 192, 128, 128, 128),
-    (torch.bfloat16, 256, 256, 64, 32),
+    (torch.bfloat16, 256, 256, 128, 64),
     (torch.float32, 64, 64, 16, 16),
 ])
 def test_check_backward_grid_follows_the_tiles(dtype, d, dv, rows, keys):
@@ -486,3 +498,83 @@ def test_check_backward_grid_follows_the_tiles(dtype, d, dv, rows, keys):
         call(MAX_GRID_Y * rows + 1, 1)
     with pytest.raises(ValueError, match="backward kernel takes"):
         call(1, MAX_GRID_Y * keys + 1)
+
+
+def _pass2_blocks(b, hq, hkv, sq, sk, causal, window, tiles, groups):
+    """The wgmma design's second pass as the kernel launches it, written
+    out: one block a (b * Hkv + KV head, head group, key tile), each the
+    list of (query head, key tile, query tile) steps it walks in order."""
+    group = hq // hkv
+    heads = group // groups
+    plan = bwd_tile_plan(sq, sk, causal, window, tiles.stat_rows, tiles.block_k)
+    blocks = []
+    for j, walk in enumerate(plan):
+        for bhk in range(b * hkv):
+            for g in range(groups):
+                h0 = bhk % hkv * group + g * heads
+                blocks.append([(bhk // hkv * hq + h, j, t)
+                               for h in range(h0, h0 + heads) for t, _ in walk])
+    return blocks
+
+
+def test_bwd_schedules_at_gemma_training_shape():
+    # gemma-2b: B=1, Hq=8, Hkv=1 (MQA), S=4096, causal, D = 256, on 132
+    # SMs.
+    b, hq, hkv, s = 1, 8, 1, 4096
+    # Pass 1: 8 heads x 32 query tiles of 128 rows = 256 blocks; tile t
+    # walks the 48-key tiles (128t + 127) // 48 down to 0, the longest 86
+    # (the last holds keys 4080-4095) against a mean of 8 * 1,419 / 132 =
+    # 86 per SM.
+    first = kv_tile_plan(s, s, True, None, _BWD_256.block_q, _BWD_256.block_kv)
+    assert hq * len(first) == 256 and max(len(tiles) for tiles in first) == 86
+    assert sum(len(tiles) for tiles in first) == 1_419
+    assert round(hq * 1_419 / H100_SMS) == 86
+    for t, tiles in enumerate(first):
+        assert [j for j, _ in tiles] == list(range((128 * t + 127) // 48, -1, -1))
+    # Pass 2: 64 key tiles of 64 keys; key tile j walks the 64-row query
+    # tiles j .. 63 for each of the 8 heads: 16,640 steps, 126 per SM.
+    # One block a key tile would walk 512 steps; four head groups of two
+    # heads give 256 blocks whose longest walks 128.
+    groups = bwd_head_groups(b, hq, hkv, s, s, True, None,
+                             _BWD_256.stat_rows, _BWD_256.block_k)
+    assert groups == 4
+    blocks = _pass2_blocks(b, hq, hkv, s, s, True, None, _BWD_256, groups)
+    walks = [len(block) for block in blocks]
+    total = sum(walks)
+    assert len(blocks) == 256 and max(walks) == 128 and total == 16_640
+    assert int(total / H100_SMS) == 126 and max(walks) <= 1.1 * total / H100_SMS
+    for g in (1, 2):  # the smaller divisors leave the longest block too long
+        assert max(map(len, _pass2_blocks(b, hq, hkv, s, s, True, None, _BWD_256, g))) \
+            > 1.1 * total / H100_SMS
+    # Every (query head, key tile, query tile) step once across the groups.
+    steps = [step for block in blocks for step in block]
+    assert len(set(steps)) == len(steps) == total
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 8), (False, None)])
+def test_bwd_head_groups_visit_every_live_pair_once(causal, window):
+    # At small MQA and GQA shapes (where the card is far from full, so the
+    # rule takes the whole group), the groups' blocks walk every query
+    # tile with a live pair, once for each head of the group.
+    for b, hq, hkv, s in ((1, 8, 1, 40), (2, 8, 2, 300), (1, 4, 4, 129)):
+        groups = bwd_head_groups(b, hq, hkv, s, s, causal, window,
+                                 _BWD_256.stat_rows, _BWD_256.block_k)
+        assert (hq // hkv) % groups == 0
+        live = _live(s, s, causal, window)
+        want = {(bb * hq + h, j, t)
+                for bb in range(b) for h in range(hq)
+                for j in range(-(-s // _BWD_256.block_k))
+                for t in range(-(-s // _BWD_256.stat_rows))
+                if live[t * 64:(t + 1) * 64, j * 64:(j + 1) * 64].any()}
+        steps = [step for block in _pass2_blocks(b, hq, hkv, s, s, causal, window,
+                                                 _BWD_256, groups) for step in block]
+        assert len(steps) == len(set(steps)) and set(steps) == want, (b, hq, hkv, s)
+
+
+@pytest.mark.parametrize("shape,tiles", [
+    ((1, 32, 8, 4096), _BWD),      # qwen3-4b
+    ((1, 128, 128, 2048), _BWD_MLA),  # deepseek-v3's MLA
+])
+def test_bwd_head_groups_keep_one_group_at_the_other_training_shapes(shape, tiles):
+    b, hq, hkv, s = shape
+    assert bwd_head_groups(b, hq, hkv, s, s, True, None, tiles.stat_rows, tiles.block_k) == 1

@@ -306,6 +306,7 @@ VJP_CASES = [
     (1, 2, 2, 30, 30, 192, 128, True, None),   # MLA's head dims
     (1, 2, 1, 20, 20, 16, 16, False, None),    # non-causal
     (1, 2, 2, 30, 10, 16, 16, True, 4),        # rows with no live key
+    (1, 8, 1, 40, 40, 256, 256, True, None),   # gemma-2b's MQA and head dim
 ]
 
 
@@ -339,6 +340,29 @@ def test_attention_bwd_ref_matches_jax_vjp_of_the_reference(case):
     got = attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("groups", [2, 4, 8])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 8), (False, None)])
+def test_attention_bwd_ref_in_head_groups_matches_jax_vjp_of_the_reference(causal, window,
+                                                                           groups):
+    # The second pass split over the MQA group, as the kernel runs it at
+    # D = 256: dK and dV of each head group summed in float32, the groups'
+    # partials then added in group order. The reference's VJP all the same.
+    b, hq, hkv, s, d = 1, 8, 1, 40, 256
+    q, k, v, dout = _qkv(groups + s, b, hq, hkv, s, s, d, d)
+    _, vjp = jax.vjp(lambda *x: jax_attention_ref(*x, causal=causal, window=window),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    q, k, v, dout = (torch.from_numpy(x) for x in (q, k, v, dout))
+    out = attention_ref(q, k, v, causal=causal, window=window)
+    lse = attention_lse_ref(q, k, causal=causal, window=window)
+    got = attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window,
+                            groups=groups)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="groups must divide"):
+        attention_bwd_ref(q, k, v, out, dout, lse, groups=3)
 
 
 def _patched_attention(monkeypatch):

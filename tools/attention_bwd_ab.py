@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
 """Time ``repro_torch``'s ``flash_attention`` backward kernel of one
-checkout on one CUDA card, at qwen3-4b's or MLA's training shape.
+checkout on one CUDA card, at qwen3-4b's, MLA's or gemma-2b's training
+shape.
 
-    python3 tools/attention_bwd_ab.py [--shape {qwen3,mla}] [--step] [SRC_DIR]
+    python3 tools/attention_bwd_ab.py [--shape {qwen3,mla,gemma}] [--step] [SRC_DIR]
 
 ``SRC_DIR`` is the ``src`` directory of the checkout whose kernel is
 timed (by default this checkout's); its kernels are built from its own
 ``csrc``. ``--shape qwen3`` (the default) is ``chip_smoke.py``'s
 ``ATTN_BWD_SHAPE`` (B=1, Hq=32, Hkv=8, S=4096, D=128), ``--shape mla``
 its ``TRAIN_MLA_ATTN`` (deepseek-v3's MLA: B=1, H=128, S=2048, (D, Dv) =
-(192, 128)); both bf16, causal, with inputs from seed 18. A checkout
+(192, 128)), ``--shape gemma`` its ``ATTN_BWD_GEMMA_SHAPE`` (gemma-2b:
+B=1, Hq=8, Hkv=1, S=4096, D=256); all bf16, causal, with inputs from
+seed 18. A checkout
 whose ``flash_attention_bwd`` takes no ``lse`` (before the forward wrote
 one) is called without it. The line gives the device ms of one call by
 CUDA events around 20 calls, each pass's ms from a profile, the FLOP
 bound and the card's name and power limit, and a checksum of the
-gradients. ``--step`` times ``chip_smoke.py``'s phase 17 (e) step
-instead: deepseek-v3 at full width cut to its dense layers and the MTP
-layer, one ``value_and_grads`` at B=1, S=2048 (host clock around a
-synchronised call, three after a warm-up), with its launches. To
+gradients. ``--step`` times a training step of ``chip_smoke.py``
+instead (host clock around a synchronised ``value_and_grads``, three
+after a warm-up), with its launches: phase 17 (e)'s, deepseek-v3 at full
+width cut to its dense layers and the MTP layer at B=1, S=2048, or with
+``--shape gemma`` phase 17 (f)'s, gemma-2b at full width and depth at
+B=1, S=4096. To
 compare two commits, unpack one beside the other and run this script on
 each in turns in one call on the same card: parent, change, change,
 parent.
@@ -36,7 +41,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--shape", choices=("qwen3", "mla"), default="qwen3")
+    parser.add_argument("--shape", choices=("qwen3", "mla", "gemma"), default="qwen3")
     parser.add_argument("--step", action="store_true")
     parser.add_argument("src", nargs="?", default=str(ROOT / "src"))
     args = parser.parse_args()
@@ -55,14 +60,18 @@ def main() -> int:
     card = cs.card_line()
     dev = torch.device("cuda")
     if args.step:
-        walls, counts = train_mla_step_ms(cs, dev)
-        print(f"attention_bwd_ab step {src}: {cs.TRAIN_MLA_ARCH} dense layers + MTP B=1 "
-              f"S={cs.TRAIN_MLA_S}: wall_ms={walls} launches={counts} [{card}]")
+        gemma = args.shape == "gemma"
+        walls, counts = train_step_ms(cs, dev, gemma)
+        what = (f"{cs.TRAIN_GEMMA_ARCH} full depth B=1 S={cs.TRAIN_GEMMA_S}" if gemma else
+                f"{cs.TRAIN_MLA_ARCH} dense layers + MTP B=1 S={cs.TRAIN_MLA_S}")
+        print(f"attention_bwd_ab step {src}: {what}: wall_ms={walls} launches={counts} "
+              f"[{card}]")
         return 0
     if args.shape == "mla":
         (b, hq, hkv, s, d), dv = cs.TRAIN_MLA_ATTN, 128
     else:
-        (b, hq, hkv, s, d), dv = cs.ATTN_BWD_SHAPE, cs.ATTN_BWD_SHAPE[4]
+        shape = cs.ATTN_BWD_GEMMA_SHAPE if args.shape == "gemma" else cs.ATTN_BWD_SHAPE
+        (b, hq, hkv, s, d), dv = shape, shape[4]
     gen = torch.Generator(dev).manual_seed(18)
     q, k, v, dout = (torch.randn(b, h, s, w, device=dev, generator=gen).to(torch.bfloat16)
                      for h, w in ((hq, d), (hkv, d), (hkv, dv), (hq, dv)))
@@ -84,9 +93,10 @@ def main() -> int:
     return 0
 
 
-def train_mla_step_ms(cs, dev, repeats: int = 3) -> tuple:
+def train_step_ms(cs, dev, gemma: bool, repeats: int = 3) -> tuple:
     """``(wall ms of each step, launches of the last)``: phase 17 (e)'s
-    loss-and-gradients step of the checkout on the path."""
+    loss-and-gradients step of the checkout on the path, or with
+    ``gemma`` phase 17 (f)'s."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -95,19 +105,23 @@ def train_mla_step_ms(cs, dev, repeats: int = 3) -> tuple:
     from repro_torch.train.loop import value_and_grads
     from repro_torch.train.tree import trainable
 
-    full = get_arch(cs.TRAIN_MLA_ARCH).config
-    cfg = dataclasses.replace(full, num_layers=full.num_dense_layers)
+    if gemma:
+        cfg = get_arch(cs.TRAIN_GEMMA_ARCH).config
+        batch = cs.lm_train_batch(dev, 1, 3, cfg.vocab_size, cs.TRAIN_GEMMA_S)
+    else:
+        full = get_arch(cs.TRAIN_MLA_ARCH).config
+        cfg = dataclasses.replace(full, num_layers=full.num_dense_layers)
+        batch = cs.lm_train_batch(dev, 1, 2, cfg.vocab_size, cs.TRAIN_MLA_S)
     params = trainable(init_params(cfg, device=dev,
                                    generator=torch.Generator(dev).manual_seed(0)))
-    batch = cs.lm_train_batch(dev, 1, 2, cfg.vocab_size, cs.TRAIN_MLA_S)
-    mla_loss = lambda p, b: loss_fn(p, cfg, b)  # noqa: E731
-    value_and_grads(mla_loss, params, batch)  # warm-up
+    step_loss = lambda p, b: loss_fn(p, cfg, b)  # noqa: E731
+    value_and_grads(step_loss, params, batch)  # warm-up
     walls = []
     for _ in range(repeats):
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
-        value_and_grads(mla_loss, params, batch)
+        value_and_grads(step_loss, params, batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return walls, dict(launch_counts)
