@@ -464,7 +464,10 @@ GNN_ARCHS = (("gin-tu", 5), ("gat-cora", 4))  # segment_sum launches a forward
 MOLECULE_BATCH, MOLECULE_LAUNCHES = 128, 6  # gin-tu with graph readout
 HUB_M, HUB_N = 1 << 22, 1 << 18  # one segment owns HUB_M // 10 rows
 WIDE_HUB_M, WIDE_HUB_N = 1 << 18, 1 << 14  # the hub of phase 2's wide rows
-WIDE_COLS = (129, 1433)  # one column past a column block; Cora's features
+# One column past a column block and Cora's features (rows copied one by
+# one), then MACE's l = 1 messages (a 16-byte row stride: the wide path,
+# wide_kernel's 16-byte column slices in registers).
+WIDE_COLS = (129, 1433, 384)
 POWER_LAW = 0.8  # destinations drawn with weight (rank + 1) ** -POWER_LAW
 SEGSUM_RTOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 SEGSUM_ATOL = 2e-5  # times the output's rms times sqrt(max degree)
@@ -1861,15 +1864,18 @@ def segsum_bit_equal(name, data, ids, n) -> None:
     check(same, f"segment_sum {name}: two calls bit-equal")
 
 
-def segsum_pointers(name, ids, n) -> None:
-    """The row pointers the kernel's tile pass writes equal
+def segsum_pointers(name, ids, n, d: int = 1, dtype=None) -> None:
+    """The row pointers the kernel's tile pass writes, over ``d`` columns
+    of ``dtype`` (float32 by default; rows of 1 column take the stream
+    path, wide ones ``ops.py::copy_path``'s), equal
     ``torch.searchsorted(ids, arange(n + 1))`` bit for bit."""
     import torch
 
     from repro_torch.kernels.segment_sum.ops import segment_sum_and_pointers
 
-    ones = torch.ones(ids.shape[0], 1, device=ids.device)
+    ones = torch.ones(ids.shape[0], d, dtype=dtype or torch.float32, device=ids.device)
     ptr = segment_sum_and_pointers(ones, ids, n)[1]
+    del ones
     want = torch.searchsorted(
         ids, torch.arange(n + 1, dtype=torch.int32, device=ids.device), out_int32=True)
     same = torch.equal(ptr, want)
@@ -1887,6 +1893,7 @@ def phase_segment_sum(dev, dst: np.ndarray) -> float:
     from repro_torch.configs import get_arch
     from repro_torch.data.graphs import molecule_batch
     from repro_torch.kernels.segment_sum import segment_sum_sorted
+    from repro_torch.kernels.segment_sum.ops import row_tiles
 
     gen = torch.Generator(dev).manual_seed(3)
     ids = torch.from_numpy(dst).to(dev)
@@ -1932,10 +1939,12 @@ def phase_segment_sum(dev, dst: np.ndarray) -> float:
     check(not bool(got[1::2].any()), "empty segments sum to 0")
     segsum_pointers("empty, negative and sentinel ids", ids, n)
     del got, data, ids, body, hub_ids, hub_data, one
-    # Rows wider than a column block (MAX_COLS), copied row by row: the
-    # molecule cell's graph readout (hcat, layers x hidden columns, over
-    # graph_ids), one column past a block, and Cora's 1,433 features, the
-    # last two on a hub that crosses fold groups.
+    # Rows wider than a column block (MAX_COLS), summed a block at a time:
+    # the molecule cell's graph readout (hcat, layers x hidden columns, over
+    # graph_ids), and on a hub that crosses fold groups one column past a
+    # block and Cora's 1,433 features (rows copied one by one) and MACE's
+    # 384 (the wide path, as the readout); the hubs' row pointers against
+    # torch.searchsorted on each path.
     mol = molecule_batch(MOLECULE_BATCH)
     mol_cfg = get_arch("gin-tu").config_for("molecule")
     gids = torch.from_numpy(mol["graph_ids"]).to(dev)
@@ -1945,6 +1954,8 @@ def phase_segment_sum(dev, dst: np.ndarray) -> float:
     for d in WIDE_COLS:
         ids, data = hub_case(dev, gen, WIDE_HUB_M, WIDE_HUB_N, d)
         wide.append((f"hub (2^18, {d})", ids, WIDE_HUB_N, data))
+        segsum_pointers(f"hub (2^18, {d}), {row_tiles(WIDE_HUB_M, d, 4).copy} path", ids,
+                        WIDE_HUB_N, d)
     for name, ids, n, data in wide:
         for dtype in (torch.float32, torch.bfloat16):
             x = data.to(dtype)
@@ -3950,18 +3961,28 @@ def combine_ids(dev, t: int, k: int):
 
 def phase_segment_sum_moe(dev) -> float:
     """Phase 2, ``segment_sum`` at the MoE combines' shapes (bf16, ``top_k``
-    rows a token): within phase 2's bf16 tolerance of its plain version,
-    and two calls bit-equal. Returns the largest max_abs_err."""
+    rows a token; the wide path, ``wide_kernel``'s 16-byte column slices in
+    registers) and at deepseek-v3's combine one column narrower (a bf16
+    row stride that is not a multiple of 16 bytes: rows copied one by
+    one): within phase 2's bf16 tolerance of its plain version, and two
+    calls bit-equal; the first combine's row pointers on the wide path
+    against ``torch.searchsorted``. Returns the largest max_abs_err."""
     import torch
+
+    from repro_torch.kernels.segment_sum.ops import row_tiles
 
     gen = torch.Generator(dev).manual_seed(17)
     errs = []
-    for name, t, k, d in MOE_COMBINES:
+    name, t, k, d = MOE_COMBINES[-1]
+    for name, t, k, d in (*MOE_COMBINES, (name, t, k, d - 1)):
         ids = combine_ids(dev, t, k)
         data = torch.randn(t * k, d, device=dev, generator=gen).to(torch.bfloat16)
-        label = f"{name} MoE combine ({t * k}, {d}) bf16, {k} rows a token"
+        label = (f"{name} MoE combine ({t * k}, {d}) bf16, {k} rows a token, "
+                 f"{row_tiles(t * k, d, 2).copy} path")
         errs.append(segsum_check(label, data, ids, t))
         segsum_bit_equal(label, data, ids, t)
+        if name == MOE_COMBINES[0][0]:
+            segsum_pointers(label, ids, t, d, torch.bfloat16)
         del data, ids
     torch.cuda.empty_cache()
     return max(errs)

@@ -64,8 +64,16 @@
 //     registers). At (192, 128) Q K^T takes 12 k-steps of 16 over three
 //     panels and P V writes 128 columns; Q (48 KB), two K stages (48 KB each)
 //     and two V stages (32 KB each) take 209 KB of the 227 KB a block may
-//     have. The grid is (B * Hq, query tiles), the longest causal rows
-//     first; one block fits an SM. No atomics: every call gives the same bits.
+//     have. One block fits an SM. No atomics: every call gives the same bits.
+//   - Block order (ops.py::block_order), a 1-D grid: the blocks go by KV
+//     head (b * Hkv + kvh), and inside one the query tiles go longest
+//     causal rows first, each over the KV head's Hq / Hkv query heads. So
+//     the blocks in flight read the K and V of a few KV heads, which stay in
+//     L2 while their query tiles pass. With the heads fastest (the earlier
+//     (B * Hq, query tiles) grid), a wave of 132 blocks at MLA's shape held
+//     all 128 heads (335 MB of K and V at S = 4096) and streamed each
+//     block's tiles from HBM: 0.0154 ms a head against 0.0094 at 16 heads
+//     (PERF.md).
 //
 // float32: no tensor cores (TF32 would break the 2e-3 tolerance): scores and
 // the accumulator are float32 FMA, with S and acc in shared memory, BK = 32,
@@ -235,11 +243,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const uint32_t empty_k = full_v + 8 * kStages;
   const uint32_t empty_v = empty_k + 8 * kStages;
 
-  const int bh = blockIdx.x;
+  // The block's head and query tile by ops.py::block_order: its KV head
+  // g = b * Hkv + kvh, its rank r / group in g's longest-first tiles and its
+  // query head r % group among g's.
+  const int group = p.hq / p.hkv;
+  const int tiles = (p.sq + kBlockM - 1) / kBlockM;
+  const int g = static_cast<int>(blockIdx.x) / (group * tiles);
+  const int r = static_cast<int>(blockIdx.x) - g * group * tiles;
+  const int bh = g * group + r % group;
   const int b = bh / p.hq;
   const int h = bh % p.hq;
-  const int kvh = h / (p.hq / p.hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;  // longest rows first
+  const int kvh = h / group;
+  const int q0 = (tiles - 1 - r / group) * kBlockM;  // longest rows first
   const int q1 = min(q0 + kBlockM, p.sq) - 1;
   int lo, hi;
   kv_tile_range(p.sk, p.causal, p.window, q0, q1, BK, lo, hi);
@@ -550,8 +565,12 @@ int run_tc(const void* q, const void* k, const void* v, int batch, int d, const 
       attn_tc_kernel<DP, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Shape::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(batch * tp.hq, (tp.sq + kBlockM - 1) / kBlockM);
-  attn_tc_kernel<DP, DV><<<grid, kTcThreads, Shape::SMEM, stream>>>(tq, tk, tv, tp);
+  // A 1-D grid of every (head, query tile), in ops.py::block_order.
+  const long long blocks =
+      static_cast<long long>(batch) * tp.hq * ((tp.sq + kBlockM - 1) / kBlockM);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_tc_kernel<DP, DV><<<static_cast<unsigned>(blocks), kTcThreads, Shape::SMEM, stream>>>(
+      tq, tk, tv, tp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -578,7 +597,7 @@ int launch(Kernel kernel, size_t smem, const Params& p, int batch_heads,
 // window: 0 for none. Strides are in elements, for the batch, head and row
 // dimensions of q, k, v and out. Returns the cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for head dims or a dtype without an
-// instance), or kEncodeFailed.
+// instance, or a grid past 2^31 - 1 blocks), or kEncodeFailed.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int dtype, int batch, int hq, int hkv, int sq, int sk,
                                    int d, int dv, int causal, int window, long long q_sb,

@@ -25,8 +25,9 @@
 //    the warp sums the stage that has landed. Each copy's range is widened to
 //    16 bytes at both ends and the rows are read at their offset inside the
 //    slot, so rows of any width (47 floats, 1 column, odd bf16 widths) are
-//    taken as they lie. Rows wider than 128 columns are copied row by row, one
-//    column block at a time.
+//    taken as they lie. Rows wider than 128 columns whose stride is not a
+//    multiple of 16 bytes (129 or 1,433 columns, odd bf16 widths) are copied
+//    row by row, one column block at a time.
 //    Inside a stage the lanes spread over columns for wide rows (C = 32 lanes,
 //    up to 4 columns each) and over rows for narrow ones: C lanes (the
 //    narrowest power of two that covers d) over the columns and R = 32 / C
@@ -45,6 +46,20 @@
 //    memory: ptr[s] = i for every s in (ids[i-1], ids[i]] clamped to [0, n],
 //    for each row boundary i in [0, m] (ids[-1] = -1, ids[m] = n), which is
 //    torch.searchsorted(ids, arange(n + 1)): the first row with id >= s.
+//    Wide rows whose stride is a multiple of 16 bytes (the MoE combines' bf16
+//    rows of 4,096 and 7,168 columns, MACE's float32 messages) take their own
+//    tile pass, wide_kernel: a block of kWideThreads threads owns a tile and
+//    kWideThreads * 16 bytes of columns (1,024 bf16, 512 float32), each
+//    thread one 16-byte column slice that it loads straight into registers
+//    (ld.global.nc, kWideRows rows in flight) and sums down the tile's rows
+//    in order, emitting each run as above; neighbouring blocks take the
+//    neighbouring column blocks of one tile, so a row is read whole at once.
+//    Its tiles are 128 rows (ops.py::WIDE_TILE_ROWS): tiles of 256 and 512
+//    rows were 4% and up to 27% slower at the combines on the H100.
+//    A stage of such rows copied row by row into shared memory held
+//    deepseek-v3's combine to 20% of its bound (a 256-byte copy a row and
+//    column block), and one 2-D TMA box a stage (15 rows x 256 bytes) to 23%,
+//    where the same bytes as contiguous 4 KB stages ran at 52% (PERF.md).
 // 2. Fold. One warp per group of kFoldTiles tiles adds each segment's tile
 //    partials in the group in tile order: a segment whose partials all lie in
 //    the group goes to out, the group's first and last segments that cross its
@@ -63,9 +78,9 @@
 // this is the fastest or within 1% at every shape of the GNN path.
 //
 // Determinism: every output element is summed in one fixed order -- rows in
-// order inside a walker, walkers by a fixed scan tree, tiles in order inside
-// a group, groups in order -- with no atomics, so two calls give bit-equal
-// outputs. Sums are float32 and rounded once to the output's type. Offsets
+// order inside a walker (or a wide_kernel thread), walkers by a fixed scan
+// tree, tiles in order inside a group, groups in order -- with no atomics,
+// so two calls give bit-equal outputs. Sums are float32 and rounded once to the output's type. Offsets
 // are 64-bit.
 
 #include <cuda_bf16.h>
@@ -79,6 +94,9 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 3;         // shared-memory slots a warp
 constexpr int kStageBytes = 4096;  // one slot: a stage's rows and ids
 constexpr int kMaxCols = 128;      // columns of a column block
+constexpr int kWideThreads = 128;  // threads of a wide_kernel block
+constexpr int kWideRows = 8;       // rows a wide_kernel thread has in flight
+enum Copy { kStream = 0, kWide = 1, kRows = 2 };  // ops.py::COPY_PATHS
 constexpr int kUnroll = 4;         // rows a walker loads before it adds them
 constexpr int kSmem = kWarps * kStages * (kStageBytes + 8);  // slots, mbarriers
 constexpr unsigned kFull = 0xffffffffu;
@@ -458,6 +476,118 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// The row pointers of tile [t0, t1)'s row boundaries, and of boundary m
+// after the last tile, spread over the block's threads.
+__device__ __forceinline__ void tile_pointers(const Params& p, long long t0, long long t1) {
+  const long long end = t1 == p.m ? t1 : t1 - 1;
+  for (long long i = t0 + threadIdx.x; i <= end; i += blockDim.x) {
+    const int before = i > 0 ? p.ids[i - 1] : -1;
+    const int after = i < p.m ? p.ids[i] : static_cast<int>(p.n);
+    fill_ptr(p.ptr, static_cast<int>(p.n), before, after, i, 0, 1);
+  }
+}
+
+// 16 bytes of a row as floats.
+__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[4]) {
+  v[0] = __uint_as_float(raw.x);
+  v[1] = __uint_as_float(raw.y);
+  v[2] = __uint_as_float(raw.z);
+  v[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack(const uint4& raw, float (&v)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// V floats as 16 bytes of the output's type, each rounded once.
+__device__ __forceinline__ uint4 pack(const float (&v)[4], float) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[8], __nv_bfloat16) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    w[j] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Pass 1 for wide rows (a row stride that is a multiple of 16 bytes): block
+// b sums tile b / col_blocks over columns [c0, c0 + col_block) with c0 =
+// (b % col_blocks) * col_block, thread t the V = 16 / sizeof(T) columns
+// from c0 + V t. Each thread walks the tile's rows in order with kWideRows
+// 16-byte loads in flight, and sends each run where Sink sends it: out, or
+// the tile's head or tail partial.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    wide_kernel(const Params p, long long col_blocks) {
+  constexpr int V = 16 / sizeof(T);
+  const long long tile = blockIdx.x / col_blocks;
+  const long long c0 = (blockIdx.x % col_blocks) * p.col_block;
+  const long long t0 = tile * p.tile_rows;
+  const long long t1 = min(t0 + p.tile_rows, p.m);
+  if (c0 == 0) tile_pointers(p, t0, t1);
+  const int prev_id = t0 > 0 ? p.ids[t0 - 1] : -1;
+  const int next_id = t1 < p.m ? p.ids[t1] : static_cast<int>(p.n);
+  const int first = p.ids[t0];
+  const int last = p.ids[t1 - 1];
+  const long long col = c0 + static_cast<long long>(threadIdx.x) * V;
+  if (last < 0 || first >= p.n || col >= p.d) return;  // no row of the tile is summed here
+  const T* data = static_cast<const T*>(p.data) + col;
+  float* head = p.carry + 2 * tile * p.d + col;
+  float* tail = head + p.d;
+  auto emit = [&](int id, const float (&acc)[V], bool ends) {
+    if (id < 0 || id >= p.n) return;  // a negative or sentinel id: dropped
+    if (id == prev_id || !ends) {
+      float* dst = id == prev_id ? head : tail;
+#pragma unroll
+      for (int k = 0; k < V; k += 4) {
+        *reinterpret_cast<float4*>(dst + k) = make_float4(acc[k], acc[k + 1], acc[k + 2],
+                                                           acc[k + 3]);
+      }
+    } else {
+      *reinterpret_cast<uint4*>(static_cast<T*>(p.out) + id * p.d + col) = pack(acc, T());
+    }
+  };
+  int cur = first;
+  float acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = 0.f;
+  for (long long i0 = t0; i0 < t1; i0 += kWideRows) {
+    uint4 raw[kWideRows];
+    int id[kWideRows];
+#pragma unroll
+    for (int u = 0; u < kWideRows; ++u) {
+      if (i0 + u < t1) {
+        raw[u] = __ldg(reinterpret_cast<const uint4*>(data + (i0 + u) * p.d));
+        id[u] = __ldg(p.ids + i0 + u);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kWideRows; ++u) {
+      if (i0 + u >= t1) break;
+      if (id[u] != cur) {
+        emit(cur, acc, true);
+        cur = id[u];
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] = 0.f;
+      }
+      float v[V];
+      unpack(raw[u], v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] += v[k];
+    }
+  }
+  emit(cur, acc, next_id != cur);
+}
+
 constexpr int kFoldTiles = 32;  // tiles a warp of the fold pass joins, one a lane
 constexpr int kCols = 4;        // columns a lane adds at once in passes 2 and 3
 constexpr int kAhead = 8;       // partials loaded before they are added
@@ -674,46 +804,10 @@ int launch_tiles_for(const Params& p, int lanes, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-// data: (m, d) rows sorted by id, float32 (bf16 = 0) or bfloat16 (bf16 = 1),
-// 16-byte aligned; ids: (m,) int32; ptr: (n + 1,) int32 scratch; carry:
-// (carry_rows, 2, d) float32 scratch, carry_rows = tiles + ceil(tiles /
-// fold_tiles) with tiles = ceil(m / tile_rows); out: (n, d) of data's type.
-// lanes, walker_rows, tile_rows, col_block, fold_tiles and carry_rows are
-// ops.py::row_tiles' plan, checked here against this file's constants.
-// Returns cudaErrorInvalidValue for a plan that does not fit them, else the
-// first nonzero cudaGetLastError() of the three launches.
-extern "C" int segment_sum_run(const void* data, const void* ids, void* ptr, void* carry,
-                               void* out, long long m, long long n, long long d, int bf16,
-                               int lanes, int walker_rows, long long tile_rows,
-                               int col_block, int fold_tiles, long long carry_rows,
-                               void* stream) {
-  if (n <= 0 || d <= 0 || m <= 0) return 0;
-  if (reinterpret_cast<uintptr_t>(data) & 15) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int item = bf16 ? 2 : 4;
-  if (lanes < 1 || lanes > 32 || 32 % lanes || walker_rows < 1 || col_block < 1 ||
-      col_block > kMaxCols || tile_rows < 1 || fold_tiles != kFoldTiles) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int R = 32 / lanes;
-  const int row_slot =
-      col_block < d ? static_cast<int>(round16(static_cast<long long>(col_block) * item) + 16)
-                    : 0;
-  const long long stage_rows = static_cast<long long>(R) * walker_rows;
-  const Layout lay = slot_layout(stage_rows, d, row_slot, item);
-  const long long tiles = (m + tile_rows - 1) / tile_rows;
-  if (lay.total > kStageBytes || tile_rows % stage_rows ||
-      carry_rows != tiles + (tiles + kFoldTiles - 1) / kFoldTiles) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Params p{data, static_cast<const int*>(ids), static_cast<int*>(ptr),
-           static_cast<float*>(carry), out, m, n, d, tile_rows, tiles, walker_rows,
-           col_block, row_slot, static_cast<int>(lay.ids_off)};
-  const int err =
-      bf16 ? launch_tiles_for<__nv_bfloat16>(p, lanes, s) : launch_tiles_for<float>(p, lanes, s);
-  if (err) return err;
+// Passes 2 and 3 on the carries that pass 1 left.
+int fold_and_finish(const Params& p, int bf16, cudaStream_t s) {
+  const long long m = p.m, n = p.n, d = p.d, tile_rows = p.tile_rows;
+  void* out = p.out;
   float* gcarry = p.carry + 2 * p.tiles * d;
   const long long groups = (p.tiles + kFoldTiles - 1) / kFoldTiles;
   const unsigned fold_blocks = static_cast<unsigned>((groups + kWarps - 1) / kWarps);
@@ -731,4 +825,72 @@ extern "C" int segment_sum_run(const void* data, const void* ids, void* ptr, voi
         p.ptr, gcarry, static_cast<float*>(out), n, d, tile_rows * kFoldTiles);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// data: (m, d) rows sorted by id, float32 (bf16 = 0) or bfloat16 (bf16 = 1),
+// 16-byte aligned; ids: (m,) int32; ptr: (n + 1,) int32 scratch; carry:
+// (carry_rows, 2, d) float32 scratch, carry_rows = tiles + ceil(tiles /
+// fold_tiles) with tiles = ceil(m / tile_rows); out: (n, d) of data's type.
+// lanes, walker_rows, tile_rows, col_block, fold_tiles, carry_rows and copy
+// are ops.py::row_tiles' plan, checked here against this file's constants
+// and its rule for the path (ops.py::copy_path). Returns
+// cudaErrorInvalidValue for a plan that does not fit them, else the first
+// nonzero cudaGetLastError() of the three launches.
+extern "C" int segment_sum_run(const void* data, const void* ids, void* ptr, void* carry,
+                               void* out, long long m, long long n, long long d, int bf16,
+                               int lanes, int walker_rows, long long tile_rows,
+                               int col_block, int fold_tiles, long long carry_rows, int copy,
+                               void* stream) {
+  if (n <= 0 || d <= 0 || m <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(data) & 15) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int item = bf16 ? 2 : 4;
+  const long long tiles = (m + tile_rows - 1) / tile_rows;
+  const int rule = d <= kMaxCols ? kStream : (d * item % 16 == 0 ? kWide : kRows);
+  if (copy != rule || tile_rows < 1 || fold_tiles != kFoldTiles ||
+      carry_rows != tiles + (tiles + kFoldTiles - 1) / kFoldTiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rule == kWide) {
+    // A block a tile and column block; a thread one 16-byte slice a row.
+    const long long col_blocks = (d + col_block - 1) / col_block;
+    if (lanes != kWideThreads || col_block != kWideThreads * 16 / item ||
+        walker_rows != kWideRows || tiles * col_blocks > 2147483647LL) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    Params p{data, static_cast<const int*>(ids), static_cast<int*>(ptr),
+             static_cast<float*>(carry), out, m, n, d, tile_rows, tiles, walker_rows,
+             col_block, 0, 0};
+    const unsigned blocks = static_cast<unsigned>(tiles * col_blocks);
+    if (bf16) {
+      wide_kernel<__nv_bfloat16><<<blocks, kWideThreads, 0, s>>>(p, col_blocks);
+    } else {
+      wide_kernel<float><<<blocks, kWideThreads, 0, s>>>(p, col_blocks);
+    }
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    return fold_and_finish(p, bf16, s);
+  }
+  if (lanes < 1 || lanes > 32 || 32 % lanes || walker_rows < 1 || col_block < 1 ||
+      col_block > kMaxCols) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int R = 32 / lanes;
+  const int row_slot =
+      col_block < d ? static_cast<int>(round16(static_cast<long long>(col_block) * item) + 16)
+                    : 0;
+  const long long stage_rows = static_cast<long long>(R) * walker_rows;
+  const Layout lay = slot_layout(stage_rows, d, row_slot, item);
+  if (lay.total > kStageBytes || tile_rows % stage_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p{data, static_cast<const int*>(ids), static_cast<int*>(ptr),
+           static_cast<float*>(carry), out, m, n, d, tile_rows, tiles, walker_rows,
+           col_block, row_slot, static_cast<int>(lay.ids_off)};
+  const int err =
+      bf16 ? launch_tiles_for<__nv_bfloat16>(p, lanes, s) : launch_tiles_for<float>(p, lanes, s);
+  if (err) return err;
+  return fold_and_finish(p, bf16, s);
 }

@@ -21,7 +21,8 @@ bfloat16 inputs go to the kernel as they come, any ``(B, H, S, D)``
 strides whose last is 1: the kernel reads them through TMA tensor maps,
 so the model's transposed ``(B, S, H, D)`` views need no copy, and the
 output is allocated with ``q``'s strides, so its transpose back is a
-view. ``kv_tile_plan`` states the kernel's tile schedule.
+view. ``kv_tile_plan`` states the kernel's tile schedule, and
+``block_order`` the order of its blocks (bf16).
 
 Gradients: on the card, inputs that require grad go through
 ``_Attention``, a ``torch.autograd.Function`` whose forward is the
@@ -66,11 +67,12 @@ SPLIT_HEAD_DIMS = ((192, 128),)
 # dtype -> the kernel's dtype code: bf16 runs on the tensor cores
 # (wgmma, float32 accumulators), float32 in float32 FMA (never TF32).
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Query rows a block of the bf16 kernel, and its grid's limit on query
-# tiles (grid.y); the float32 kernel's grid.y is B * Hq, with the same
-# limit.
+# Query rows a block of the bf16 kernel; the float32 kernel's grid.y is
+# B * Hq, and the backward's grids put tiles on y, under this limit. The
+# bf16 forward's blocks, in block_order, are at most MAX_GRID_X.
 BLOCK_Q = 128
 MAX_GRID_Y = 65_535
+MAX_GRID_X = 2**31 - 1
 
 
 # The backward's wgmma design in bf16: D = Dv in these head dims (every
@@ -246,6 +248,27 @@ def kv_tile_plan(
     return plan
 
 
+def block_order(batch: int, hq: int, hkv: int, sq: int) -> list[tuple[int, int, int]]:
+    """The bf16 forward's blocks in launch order, as
+    ``csrc/flash_attention.cu`` decodes its one-dimensional block index:
+    ``(b, h, query tile)`` for each. The blocks go by KV head (``b * Hkv
+    + kvh``); inside one the query tiles go longest first (the causal
+    rows that visit the most K/V tiles), each tile over the KV head's
+    ``Hq // Hkv`` query heads in order. So the blocks in flight read the
+    K and V of a few KV heads, which stay in L2 while their query tiles
+    pass, and the short tiles at each KV head's end fill the card behind
+    the long ones."""
+    tiles = -(-sq // BLOCK_Q)
+    group = hq // hkv
+    order = []
+    for idx in range(batch * hq * tiles):
+        g, r = divmod(idx, group * tiles)
+        rank, j = divmod(r, group)
+        bh = g * group + j
+        order.append((bh // hq, bh % hq, tiles - 1 - rank))
+    return order
+
+
 def tma_strides(x: torch.Tensor) -> tuple[int, int, int] | None:
     """The element strides (batch, head, row) under which the kernel's
     TMA maps read the ``(B, H, S, D)`` tensor ``x`` in place, or None
@@ -292,10 +315,11 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must be on one device")
     if q.dtype == torch.bfloat16:
-        tiles, grid_limit = -(-sq // BLOCK_Q), "Sq <= 65535 * 128"
+        blocks, limit, grid_limit = b * hq * -(-sq // BLOCK_Q), MAX_GRID_X, \
+            "B*Hq*ceil(Sq/128) < 2**31"
     else:
-        tiles, grid_limit = b * hq, "B*Hq <= 65535"
-    if tiles > MAX_GRID_Y or b * hq >= 1 << 31 or max(sq, sk) >= 1 << 31:
+        blocks, limit, grid_limit = b * hq, MAX_GRID_Y, "B*Hq <= 65535"
+    if blocks > limit or b * hq >= 1 << 31 or max(sq, sk) >= 1 << 31:
         raise ValueError(
             f"flash_attention kernel takes {grid_limit} for {q.dtype}, B*Hq "
             f"and lengths below 2**31; got B*Hq={b * hq}, Sq={sq}, Sk={sk}"

@@ -5,7 +5,8 @@ Replaces ``repro/kernels/segment_sum/segment_sum.py::_segsum_kernel``
 What bounds it on the H100 is memory: ``m*d*itemsize + 4*m +
 n*d*itemsize + 4*(n + 1)`` bytes per call. The work is split by rows:
 ``row_pointers_ref`` states the row pointers the kernel's first pass
-writes, ``row_tiles`` the split into tiles, and
+writes, ``row_tiles`` the split into tiles (and ``copy_path`` how the
+tile pass reads the rows), and
 ``segment_sum_tiled_ref`` sums by that split in the kernel's order of
 passes (tile partials first, then the carries of segments that cross
 tiles, in tile order). It does not follow the kernel's order of sums
@@ -36,14 +37,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The plan's limits and choices. csrc/segment_sum.cu refuses a plan that
 # does not fit its own: a stage's rows and ids fit a STAGE_BYTES slot, a
-# warp sums at most MAX_COLS columns, and FOLD_TILES (one a lane) and the
-# carry's rows are checked against its fold pass. A tile's least stages
-# and rows are this plan's choice.
+# warp sums at most MAX_COLS columns, the path follows its rule
+# (``copy_path``), the wide path's block, slice and rows in flight are
+# its WIDE_THREADS, 16 bytes and WIDE_ROWS, and FOLD_TILES (one a lane)
+# and the carry's rows are checked against its fold pass. A tile's least
+# stages and rows, and the wide path's tile, are this plan's choice.
 STAGE_BYTES = 4096
 MAX_COLS = 128
 FOLD_TILES = 32
 TILE_STAGES = 8
 TILE_ROWS = 512
+WIDE_THREADS = 128
+WIDE_ROWS = 8
+WIDE_TILE_ROWS = 128
+# How pass 1 reads a tile's rows (the .cu's codes in order).
+COPY_PATHS = ("stream", "wide", "rows")
 
 
 class RowTiles(NamedTuple):
@@ -51,9 +59,12 @@ class RowTiles(NamedTuple):
     ``tile_rows`` rows (``tiles`` of them), each summed by one warp per
     block of ``col_block`` columns in stages of ``stage_rows`` rows;
     ``lanes`` lanes spread over the columns and ``32 // lanes`` walkers
-    over the rows of a stage, ``walker_rows`` each. ``carry_rows`` rows
-    of two ``d``-float partials (head and tail) hold the carries: one
-    row a tile, then one a group of ``FOLD_TILES`` tiles."""
+    over the rows of a stage, ``walker_rows`` each. On the wide path a
+    block of ``lanes`` threads sums a tile's ``col_block`` columns, each
+    thread ``walker_rows`` rows at a time. ``carry_rows`` rows of two
+    ``d``-float partials (head and tail) hold the carries: one row a
+    tile, then one a group of ``FOLD_TILES`` tiles. ``copy`` is the
+    path (``copy_path``)."""
 
     tile_rows: int
     tiles: int
@@ -62,19 +73,41 @@ class RowTiles(NamedTuple):
     lanes: int
     col_block: int
     carry_rows: int
+    copy: str
 
 
 def _round16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
+def copy_path(d: int, itemsize: int) -> str:
+    """How the kernel's tile pass reads the rows. Rows of at most
+    ``MAX_COLS`` columns: ``"stream"``, a stage of rows is one contiguous
+    bulk copy into shared memory. Wider rows whose stride (``d *
+    itemsize``) is a multiple of 16 bytes: ``"wide"``, each thread of a
+    block loads one 16-byte column slice of every row of the tile into
+    registers (the MoE combines, MACE's messages). Other wide rows:
+    ``"rows"``, one bulk copy a row and column block of ``MAX_COLS``."""
+    if d <= MAX_COLS:
+        return "stream"
+    return "wide" if d * itemsize % 16 == 0 else "rows"
+
+
 def row_tiles(m: int, d: int, itemsize: int) -> RowTiles:
     """The kernel's split of ``m`` sorted rows of ``d`` columns of
-    ``itemsize`` bytes. A stage is as many rows (a multiple of the
-    walkers, an odd number a walker when there are several, so walkers
-    read distinct shared-memory banks) as fit a ``STAGE_BYTES`` slot
-    with their ids and 16 bytes of alignment slack for each; a tile is
-    at least ``TILE_STAGES`` stages and ``TILE_ROWS`` rows."""
+    ``itemsize`` bytes. On the wide path: tiles of ``WIDE_TILE_ROWS``
+    rows, blocks of ``WIDE_THREADS`` threads over ``WIDE_THREADS * 16``
+    bytes of columns, ``WIDE_ROWS`` rows in flight a thread. Otherwise a
+    stage is as many rows (a multiple of the walkers, an odd number a
+    walker when there are several, so walkers read distinct
+    shared-memory banks) as fit a ``STAGE_BYTES`` slot with their ids and
+    16 bytes of alignment slack for each; a tile is at least
+    ``TILE_STAGES`` stages and ``TILE_ROWS`` rows."""
+    path = copy_path(d, itemsize)
+    if path == "wide":
+        tiles = -(-m // WIDE_TILE_ROWS)
+        return RowTiles(WIDE_TILE_ROWS, tiles, WIDE_ROWS, WIDE_ROWS, WIDE_THREADS,
+                        WIDE_THREADS * 16 // itemsize, tiles + -(-tiles // FOLD_TILES), path)
     col_block = min(d, MAX_COLS)
     lanes = 32 if col_block > 16 else 1 << (col_block - 1).bit_length()
     walkers = 32 // lanes
@@ -92,7 +125,8 @@ def row_tiles(m: int, d: int, itemsize: int) -> RowTiles:
     stage = walkers * q
     tile = stage * max(TILE_STAGES, -(-TILE_ROWS // stage))
     tiles = -(-m // tile)
-    return RowTiles(tile, tiles, stage, q, lanes, col_block, tiles + -(-tiles // FOLD_TILES))
+    return RowTiles(tile, tiles, stage, q, lanes, col_block, tiles + -(-tiles // FOLD_TILES),
+                    path)
 
 
 def row_pointers_ref(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -254,12 +288,12 @@ def segment_sum_and_pointers(
     ptr = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
     carry = torch.empty((plan.carry_rows, 2, d), dtype=torch.float32, device=dev)
     fn = function("segment_sum", "segment_sum_run",
-                  (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _L, _I, _I, _L, _P))
+                  (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _L, _I, _I, _L, _I, _P))
     check_status("segment_sum", fn(
         data.data_ptr(), seg_ids.data_ptr(), ptr.data_ptr(), carry.data_ptr(),
         out.data_ptr(), m, num_segments, d, _DTYPES[data.dtype], plan.lanes,
         plan.walker_rows, plan.tile_rows, plan.col_block, FOLD_TILES, plan.carry_rows,
-        torch.cuda.current_stream(dev).cuda_stream,
+        COPY_PATHS.index(plan.copy), torch.cuda.current_stream(dev).cuda_stream,
     ))
     launch_counts["segment_sum"] += 1
     return out, ptr

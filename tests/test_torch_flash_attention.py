@@ -216,8 +216,12 @@ def test_kernel_validation_raises_where_it_did():
         check_kernel_inputs(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         check_kernel_inputs(q, k.float(), k)
-    big = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(1, 1, 65_535 * 128 + 1, 64)
-    with pytest.raises(ValueError, match="Sq <= 65535 \\* 128"):
+    # The bf16 grid is one-dimensional (block_order): its limit is on
+    # B*Hq*ceil(Sq/128), no longer on the query tiles alone.
+    tall = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(1, 1, 65_535 * 128 + 1, 64)
+    check_kernel_inputs(tall, k, k)  # accepted
+    big = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(1, 2**14, 2**17 * 128 + 1, 64)
+    with pytest.raises(ValueError, match="B\\*Hq\\*ceil\\(Sq/128\\) < 2\\*\\*31"):
         check_kernel_inputs(big, k, k)
     wide = torch.zeros(1, 1, 1, 64).expand(1, 65_536, 8, 64)
     with pytest.raises(ValueError, match="B\\*Hq <= 65535"):
@@ -578,3 +582,73 @@ def test_bwd_head_groups_visit_every_live_pair_once(causal, window):
 def test_bwd_head_groups_keep_one_group_at_the_other_training_shapes(shape, tiles):
     b, hq, hkv, s = shape
     assert bwd_head_groups(b, hq, hkv, s, s, True, None, tiles.stat_rows, tiles.block_k) == 1
+
+
+# --- the bf16 forward's block order -----------------------------------------
+
+from repro_torch.kernels.flash_attention.ops import BLOCK_Q, block_order  # noqa: E402
+
+# (B, Hq, Hkv, S, D, Dv) of the main path's bf16 prefills.
+FORWARD_SHAPES = {
+    "qwen3-4b": (2, 32, 8, 4096, 128, 128),
+    "mla": (1, 128, 128, 4096, 192, 128),
+    "mla ragged": (1, 128, 128, 1000, 192, 128),
+    "mla training": (1, 128, 128, 2048, 192, 128),
+    "mixtral": (1, 32, 8, 8192, 128, 128),
+    "gemma-2b": (1, 8, 1, 4096, 256, 256),
+}
+# A third of the H100's 50 MB L2: the K and V that the blocks in flight
+# may read, the rest left to their Q tiles, outputs and other lines.
+KV_IN_FLIGHT = 50_000_000 // 3
+
+
+@pytest.mark.parametrize("name", list(FORWARD_SHAPES))
+def test_block_order_is_a_permutation_longest_first(name):
+    # Every (b, h, query tile) once; the KV heads b * Hkv + kvh in order,
+    # and inside one the query tiles longest causal rows first, each over
+    # the KV head's query heads in order.
+    b, hq, hkv, s, _, _ = FORWARD_SHAPES[name]
+    tiles, group = -(-s // BLOCK_Q), hq // hkv
+    order = block_order(b, hq, hkv, s)
+    assert sorted(order) == [(i, h, t) for i in range(b) for h in range(hq)
+                             for t in range(tiles)]
+    for g in range(b * hkv):
+        block = order[g * group * tiles:(g + 1) * group * tiles]
+        assert {(i * hkv + h // group) for i, h, _ in block} == {g}
+        assert [t for _, _, t in block] == sorted((t for _, _, t in block), reverse=True)
+        assert [h % group for _, h, _ in block] == list(range(group)) * tiles
+
+
+@pytest.mark.parametrize("name", list(FORWARD_SHAPES))
+def test_block_order_keeps_kv_in_flight_under_its_budget(name):
+    # Any H100_SMS consecutive blocks (one a SM) read the K and V of at
+    # most KV_IN_FLIGHT bytes of whole KV heads; at MLA's shapes the
+    # heads-fastest order's first wave read all 128 heads' (335 MB at
+    # S = 4096).
+    b, hq, hkv, s, d, dv = FORWARD_SHAPES[name]
+    order = block_order(b, hq, hkv, s)
+    group, kv_bytes = hq // hkv, s * (d + dv) * 2
+    most = max(len({(i, h // group) for i, h, _ in order[w:w + H100_SMS]})
+               for w in range(max(1, len(order) - H100_SMS + 1)))
+    assert most * kv_bytes <= KV_IN_FLIGHT
+    if name.startswith("mla"):
+        assert min(b * hq, H100_SMS) // group * kv_bytes > 4 * KV_IN_FLIGHT
+
+
+@pytest.mark.parametrize("b, hq, hkv, s", [(1, 8, 1, 4096), (1, 4, 4, 300), (2, 6, 2, 129)])
+def test_block_order_at_its_two_ends(b, hq, hkv, s):
+    # One KV head a batch (MQA): every query head of a tile together, the
+    # heads-fastest order of a (B * Hq, query tiles) grid; one query head a
+    # KV head: each head's tiles in a row. Between: KV head by KV head.
+    tiles = -(-s // BLOCK_Q)
+    order = block_order(b, hq, hkv, s)
+    if hkv == 1:
+        assert order == [(i, h, tiles - 1 - r) for i in range(b) for r in range(tiles)
+                         for h in range(hq)]
+    elif hkv == hq:
+        assert order == [(i, h, tiles - 1 - r) for i in range(b) for h in range(hq)
+                         for r in range(tiles)]
+    else:
+        group = hq // hkv
+        assert order == [(i, kvh * group + j, tiles - 1 - r) for i in range(b)
+                         for kvh in range(hkv) for r in range(tiles) for j in range(group)]

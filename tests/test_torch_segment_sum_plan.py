@@ -124,8 +124,17 @@ def test_row_tiles_fit_the_kernel(d, itemsize):
     # least TILE_STAGES stages and TILE_ROWS rows, 32 // lanes walkers
     # (an odd number of rows each when there are several), and at most
     # four columns a lane; the carry holds a row for each tile and for
-    # each fold group.
+    # each fold group. Rows wider than a column block whose stride is a
+    # multiple of 16 bytes (300 float32 columns) take the wide path
+    # instead (test_wide_plan_reads_each_row_slice_once).
     plan = ops.row_tiles(61_859_140, d, itemsize)
+    assert plan.tiles == -(-61_859_140 // plan.tile_rows)
+    assert plan.carry_rows == plan.tiles + -(-plan.tiles // ops.FOLD_TILES)
+    if plan.copy == "wide":
+        assert d > ops.MAX_COLS and d * itemsize % 16 == 0
+        assert plan.lanes == ops.WIDE_THREADS and plan.col_block * itemsize == 16 * plan.lanes
+        assert plan.tile_rows % ops.WIDE_ROWS == 0
+        return
     walkers = 32 // plan.lanes
     assert plan.lanes * walkers == 32
     assert plan.stage_rows == walkers * plan.walker_rows
@@ -138,8 +147,88 @@ def test_row_tiles_fit_the_kernel(d, itemsize):
     assert data + -(-rows * 4 // 16) * 16 + 16 <= ops.STAGE_BYTES
     assert plan.tile_rows % plan.stage_rows == 0
     assert plan.tile_rows >= max(ops.TILE_ROWS, ops.TILE_STAGES * plan.stage_rows)
-    assert plan.tiles == -(-61_859_140 // plan.tile_rows)
+
+
+WIDE = (129, 300, 320, 384, 640, 1024, 1033, 1433, 4096, 7167, 7168)
+
+
+@pytest.mark.parametrize("d", WIDE)
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_wide_plan_reads_each_row_slice_once(d, itemsize):
+    # Rows wider than a column block: the row stride picks the path. A
+    # stride that is a multiple of 16 bytes takes the wide path: a block
+    # of WIDE_THREADS threads a tile and column block, each thread one
+    # 16-byte slice of every row, 16-byte aligned in every row, so the
+    # blocks' slices cover each row's columns once; WIDE_ROWS rows in
+    # flight a thread, whole rounds of them a tile. Any other stride
+    # copies a stage into shared memory row by row, each row widened to
+    # 16 bytes in a slice of its own, the stage and its ids in a slot.
+    m = 32_768
+    plan = ops.row_tiles(m, d, itemsize)
+    assert plan.copy == ops.copy_path(d, itemsize)
+    assert plan.copy == ("wide" if d * itemsize % 16 == 0 else "rows")
+    assert plan.tiles == -(-m // plan.tile_rows)
     assert plan.carry_rows == plan.tiles + -(-plan.tiles // ops.FOLD_TILES)
+    if plan.copy == "wide":
+        assert plan.lanes == ops.WIDE_THREADS
+        assert plan.col_block * itemsize == ops.WIDE_THREADS * 16
+        assert plan.walker_rows == plan.stage_rows == ops.WIDE_ROWS
+        assert plan.tile_rows == ops.WIDE_TILE_ROWS and plan.tile_rows % ops.WIDE_ROWS == 0
+        per = 16 // itemsize  # columns a thread
+        slices = [(c0 + t * per, c0 + (t + 1) * per)
+                  for c0 in range(0, d, plan.col_block) for t in range(plan.lanes)
+                  if c0 + t * per < d]
+        assert [c for lo, hi in slices for c in range(lo, hi)] == list(range(d))
+        assert all(lo * itemsize % 16 == 0 and d * itemsize % 16 == 0 for lo, _ in slices)
+        return
+    assert plan.col_block == ops.MAX_COLS and plan.lanes == 32
+    assert plan.walker_rows == plan.stage_rows
+    slot = -(-plan.col_block * itemsize // 16) * 16 + 16
+    ids = -(-plan.stage_rows * 4 // 16) * 16 + 16
+    assert plan.stage_rows * slot + ids <= ops.STAGE_BYTES
+    assert (plan.stage_rows + 1) * slot + -(-(plan.stage_rows + 1) * 4 // 16) * 16 + 16 \
+        > ops.STAGE_BYTES
+    assert plan.tile_rows % plan.stage_rows == 0
+    assert plan.tile_rows >= max(ops.TILE_ROWS, ops.TILE_STAGES * plan.stage_rows)
+
+
+@pytest.mark.parametrize("d,itemsize,path", [
+    (1, 4, "stream"), (100, 4, "stream"), (128, 2, "stream"), (129, 4, "rows"),
+    (129, 2, "rows"), (132, 4, "wide"), (136, 2, "wide"), (4096, 2, "wide"),
+    (7168, 2, "wide"), (7167, 2, "rows"), (1433, 4, "rows"), (384, 4, "wide"),
+])
+def test_copy_path_by_width_and_stride(d, itemsize, path):
+    assert ops.copy_path(d, itemsize) == path
+
+
+@pytest.mark.parametrize("d", [1024, 1033])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [2, 8])
+def test_tiled_sum_at_the_wide_plan_matches_pallas_and_oracle_bit_for_bit(d, dtype, k):
+    # Combine-like rows: k rows a token, token-major, with a dropped id
+    # before the first token and the sentinel id T after the last, summed
+    # by the wide plan's tiles (several tiles, segments crossing them): on
+    # the wide path (1,024 columns) and the row-by-row one (1,033).
+    # Integer-valued data: every order of the sums is exact, also in bf16.
+    tokens = 150 if k == 8 else 600
+    ids = np.concatenate([[-1], np.repeat(np.arange(tokens), k), [tokens, tokens]])
+    ids = ids.astype(np.int32)
+    m = ids.shape[0]
+    x = np.random.default_rng(d + k).integers(-8, 9, (m, d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    plan = ops.row_tiles(m, d, torch.finfo(tdt).bits // 8)
+    assert plan.tiles >= 2 and plan.copy == ("wide" if d == 1024 else "rows")
+    data, tids = torch.from_numpy(x).to(tdt), torch.from_numpy(ids)
+    got = ops.segment_sum_tiled_ref(data, tids, tokens, plan.tile_rows)
+    assert got.dtype == tdt
+    want = segment_sum_sorted_ref(data, tids, tokens)
+    np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+    jx = jnp.asarray(x, dtype=getattr(jnp, dtype))
+    jids = jnp.asarray(ids)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(jax_ref(jx, jids, tokens), np.float32))
+    pallas = jax_segment_sum_sorted(jx, jids, tokens, impl="pallas", block_e=128, block_s=32)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(pallas, np.float32))
 
 
 def test_kernel_launch_refuses_cpu_tensors():
