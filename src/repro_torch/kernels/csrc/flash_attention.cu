@@ -243,18 +243,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const uint32_t empty_k = full_v + 8 * kStages;
   const uint32_t empty_v = empty_k + 8 * kStages;
 
-  // The block's head and query tile by ops.py::block_order: its KV head
-  // g = b * Hkv + kvh, its rank r / group in g's longest-first tiles and its
-  // query head r % group among g's.
-  const int group = p.hq / p.hkv;
-  const int tiles = (p.sq + kBlockM - 1) / kBlockM;
-  const int g = static_cast<int>(blockIdx.x) / (group * tiles);
-  const int r = static_cast<int>(blockIdx.x) - g * group * tiles;
-  const int bh = g * group + r % group;
-  const int b = bh / p.hq;
-  const int h = bh % p.hq;
-  const int kvh = h / group;
-  const int q0 = (tiles - 1 - r / group) * kBlockM;  // longest rows first
+  // The block's head and query tile by ops.py::block_order.
+  int b, h, q0;
+  block_of(static_cast<int>(blockIdx.x), p.hq, p.hkv, p.sq, kBlockM, b, h, q0);
+  const int bh = b * p.hq + h;
+  const int kvh = h / (p.hq / p.hkv);
   const int q1 = min(q0 + kBlockM, p.sq) - 1;
   int lo, hi;
   kv_tile_range(p.sk, p.causal, p.window, q0, q1, BK, lo, hi);

@@ -45,10 +45,13 @@
 // as the next multiple (TMA fills zeros). D's and Dv's widths are separate
 // template arguments (TcBwd<DP, DVP>, whose comment reckons each instance's
 // registers and shared memory).
-//   1. attn_bwd_dq_tc, one block a (b * Hq + h, query tile of 128 rows), the
-//      longest causal rows first. The producer loads Q and dO once and
-//      streams K and V tiles of BK1 keys (128; 64 at (192, 128) and 48 at
-//      256: dQ's 96 or 128 registers leave too few for wider S and dP) on
+//   1. attn_bwd_dq_tc, one block a (b * Hq + h, query tile of 128 rows), on
+//      the forward's 1-D grid (ops.py::block_order: KV head by KV head, the
+//      longest causal rows first inside one), so the blocks in flight read
+//      the K and V of a few KV heads, which stay in L2. The producer loads
+//      Q and dO once and streams K and V tiles of BK1 keys (128; 64 at
+//      (192, 128) and 48 at 256: dQ's 96 or 128 registers leave too few for
+//      wider S and dP) on
 //      kv_tile_range, the forward's schedule. Each consumer owns 64 rows: it
 //      takes D_i = rowsum(dO o O) over Dv and the rows' lse in its prologue
 //      (and writes both for pass 2, the lse in log2 units), then per tile S =
@@ -57,9 +60,12 @@
 //      registers, and dQ += dS K with dS as the register A operand and K
 //      read MN-major (as the forward reads V). Three products.
 //   2. attn_bwd_dkdv_tc, one block a (b * Hkv + KV head, group of the KV
-//      head's query heads, key tile), the first key tiles first. K and V stay
-//      resident; the producer streams tiles of RK query rows of Q and dO (64;
-//      32 at (192, 128)), with their (lse, D_i), for each query head
+//      head's query heads, key tile), the first key tiles first over every
+//      KV head. (KV head by KV head, as pass 1, it was no faster at (192,
+//      128), whose Q/dO streams do not bound it, and slower at D = 128,
+//      where 256 blocks on 132 SMs left a tail.) K and V stay resident;
+//      the producer streams tiles of RK query rows of Q and dO (64; 32 at
+//      (192, 128)), with their (lse, D_i), for each query head
 //      of the block's group and each query tile that holds a live pair for
 //      the key tile (bwd_tile_plan in ops.py). S^T = K Q^T and dP^T = V dO^T
 //      from shared memory, P^T and dS^T in registers with lse and D_i indexed
@@ -692,11 +698,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const uint32_t empty_k = full_v + 8 * STAGES;
   const uint32_t empty_v = empty_k + 8 * STAGES;
 
-  const int bh = blockIdx.x;
-  const int b = bh / p.hq;
-  const int h = bh % p.hq;
+  // The block's head and query tile in the forward's order
+  // (ops.py::block_order).
+  int b, h, q0;
+  block_of(static_cast<int>(blockIdx.x), p.hq, p.hkv, p.sq, kTcRowsQ, b, h, q0);
+  const int bh = b * p.hq + h;
   const int kvh = h / (p.hq / p.hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRowsQ;  // longest rows first
   const int q1 = min(q0 + kTcRowsQ, p.sq) - 1;
   int lo, hi;
   kv_tile_range(p.sk, p.causal, p.window, q0, q1, BK, lo, hi);
@@ -1263,8 +1270,12 @@ int run_tc(const void* q, const void* k, const void* v, int batch, const long lo
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(Shape::SMEM2));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(batch * tp.hq, (tp.sq + kTcRowsQ - 1) / kTcRowsQ);
-  attn_bwd_dq_tc<DP, DVP><<<grid_q, kTcThreads, Shape::SMEM1, stream>>>(tq1, tk1, tv1, tdo1, tp);
+  // Pass 1: a 1-D grid of (head, query tile) blocks in ops.py::block_order.
+  const long long blocks1 =
+      static_cast<long long>(batch) * tp.hq * ((tp.sq + kTcRowsQ - 1) / kTcRowsQ);
+  if (blocks1 > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  attn_bwd_dq_tc<DP, DVP><<<static_cast<unsigned>(blocks1), kTcThreads, Shape::SMEM1, stream>>>(
+      tq1, tk1, tv1, tdo1, tp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_k(batch * tp.hkv * tp.groups, (tp.sk + Shape::KEYS2 - 1) / Shape::KEYS2);

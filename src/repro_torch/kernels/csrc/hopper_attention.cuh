@@ -38,6 +38,23 @@ __device__ __forceinline__ void kv_tile_range(int sk, int causal, int window, in
   if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / bk;
 }
 
+// Block `block` of a 1-D grid of (query head, tile of `rows` query rows)
+// blocks in ops.py::block_order, as the forward and the backward's first
+// pass launch them: KV head g = b * Hkv + kvh by KV head; inside one, the
+// query tiles longest causal rows first, each over g's Hq / Hkv query heads
+// in order. Gives the block's batch b, query head h and first row q0.
+__device__ __forceinline__ void block_of(int block, int hq, int hkv, int sq, int rows, int& b,
+                                         int& h, int& q0) {
+  const int group = hq / hkv;
+  const int tiles = (sq + rows - 1) / rows;
+  const int g = block / (group * tiles);
+  const int r = block - g * group * tiles;
+  const int bh = g * group + r % group;
+  b = bh / hq;
+  h = bh % hq;
+  q0 = (tiles - 1 - r / group) * rows;
+}
+
 __device__ __forceinline__ bool masked(int causal, int window, int qpos, int kpos) {
   return (causal && kpos > qpos) || (window > 0 && qpos - kpos >= window);
 }

@@ -22,7 +22,8 @@ strides whose last is 1: the kernel reads them through TMA tensor maps,
 so the model's transposed ``(B, S, H, D)`` views need no copy, and the
 output is allocated with ``q``'s strides, so its transpose back is a
 view. ``kv_tile_plan`` states the kernel's tile schedule, and
-``block_order`` the order of its blocks (bf16).
+``block_order`` the order of its blocks (bf16; the backward's first pass
+runs its blocks in the same order).
 
 Gradients: on the card, inputs that require grad go through
 ``_Attention``, a ``torch.autograd.Function`` whose forward is the
@@ -68,8 +69,9 @@ SPLIT_HEAD_DIMS = ((192, 128),)
 # (wgmma, float32 accumulators), float32 in float32 FMA (never TF32).
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Query rows a block of the bf16 kernel; the float32 kernel's grid.y is
-# B * Hq, and the backward's grids put tiles on y, under this limit. The
-# bf16 forward's blocks, in block_order, are at most MAX_GRID_X.
+# B * Hq, and the backward's second pass (and both fma passes) put tiles
+# on y, under this limit. The bf16 forward's blocks and the wgmma
+# backward's first pass's, in block_order, are at most MAX_GRID_X.
 BLOCK_Q = 128
 MAX_GRID_Y = 65_535
 MAX_GRID_X = 2**31 - 1
@@ -250,14 +252,16 @@ def kv_tile_plan(
 
 def block_order(batch: int, hq: int, hkv: int, sq: int) -> list[tuple[int, int, int]]:
     """The bf16 forward's blocks in launch order, as
-    ``csrc/flash_attention.cu`` decodes its one-dimensional block index:
-    ``(b, h, query tile)`` for each. The blocks go by KV head (``b * Hkv
-    + kvh``); inside one the query tiles go longest first (the causal
-    rows that visit the most K/V tiles), each tile over the KV head's
-    ``Hq // Hkv`` query heads in order. So the blocks in flight read the
-    K and V of a few KV heads, which stay in L2 while their query tiles
-    pass, and the short tiles at each KV head's end fill the card behind
-    the long ones."""
+    ``csrc/flash_attention.cu`` decodes its one-dimensional block index
+    (``hopper_attention.cuh::block_of``), and those of the wgmma
+    backward's first pass (``csrc/flash_attention_bwd.cu``, whose query
+    tiles are ``BLOCK_Q`` rows too): ``(b, h, query tile)`` for each.
+    The blocks go by KV head (``b * Hkv + kvh``); inside one the query
+    tiles go longest first (the causal rows that visit the most K/V
+    tiles), each tile over the KV head's ``Hq // Hkv`` query heads in
+    order. So the blocks in flight read the K and V of a few KV heads,
+    which stay in L2 while their query tiles pass, and the short tiles at
+    each KV head's end fill the card behind the long ones."""
     tiles = -(-sq // BLOCK_Q)
     group = hq // hkv
     order = []
@@ -505,12 +509,23 @@ def _bwd_operand(x: torch.Tensor):
 
 
 def check_backward_grid(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise ``ValueError`` where the backward kernel's grids (query tiles
-    of pass 1, key tiles of pass 2, on grid.y) would pass their limit, at
-    the instance's ``bwd_tiles``."""
-    sq, sk = q.shape[2], k.shape[2]
+    """Raise ``ValueError`` where the backward kernel's grids would pass
+    their limit, at the instance's ``bwd_tiles``. The wgmma design's first
+    pass is one-dimensional (``block_order``): B * Hq * ceil(Sq / block_q)
+    blocks, at most ``MAX_GRID_X``. Its second pass, and both passes of
+    the fma design, put the key tiles (pass 2) or query tiles (pass 1) on
+    grid.y, at most ``MAX_GRID_Y``."""
+    b, hq, sq = q.shape[:3]
+    sk = k.shape[2]
     tiles = bwd_tiles(q.dtype, q.shape[3], v.shape[3])
     bq, bk = tiles.block_q, tiles.block_k
+    if bwd_design(q.dtype, q.shape[3], v.shape[3]) == "wgmma":
+        if b * hq * -(-sq // bq) > MAX_GRID_X or -(-sk // bk) > MAX_GRID_Y:
+            raise ValueError(
+                f"flash_attention's backward kernel takes B*Hq*ceil(Sq/{bq}) <= 2**31 - 1 "
+                f"and Sk <= 65535 * {bk} for {q.dtype}; got B*Hq={b * hq}, Sq={sq}, Sk={sk}"
+            )
+        return
     if -(-sq // bq) > MAX_GRID_Y or -(-sk // bk) > MAX_GRID_Y:
         raise ValueError(
             f"flash_attention's backward kernel takes Sq <= 65535 * {bq} and "

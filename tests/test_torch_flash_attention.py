@@ -298,6 +298,7 @@ def test_plain_route_keeps_autograd():
 
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     HEAD_DIMS,
+    MAX_GRID_X,
     MAX_GRID_Y,
     SPLIT_HEAD_DIMS,
     H100_SMS,
@@ -491,12 +492,25 @@ def test_bwd_schedules_at_mla_training_shape(kernel_pass):
     (torch.float32, 64, 64, 16, 16),
 ])
 def test_check_backward_grid_follows_the_tiles(dtype, d, dv, rows, keys):
-    def call(sq, sk):
-        q = torch.empty(1, 1, sq, d, dtype=dtype, device="meta")
-        k = torch.empty(1, 1, sk, d, dtype=dtype, device="meta")
-        v = torch.empty(1, 1, sk, dv, dtype=dtype, device="meta")
+    def call(sq, sk, heads=1):
+        q = torch.empty(1, heads, sq, d, dtype=dtype, device="meta")
+        k = torch.empty(1, heads, sk, d, dtype=dtype, device="meta")
+        v = torch.empty(1, heads, sk, dv, dtype=dtype, device="meta")
         check_backward_grid(q, k, v)
 
+    if dtype == torch.bfloat16:
+        # The wgmma design's pass 1 is a 1-D grid of B * Hq tiles of `rows`
+        # query rows, at most 2**31 - 1 blocks; pass 2 puts its key tiles
+        # of `keys` keys on grid.y.
+        heads = MAX_GRID_X // 1024
+        call(1024 * rows, MAX_GRID_Y * keys, heads)
+        call(MAX_GRID_Y * rows + 1, 1)
+        limit = f"ceil\\(Sq/{rows}\\) <= 2\\*\\*31 - 1 and Sk <= 65535 \\* {keys}"
+        with pytest.raises(ValueError, match=limit):
+            call(1024 * rows + 1, 1, heads)
+        with pytest.raises(ValueError, match=limit):
+            call(1, MAX_GRID_Y * keys + 1)
+        return
     call(MAX_GRID_Y * rows, MAX_GRID_Y * keys)
     with pytest.raises(ValueError, match=f"Sq <= 65535 \\* {rows} and Sk <= 65535 \\* {keys}"):
         call(MAX_GRID_Y * rows + 1, 1)
@@ -652,3 +666,75 @@ def test_block_order_at_its_two_ends(b, hq, hkv, s):
         group = hq // hkv
         assert order == [(i, kvh * group + j, tiles - 1 - r) for i in range(b)
                          for kvh in range(hkv) for r in range(tiles) for j in range(group)]
+
+
+# --- the wgmma backward's block orders ---------------------------------------
+
+# (B, Hq, Hkv, S, D, Dv) of the backward's main-path shapes and small
+# ragged ones.
+BACKWARD_SHAPES = {
+    "qwen3-4b training": (1, 32, 8, 4096, 128, 128),
+    "mla training": (1, 128, 128, 2048, 192, 128),
+    "gemma-2b training": (1, 8, 1, 4096, 256, 256),
+    "gqa ragged": (2, 6, 2, 300, 128, 128),
+    "mla ragged": (2, 4, 4, 777, 192, 128),
+}
+
+
+@pytest.mark.parametrize("name", list(BACKWARD_SHAPES))
+def test_bwd_pass1_runs_in_block_order(name):
+    # Pass 1's blocks are the forward's (b, h, 128-row query tile) blocks
+    # in block_order: each once, KV heads contiguous in order, the longest
+    # causal tiles first inside one.
+    b, hq, hkv, s, d, dv = BACKWARD_SHAPES[name]
+    assert bwd_tiles(torch.bfloat16, d, dv).block_q == BLOCK_Q
+    tiles, group = -(-s // BLOCK_Q), hq // hkv
+    order = block_order(b, hq, hkv, s)
+    assert sorted(order) == [(i, h, t) for i in range(b) for h in range(hq)
+                             for t in range(tiles)]
+    kv_heads = [i * hkv + h // group for i, h, _ in order]
+    assert kv_heads == sorted(kv_heads)
+    for g in range(b * hkv):
+        block = order[g * group * tiles:(g + 1) * group * tiles]
+        assert [t for _, _, t in block] == sorted((t for _, _, t in block), reverse=True)
+
+
+@pytest.mark.parametrize("name", ["mla training", "mla ragged"])
+def test_bwd_pass1_keeps_mla_kv_in_flight_under_the_budget(name):
+    # At MLA's shapes (H = Hkv) any H100_SMS consecutive pass-1 blocks read
+    # the K and V of at most KV_IN_FLIGHT bytes of whole heads (1.31 MB a
+    # head at (192, 128) and S = 2048); the (B * Hq, query tiles) grid
+    # that pass 1 launched before, heads fastest, read all 128 heads' (168
+    # MB) in its first wave at the training shape.
+    b, hq, hkv, s, d, dv = BACKWARD_SHAPES[name]
+    head_bytes = s * (d + dv) * 2
+    heads = [(i, h) for i, h, _ in block_order(b, hq, hkv, s)]
+    most = max(len(set(heads[w:w + H100_SMS]))
+               for w in range(max(1, len(heads) - H100_SMS + 1)))
+    assert most * head_bytes <= KV_IN_FLIGHT
+    if name == "mla training":
+        head_on_x = [(0, h) for _ in range(-(-s // BLOCK_Q)) for h in range(hq)]
+        assert len(set(head_on_x[:H100_SMS])) * head_bytes > 4 * KV_IN_FLIGHT
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 1, 128), (2, 64, 8, 4096), (1, 4096, 4096, 1)])
+def test_check_backward_grid_raises_at_the_one_dimensional_limit(shape):
+    # bf16 (wgmma): pass 1 launches B * Hq * ceil(Sq / 128) blocks on a 1-D
+    # grid, at most 2**31 - 1, at D = 128 and (192, 128); pass 2 keeps its
+    # key tiles on grid.y. The fma design's 2-D grids are not bound by
+    # B * Hq.
+    b, hq, hkv, s = shape
+    for d, dv in ((128, 128), (192, 128)):
+        def call(sq, sk, dtype=torch.bfloat16):
+            q = torch.empty(b, hq, sq, d, dtype=dtype, device="meta")
+            k = torch.empty(b, hkv, sk, d, dtype=dtype, device="meta")
+            v = torch.empty(b, hkv, sk, dv, dtype=dtype, device="meta")
+            check_backward_grid(q, k, v)
+
+        most = MAX_GRID_X // (b * hq) * BLOCK_Q  # query rows at the limit
+        call(most, s)
+        with pytest.raises(ValueError, match="B\\*Hq\\*ceil\\(Sq/128\\) <= 2\\*\\*31 - 1"):
+            call(most + BLOCK_Q, s)
+    q = torch.empty(b, hq, MAX_GRID_Y * 16, 64, device="meta")
+    k = torch.empty(b, hkv, MAX_GRID_Y * 16, 64, device="meta")
+    check_backward_grid(q, k, k)  # float32: the fma design's grid.y
